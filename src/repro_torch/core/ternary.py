@@ -1,0 +1,131 @@
+"""Ternary (1.58-bit) quantization and base-3 packing — the paper's W1.58A8.
+
+Weights are in {-1, 0, +1} with one per-tensor f32 scale (BitNet b1.58
+absmean recipe); activations are int8 with a per-token absmax scale.
+Groups of ``g`` ternary values along the reduction axis are packed into one
+base-3 code ``sum_i (w_i + 1) * 3^i``: g=5 fits a uint8 (1.6 bits/weight),
+the paper's FPGA uses g=3.
+
+Counterpart of ``repro/core/ternary.py``.  Every function computes the same
+integers as the JAX one from the same inputs: ``torch.round`` rounds half to
+even like ``jnp.round``, and IEEE division is correctly rounded in both.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+DEFAULT_G = 5   # 3^5 = 243 codes fit a uint8 (the paper's FPGA uses 3)
+
+_POW3 = (1, 3, 9, 27, 81, 243, 729)
+
+
+# ---------------------------------------------------------------------------
+# Ternary weight quantization (BitNet b1.58 absmean recipe)
+# ---------------------------------------------------------------------------
+
+def absmean_scale(w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-tensor absmean scale: gamma = max(mean(|W|), eps), f32 scalar."""
+    return torch.clamp_min(w.float().abs().mean(), eps)
+
+
+def ternarize(w: torch.Tensor, eps: float = 1e-5
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W_t = clip(round(W / gamma), -1, 1) -> (int8 ternary, f32 gamma)."""
+    gamma = absmean_scale(w, eps)
+    wt = torch.clamp(torch.round(w.float() / gamma), -1.0, 1.0)
+    return wt.to(torch.int8), gamma
+
+
+# ---------------------------------------------------------------------------
+# INT8 activation quantization (per-token absmax)
+# ---------------------------------------------------------------------------
+
+def absmax_quant_values(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """absmax_quant with the quantized values kept in f32 (already rounded
+    and clipped) — the exact-GEMM operand of the pre-decoded path."""
+    xf = x.float()
+    amax = torch.clamp_min(xf.abs().amax(dim=dim, keepdim=True), eps)
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q, scale
+
+
+def absmax_quant(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token absmax int8 quantization: (int8 values, f32 scale with the
+    quantized dim kept at size 1) such that x ~= values * scale."""
+    q, scale = absmax_quant_values(x, dim, eps)
+    return q.to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
+# Base-3 group packing (the TLMM weight-index encoding)
+# ---------------------------------------------------------------------------
+
+def pad_to_group(n: int, g: int) -> int:
+    return ((n + g - 1) // g) * g
+
+
+def pack_ternary(wt: torch.Tensor, g: int = DEFAULT_G,
+                 row_multiple: int = 1) -> torch.Tensor:
+    """int8 {-1,0,1} (n, ...) -> uint8 codes (rows, ...), rows = ceil(n/g)
+    rounded up to ``row_multiple``.  Padding rows hold weight 0 (digit 1),
+    the paper's WBMU buffer padding."""
+    if g > 5:
+        raise ValueError("g > 5 does not fit a uint8 container")
+    n = wt.shape[0]
+    n_pad = pad_to_group(n, g * row_multiple)
+    digits = wt.to(torch.int32) + 1                       # {0, 1, 2}
+    if n_pad != n:
+        pad = torch.ones((n_pad - n,) + tuple(wt.shape[1:]),
+                         dtype=torch.int32, device=wt.device)
+        digits = torch.cat([digits, pad], dim=0)
+    grouped = digits.reshape((n_pad // g, g) + tuple(wt.shape[1:]))
+    pow3 = torch.tensor(_POW3[:g], dtype=torch.int32, device=wt.device)
+    pow3 = pow3.reshape((1, g) + (1,) * (wt.dim() - 1))
+    return (grouped * pow3).sum(dim=1).to(torch.uint8)
+
+
+def unpack_ternary(codes: torch.Tensor, g: int = DEFAULT_G,
+                   n: int | None = None) -> torch.Tensor:
+    """Inverse of pack_ternary: uint8 codes -> int8 {-1,0,1} along dim 0,
+    cut to the first ``n`` rows when given."""
+    c = codes.to(torch.int32)
+    digs = []
+    for _ in range(g):
+        digs.append(c % 3 - 1)
+        c = c // 3
+    w = torch.stack(digs, dim=1)                           # (groups, g, ...)
+    w = w.reshape((codes.shape[0] * g,) + tuple(codes.shape[1:]))
+    if n is not None:
+        w = w[:n]
+    return w.to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Plain ternary matmuls
+# ---------------------------------------------------------------------------
+
+def ternary_matmul_ref(a_q: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """int8 activations (m, n) x ternary int8 (n, k) -> int32 (m, k).
+
+    Computed as a float64 product, which is exact for every integer sum
+    below 2^53 whatever the summation order, and runs on the CPU and on the
+    card alike (the card has no int32 matmul in PyTorch)."""
+    return (a_q.double() @ wt.double()).to(torch.int32)
+
+
+def ternary_matmul_packed(a_q: torch.Tensor, codes: torch.Tensor,
+                          g: int) -> torch.Tensor:
+    """Unpack base-3 codes, then the int8 product.  Activations are
+    zero-padded up to the row-padded packed length rows * g (the padding
+    rows hold weight 0)."""
+    n_pad = codes.shape[0] * g
+    wt = unpack_ternary(codes, g)
+    if a_q.shape[-1] < n_pad:
+        a_q = torch.nn.functional.pad(a_q, (0, n_pad - a_q.shape[-1]))
+    return ternary_matmul_ref(a_q[..., :n_pad], wt)

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
+device (``pytest -m gpu tests/test_torch_gpu.py`` on the card; every test
+skips without one).  Imports no JAX, so it runs where JAX is not installed.
+
+tlmm and the packed linear are compared for equality (int32 sums); the f32
+attention kernels within 2e-5 absolute and relative — they sum in another
+order than the dense plain versions, a few ULPs of values of order one.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import bitlinear, ternary
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.tlmm import ops as tlmm_ops
+from repro_torch.kernels.tlmm import ref as tlmm_ref
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,g,row_multiple", [
+    (1, 1536, 1536, 5, 64), (70, 165, 130, 5, 1), (5, 96, 64, 3, 8),
+    (130, 4096, 200, 5, 64), (3, 64, 48, 4, 1)])
+def test_tlmm_kernel_equals_plain(cuda, m, n, k, g, row_multiple):
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    w = torch.randint(-1, 2, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    codes = ternary.pack_ternary(w, g, row_multiple)
+    a = torch.randint(-128, 128, (m, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    before = launch_counts()["tlmm"]
+    got = tlmm_ops.tlmm(a, codes, g=g)
+    assert launch_counts()["tlmm"] == before + 1
+    torch.testing.assert_close(got, tlmm_ref.tlmm_ref(a, codes, g, n),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_apply_packed_kernel_equals_predecoded(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = bitlinear.pack(bitlinear.init(gen, 1536, 4096, bias=True))
+    x = torch.randn(7, 1536, generator=gen, device=cuda)
+    got = bitlinear.apply_packed(p, x, out_dtype=torch.float32)
+    want = bitlinear.apply_predecoded(bitlinear.predecode(p), x,
+                                      out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv_h,s,d", [(1, 24, 24, 128, 64),
+                                          (2, 8, 2, 77, 32),
+                                          (1, 4, 1, 50, 128)])
+def test_flash_kernel_matches_plain(cuda, b, h, kv_h, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, s, kv_h, d, generator=gen, device=cuda
+                        ).transpose(1, 2) for _ in range(2))
+    for window in (None, 16):
+        got = fp_ops.flash_prefill(q, k, v, window=window)
+        torch.testing.assert_close(
+            got, fp_ref.flash_prefill_ref(q, k, v, window=window), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv_h,t,S,d,offsets", [
+    (4, 24, 24, 32, 256, 64, [0, 37, 100, 224]),
+    (3, 8, 2, 12, 40, 32, [0, 5, 28]),
+    (2, 4, 4, 20, 64, 128, [44, 3]),
+    (2, 4, 2, 16, 40, 64, [30, 7])])   # row 0's span clamps to S - t
+def test_chunk_kernel_matches_plain(cuda, cache_dtype, b, h, kv_h, t, S, d,
+                                    offsets):
+    gen = torch.Generator(device=cuda).manual_seed(t + S)
+    q = torch.randn(b, t, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(cache_dtype).transpose(1, 2) for _ in range(2))
+    k_new, v_new = (torch.randn(b, t, kv_h, d, generator=gen, device=cuda
+                                ).transpose(1, 2) for _ in range(2))
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    for window in (None, 9):
+        got = fp_ops.flash_chunk_prefill(q, k, v, k_new, v_new, off,
+                                         window=window)
+        torch.testing.assert_close(
+            got, fp_ref.flash_chunk_prefill_ref(q, k, v, k_new, v_new, off,
+                                                window=window), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv_h,S,d,lens", [
+    (4, 24, 24, 256, 64, [1, 77, 200, 257]),   # 257: a lane parked past S
+    (3, 8, 2, 48, 32, [0, 17, 48]),            # an empty row reads as zeros
+    (2, 4, 1, 300, 128, [300, 129])])
+def test_decode_kernel_matches_plain(cuda, kv_dtype, b, h, kv_h, S, d, lens):
+    gen = torch.Generator(device=cuda).manual_seed(S + d)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(kv_dtype).transpose(1, 2) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, v, cl)
+    torch.testing.assert_close(got, da_ref.decode_attention_ref(q, k, v, cl),
+                               **TOL)
+

@@ -1,0 +1,116 @@
+"""Attention kernels: the port's plain versions against the JAX Pallas
+kernels (interpret mode) on the same inputs.  The CUDA kernels are held
+against these plain versions in ``test_torch_gpu.py``.
+
+Float tolerance: 2e-5 absolute and relative in f32, the JAX kernel tests'
+own tolerance against their oracles; the two sides sum in different orders
+(dense softmax vs tiled online softmax), which moves results by a few ULPs
+of values of order one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels.decode_attention import ops as j_da
+from repro.kernels.flash_prefill import ops as j_fp
+from repro.models import attention as j_attn
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,kv_h,s,d,window", [
+    (1, 4, 4, 32, 32, None),     # MHA
+    (2, 4, 2, 37, 16, None),     # GQA 2:1, s not a block multiple
+    (1, 8, 2, 24, 32, None),     # GQA 4:1
+    (1, 2, 2, 40, 16, 8),        # sliding window
+])
+def test_plain_flash_prefill_matches_jax(b, h, kv_h, s, d, window):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_normal(rng, b, hh, s, d) for hh in (h, kv_h, kv_h))
+    want = np.asarray(j_fp.flash_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+        bq=16, bkv=16, interpret=True))
+    got = fp_ops.flash_prefill(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        np.asarray(j_attn.attention_xla_skip(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), window=window)),
+        got.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("b,h,kv_h,t,S,d,offsets,window,cache_dtype", [
+    (3, 4, 2, 12, 40, 16, [0, 5, 28], None, torch.float32),  # ragged, GQA
+    (1, 4, 4, 16, 64, 32, [48], None, torch.bfloat16),  # ends at the row end
+    (2, 2, 1, 8, 48, 16, [0, 20], 6, torch.float32),    # sliding window
+    (2, 4, 2, 8, 24, 16, [3, 16], None, torch.bfloat16),  # bf16, ragged
+])
+def test_plain_chunk_prefill_matches_jax(b, h, kv_h, t, S, d, offsets,
+                                         window, cache_dtype):
+    """The port's chunk attention reads the cache in its dtype plus the
+    chunk's fresh f32 K/V; JAX's chunk kernel gets what the JAX model feeds
+    it, the cache cast to f32 with the chunk's span overlaid.  (A span
+    clamped back to S - t only occurs for masked rows, whose outputs are
+    don't-care; ``test_torch_gpu.py`` holds the kernel to the plain version
+    there.)"""
+    rng = np.random.default_rng(t + S)
+    q = _normal(rng, b, h, t, d)
+    k, v = (torch.from_numpy(_normal(rng, b, kv_h, S, d)).to(cache_dtype)
+            for _ in range(2))
+    k_new, v_new = _normal(rng, b, kv_h, t, d), _normal(rng, b, kv_h, t, d)
+    off = np.asarray(offsets, np.int32)
+    kj, vj = k.float().numpy().copy(), v.float().numpy().copy()
+    for i, o in enumerate(off):
+        kj[i, :, o:o + t] = k_new[i]
+        vj[i, :, o:o + t] = v_new[i]
+    want = np.asarray(j_fp.flash_chunk_prefill(
+        jnp.asarray(q), jnp.asarray(kj), jnp.asarray(vj), jnp.asarray(off),
+        window=window, bq=8, bkv=16, interpret=True))
+    got = fp_ops.flash_chunk_prefill(
+        torch.from_numpy(q), k, v, torch.from_numpy(k_new),
+        torch.from_numpy(v_new), torch.from_numpy(off), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("b,h,kv_h,S,d,lens", [
+    (3, 4, 2, 48, 32, [1, 17, 48]),   # GQA, ragged lengths, one full row
+    (2, 4, 4, 40, 16, [40, 9]),       # S not a multiple of the JAX block
+])
+def test_plain_decode_attention_matches_jax(b, h, kv_h, S, d, lens):
+    """The cache is bf16, as on the serving path; both sides read the same
+    rounded values."""
+    rng = np.random.default_rng(S + d)
+    q = _normal(rng, b, h, 1, d)
+    k, v = _normal(rng, b, kv_h, S, d), _normal(rng, b, kv_h, S, d)
+    cl = np.asarray(lens, np.int32)
+    kj, vj = (jnp.asarray(x).astype(jnp.bfloat16) for x in (k, v))
+    want = np.asarray(j_da.decode_attention(jnp.asarray(q), kj, vj,
+                                            jnp.asarray(cl), bkv=16,
+                                            interpret=True))
+    kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    got = da_ops.decode_attention(torch.from_numpy(q), kt, vt,
+                                  torch.from_numpy(cl))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_plain_decode_attention_ignores_stale_tail():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_normal(rng, 2, 2, 1, 16))
+    k, v = (torch.from_numpy(_normal(rng, 2, 2, 24, 16)) for _ in range(2))
+    cl = torch.tensor([5, 11], dtype=torch.int32)
+    base = da_ref.decode_attention_ref(q, k, v, cl)
+    stale = torch.arange(24)[None, None, :, None] >= cl[:, None, None, None]
+    noisy = da_ref.decode_attention_ref(q, torch.where(stale, 100.0, k),
+                                        torch.where(stale, -100.0, v), cl)
+    torch.testing.assert_close(noisy, base)
