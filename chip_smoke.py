@@ -4,14 +4,19 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it (with times and bounds), serves bitnet-0.73b at full
-width and depth (random weights from a seed) through the continuous-
-batching ``ServingEngine`` with its bf16 cache, and checks that every
-kernel of the path launched.  It then holds the model to its packed-weight
-oracle (``prefill_step`` + ``decode_step``): chunked against monolithic
-prefill logits, decode against prefill logits, and every token of every
-request of the engine run again with an f32 cache, and of the bf16 run,
-against the oracle on the same history.
+serving path gives it (with times and bounds) — the paged kernels also bit
+for bit against their contiguous counterparts on the same rows — and serves
+bitnet-0.73b at full width and depth (random weights from a seed) through
+the continuous-batching ``ServingEngine``: with its bf16 cache, then with a
+paged bf16 cache whose pool is too small for every slot's worst case (the
+paged tokens must equal the contiguous ones), then with int8 KV contiguous
+and paged (equal to each other).  Around each engine path it counts the
+kernel launches and checks that every kernel of that path launched.  It
+then holds the model to its packed-weight oracle (``prefill_step`` +
+``decode_step``): chunked against monolithic prefill logits, decode against
+prefill logits, and every token of every request of the engine run again
+with an f32 cache, of the bf16 run and of the int8 KV run, against the
+oracle on the same history.
 
 Prints, before its last line, one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit; the last line is
@@ -79,18 +84,28 @@ def kernel_us(e) -> float:
 
 
 HOLD_CYCLES = 100_000_000   # a spin of some 50 ms at the H100's clock
+CYCLES_PER_S = 2e9          # above the H100's top clock: holds err long
 
 
 def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call of ``fn``, host excluded: a spin kernel holds
     the stream while the host enqueues ``iters`` warm calls, so the events
-    around them time the calls back to back on the device.  Fails if the
-    host needed longer than the hold to enqueue them."""
+    around them time the calls back to back on the device.  The hold lasts
+    three times the host's time to enqueue the same ``iters`` calls unheld;
+    a host that still outlasts it fails the measurement.  The held stream
+    queues about a thousand launches before the host blocks, so ``iters``
+    times a call's launches must stay below that."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    hold = max(HOLD_CYCLES,
+               int(3 * (time.perf_counter() - t0) * CYCLES_PER_S))
     torch.cuda.synchronize()
     e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     e0.record()
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold)
     e1.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -100,7 +115,8 @@ def device_ms(fn, iters: int = 20) -> float:
     e2.synchronize()
     if enqueue_ms >= e0.elapsed_time(e1):
         raise AssertionError(f"device_ms: enqueue took {enqueue_ms:.1f} ms, "
-                             "longer than the hold")
+                             f"longer than the {e0.elapsed_time(e1):.1f} ms "
+                             "hold")
     return e1.elapsed_time(e2) / iters
 
 
@@ -171,7 +187,9 @@ def main() -> int:
         errs, by = [], {}
         for c in calls:
             ms = device_ms(c["kernel"])
-            pms = device_ms(c["plain"])
+            # a plain version launches up to ~150 kernels per call: 3 calls
+            # stay inside the held stream's launch queue (see device_ms)
+            pms = device_ms(c["plain"], iters=3)
             lms = device_ms(c["library"])
             b_ms, b_by = bound_ms(c["bytes"], c["ops"], c["peak"])
             log(f"  {name} {c['shape']}: max_abs_err {c['err']:.3g}  "
@@ -295,6 +313,148 @@ def main() -> int:
               "bytes": 2 * b * h * d * 4 + keys * h * d * 2 * 2,
               "ops": keys * h * 4 * d, "peak": F32_FLOPS_PER_S}])
 
+    # paged kernels at the same shapes: each slot's rows in shuffled pages
+    # of a pool whose other pages and slack rows hold garbage, at page size
+    # 16 (16 table columns for the 256 rows) and 5 (52 columns: divides
+    # neither the 32-key tile nor the row).  Each is held to its plain
+    # version and, bit for bit, to its contiguous kernel on the same rows.
+    # No one PyTorch call reads through a block table: the library time is
+    # SDPA on a contiguous f32 copy gathered beforehand.
+    def paged_copy(rows, ps, fill):
+        """(b, S, ...) rows -> a (1 + b * n, ps, ...) pool and its (b, n)
+        int32 table."""
+        nb, n_rows, tail = rows.shape[0], rows.shape[1], tuple(rows.shape[2:])
+        n = -(-n_rows // ps)
+        perm = torch.randperm(nb * n, generator=torch.Generator().manual_seed(ps))
+        bt = (perm + 1).reshape(nb, n).to(torch.int32).to(dev)
+        pool = fill((1 + nb * n, ps) + tail)
+        padded = torch.cat([rows, fill((nb, n * ps - n_rows) + tail)], dim=1)
+        pool[bt.long()] = padded.reshape((nb, n, ps) + tail)
+        return pool, bt
+
+    def noise(shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * 100).to(dtype)
+
+    def int8s(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def unit_scales(shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.05
+
+    def check(name, got, want, contiguous):
+        err = (got - want).abs().max().item()
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"{name}: max_abs_err {err} > {ATTN_ATOL}")
+        if not torch.equal(got, contiguous):
+            raise AssertionError(f"{name}: differs from the contiguous kernel")
+        return err
+
+    PAGE_SIZES = (16, 5)
+
+    # paged chunk: the admission wave above against a bf16 pool
+    b, t, S = 4, 32, 256
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+    kr, vr = (torch.randn(b, S, h, d, generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+              for _ in range(2))
+    contiguous = fp_ops.flash_chunk_prefill(q, kr.transpose(1, 2),
+                                            vr.transpose(1, 2), kn, vn, off)
+    calls = []
+    for ps in PAGE_SIZES:
+        (kp, bt), (vp, _) = paged_copy(kr, ps, noise), paged_copy(vr, ps, noise)
+        args = (q, kp, vp, bt, off, kn, vn)
+        err = check(f"paged chunk, page size {ps}",
+                    fp_ops.flash_chunk_prefill_paged(*args),
+                    fp_ref.flash_chunk_prefill_paged_ref(*args), contiguous)
+        kf = fp_ref.overlay_chunk(da_ref.gather_pages_ref(kp, bt), kn, off)
+        vf = fp_ref.overlay_chunk(da_ref.gather_pages_ref(vp, bt), vn, off)
+        cmask = (torch.arange(kf.shape[2], device=dev)[None, None, :]
+                 <= qpos[:, :, None])[:, None]
+        calls.append({
+            "shape": f"q ({b}, {h}, {t}, {d}) vs bf16 pool "
+                     f"{tuple(kp.shape)}, page size {ps}, table "
+                     f"{tuple(bt.shape)}, + f32 chunk, offsets "
+                     f"{off.tolist()}", "err": err,
+            "kernel": lambda a=args: fp_ops.flash_chunk_prefill_paged(*a),
+            "plain": lambda a=args: fp_ref.flash_chunk_prefill_paged_ref(*a),
+            "library": lambda kf=kf, vf=vf, m=cmask: sdpa(q, kf, vf,
+                                                          attn_mask=m),
+            "bytes": (2 * b * h * t * d * 4 + prefix_keys * h * d * 2 * 2
+                      + b * t * h * d * 4 * 2
+                      + 4 * float((-(-off // ps)).sum())),
+            "ops": live_pairs * h * 4 * d, "peak": F32_FLOPS_PER_S})
+    entry("flash_chunk_prefill_paged", "src/repro_torch/csrc/flash_prefill.cu",
+          "src/repro/kernels/flash_prefill/kernel.py:151", calls)
+
+    # paged decode: the decode tick above against a bf16 pool
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).transpose(1, 2)
+    kr, vr = (torch.randn(b, S, h, d, generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    contiguous = da_ops.decode_attention(q, kr.transpose(1, 2),
+                                         vr.transpose(1, 2), cl)
+    calls = []
+    for ps in PAGE_SIZES:
+        (kp, bt), (vp, _) = paged_copy(kr, ps, noise), paged_copy(vr, ps, noise)
+        args = (q, kp, vp, bt, cl)
+        err = check(f"paged decode, page size {ps}",
+                    da_ops.decode_attention_paged(*args),
+                    da_ref.paged_decode_attention_ref(*args), contiguous)
+        kf = da_ref.gather_pages_ref(kp, bt).float()
+        vf = da_ref.gather_pages_ref(vp, bt).float()
+        dmask = (torch.arange(kf.shape[2], device=dev)[None, :]
+                 < cl[:, None])[:, None, None]
+        calls.append({
+            "shape": f"q ({b}, {h}, 1, {d}) vs bf16 pool {tuple(kp.shape)}, "
+                     f"page size {ps}, table {tuple(bt.shape)}, cache_len "
+                     f"{cl.tolist()}", "err": err,
+            "kernel": lambda a=args: da_ops.decode_attention_paged(*a),
+            "plain": lambda a=args: da_ref.paged_decode_attention_ref(*a),
+            "library": lambda kf=kf, vf=vf, m=dmask: sdpa(q, kf, vf,
+                                                          attn_mask=m),
+            "bytes": (2 * b * h * d * 4 + keys * h * d * 2 * 2
+                      + 4 * float((-(-cl // ps)).sum())),
+            "ops": keys * h * 4 * d, "peak": F32_FLOPS_PER_S})
+    entry("decode_attention_paged", "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention/kernel.py:120", calls)
+
+    # paged int8 decode: int8 pools with f32 per-(token, head) scales, held
+    # bit for bit to the contiguous kernel reading the bf16 dequantized copy
+    kr, vr = int8s((b, S, h, d)), int8s((b, S, h, d))
+    ksr, vsr = unit_scales((b, S, h)), unit_scales((b, S, h))
+    contiguous = da_ops.decode_attention(
+        q, da_ref.dequant_bf16(kr, ksr).transpose(1, 2),
+        da_ref.dequant_bf16(vr, vsr).transpose(1, 2), cl)
+    calls = []
+    for ps in PAGE_SIZES:
+        (kp, bt), (vp, _) = paged_copy(kr, ps, int8s), paged_copy(vr, ps, int8s)
+        (ksp, _), (vsp, _) = (paged_copy(x, ps, unit_scales) for x in (ksr, vsr))
+        args = (q, kp, vp, ksp, vsp, bt, cl)
+        err = check(f"paged int8 decode, page size {ps}",
+                    da_ops.decode_attention_paged_quant(*args),
+                    da_ref.paged_decode_attention_quant_ref(*args), contiguous)
+        kf = da_ref.dequant_bf16(da_ref.gather_pages_ref(kp, bt),
+                                 da_ref.gather_scale_pages_ref(ksp, bt)).float()
+        vf = da_ref.dequant_bf16(da_ref.gather_pages_ref(vp, bt),
+                                 da_ref.gather_scale_pages_ref(vsp, bt)).float()
+        dmask = (torch.arange(kf.shape[2], device=dev)[None, :]
+                 < cl[:, None])[:, None, None]
+        calls.append({
+            "shape": f"q ({b}, {h}, 1, {d}) vs int8 pool {tuple(kp.shape)} + "
+                     f"f32 scales, page size {ps}, table {tuple(bt.shape)}, "
+                     f"cache_len {cl.tolist()}", "err": err,
+            "kernel": lambda a=args: da_ops.decode_attention_paged_quant(*a),
+            "plain": lambda a=args: da_ref.paged_decode_attention_quant_ref(*a),
+            "library": lambda kf=kf, vf=vf, m=dmask: sdpa(q, kf, vf,
+                                                          attn_mask=m),
+            "bytes": (2 * b * h * d * 4 + keys * h * (d + 4) * 2
+                      + 4 * float((-(-cl // ps)).sum())),
+            "ops": keys * h * 4 * d, "peak": F32_FLOPS_PER_S})
+    entry("decode_attention_paged_quant",
+          "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention/kernel.py:168", calls)
+
     # -- 4. the serving engine at full width ----------------------------------
     cfg = get_config("bitnet-0.73b")
     master = transformer.init_params(cfg, torch.Generator(device=dev
@@ -320,6 +480,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eng_counts = kernels.launch_counts()
     st = engine.stats
+    mem_contiguous = torch.cuda.max_memory_allocated()
     log(f"engine: bitnet-0.73b L={cfg.n_layers} d={cfg.d_model} slots=4 "
         f"max_seq={max_seq} chunk=32 block=8; {len(reqs)} requests, prompts "
         f"{[len(r.prompt) for r in reqs]}, max_new "
@@ -330,7 +491,7 @@ def main() -> int:
         f"{st['ttft_p95_s']:.4f} s; admissions {st['admissions']} "
         f"(mid-flight {st['mid_flight_admissions']}), waves "
         f"{st['prefill_chunks']}, blocks {st['decode_blocks']}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"max_memory_allocated {mem_contiguous / 2**30:.2f} GiB")
     log(f"engine launches: {eng_counts}")
     for r in reqs:
         if not (r.done and len(r.output) == r.max_new_tokens
@@ -342,21 +503,27 @@ def main() -> int:
 
     # where an engine window's time goes: host-side ops vs device kernels
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run(requests()[:4])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    busy = sum(kernel_us(e) for e in ev) / 1e6
-    log(f"profile: engine window of 4 requests {wall:.3f} s wall (profiled), "
-        f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}")
-    for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
-        log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
-            f"{e.self_cpu_time_total / 1e3:9.1f} ms")
-    for e in sorted(ev, key=lambda e: -kernel_us(e))[:8]:
-        log(f"  device {e.key[:46]:46s} calls {e.count:7d} self "
-            f"{kernel_us(e) / 1e3:9.1f} ms")
+
+    def profile_window(eng, label):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run(requests()[:4])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = prof.key_averages()
+        busy = sum(kernel_us(e) for e in ev) / 1e6
+        log(f"profile, {label}: engine window of 4 requests {wall:.3f} s wall "
+            f"(profiled), device busy {busy:.3f} s, idle share "
+            f"{1 - busy / wall:.3f}")
+        for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
+            log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
+                f"{e.self_cpu_time_total / 1e3:9.1f} ms")
+        for e in sorted(ev, key=lambda e: -kernel_us(e))[:8]:
+            log(f"  device {e.key[:46]:46s} calls {e.count:7d} self "
+                f"{kernel_us(e) / 1e3:9.1f} ms")
+
+    profile_window(engine, "contiguous bf16")
 
     # the engine again with an f32 cache (not counted: a check, not the path)
     reqs32 = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
@@ -366,6 +533,95 @@ def main() -> int:
     log(f"engine tokens, f32 cache:  {[r.output.tolist() for r in reqs32]}")
     log(f"distinct tokens: bf16 {len(set(np.concatenate([r.output for r in reqs])))}"
         f", f32 {len(set(np.concatenate([r.output for r in reqs32])))}")
+    del engine   # the paged run's memory peak then holds one engine too
+    torch.cuda.empty_cache()
+
+    # -- 4b. the paged engine: 25 usable pages of 16 tokens, 400 rows against
+    # the contiguous cache's 4 x 256 = 1024.  Each request's worst case is at
+    # most 10 pages, so none is refused, and 4 slots cannot all hold theirs:
+    # admission must defer.
+    def kv_mib(rows):   # bf16 K and V over every layer
+        return rows * cfg.n_layers * cfg.kv_dim * 2 * 2 / 2**20
+
+    def paged_engine(**kw):
+        return ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                             prefill_chunk=32, decode_block=8, paged=True,
+                             page_size=16, kv_pages=26, **kw)
+
+    def engine_line(name, s, mem=None):
+        extra = "" if mem is None else (f"; max_memory_allocated "
+                                        f"{mem / 2**30:.3f} GiB")
+        log(f"{name}: {s['total_new_tokens']} tokens in {s['wall_s']:.3f} s "
+            f"= {s['tokens_per_s']:.1f} tok/s; decode {s['decode_tok_s']:.1f} "
+            f"tok/s; TTFT p50 {s['ttft_p50_s']:.4f} s p95 "
+            f"{s['ttft_p95_s']:.4f} s; waves {s['prefill_chunks']}, blocks "
+            f"{s['decode_blocks']}" + extra)
+
+    pengine = paged_engine()
+    pengine.run(requests()[:2])                # warm-up, as the contiguous run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    preqs = pengine.run(requests())
+    torch.cuda.synchronize()
+    paged_counts = kernels.launch_counts()
+    mem_paged = torch.cuda.max_memory_allocated()
+    pst = pengine.stats
+    engine_line("engine, contiguous bf16", st, mem_contiguous)
+    engine_line("engine, paged bf16     ", pst, mem_paged)
+    log(f"paged: page size {pst['kv_page_size']}, pool {pst['kv_pool_pages']} "
+        f"pages ({kv_mib(pst['kv_pool_pages'] * 16):.1f} MiB of KV against "
+        f"{kv_mib(4 * max_seq):.1f} MiB contiguous), peak "
+        f"{pst['kv_pages_peak']} pages, reserved peak "
+        f"{pst['kv_reserved_pages_peak']}, live tokens peak "
+        f"{pst['kv_live_tokens_peak']}, admissions deferred "
+        f"{pst['admissions_deferred_pages']}, in use after drain "
+        f"{pst['kv_pages_in_use']}; worst cases "
+        f"{[pengine.worst_case_pages(r) for r in preqs]}")
+    log(f"paged engine launches: {paged_counts}")
+    if not (pst["admissions_deferred_pages"] > 0
+            and 0 < pst["kv_pages_peak"] <= 25
+            and pst["kv_pages_in_use"] == 0):
+        raise AssertionError(f"paged engine pool accounting: {pst}")
+    for r, c in zip(preqs, reqs):
+        if r.output.tolist() != c.output.tolist():
+            raise AssertionError(f"paged tokens {r.output.tolist()} != "
+                                 f"contiguous {c.output.tolist()}")
+    for name in ("flash_chunk_prefill_paged", "decode_attention_paged"):
+        if paged_counts[name] <= 0:
+            raise AssertionError(f"paged engine did not launch {name}")
+    profile_window(pengine, "paged bf16, 25 pages")
+    del pengine
+
+    # -- 4c. int8 KV, contiguous and paged (same pool), token for token ------
+    kv8_contiguous = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                                   prefill_chunk=32, decode_block=8,
+                                   kv_quant=True)
+    kv8_paged = paged_engine(kv_quant=True)
+    for eng in (kv8_contiguous, kv8_paged):
+        eng.run(requests()[:2])                # warm-up, as the bf16 runs
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reqs8 = kv8_contiguous.run(requests())
+    preqs8 = kv8_paged.run(requests())
+    torch.cuda.synchronize()
+    kv8_counts = kernels.launch_counts()
+    engine_line("engine, contiguous int8 KV", kv8_contiguous.stats)
+    engine_line("engine, paged int8 KV     ", kv8_paged.stats)
+    log(f"int8 KV engine launches: {kv8_counts}")
+    log(f"engine tokens, int8 KV: {[r.output.tolist() for r in reqs8]}")
+    for r, c in zip(preqs8, reqs8):
+        if r.output.tolist() != c.output.tolist():
+            raise AssertionError(f"paged int8 tokens {r.output.tolist()} != "
+                                 f"contiguous int8 {c.output.tolist()}")
+    if kv8_paged.stats["admissions_deferred_pages"] <= 0:
+        raise AssertionError("paged int8 engine did not defer admission")
+    for name in ("decode_attention_paged_quant", "flash_chunk_prefill",
+                 "decode_attention"):
+        if kv8_counts[name] <= 0:
+            raise AssertionError(f"int8 KV engines did not launch {name}")
+    profile_window(kv8_contiguous, "contiguous int8 KV")
+    del kv8_contiguous, kv8_paged
 
     # -- 5. the model against its packed-weight oracle ------------------------
     ctx = Ctx()
@@ -413,12 +669,15 @@ def main() -> int:
     # tokens: every step of every request, judged by the oracle on the
     # engine's own history, for both engine runs
     kernels.reset_launch_counts()
-    for dt, run in ((torch.float32, reqs32), (torch.bfloat16, reqs)):
+    for dt, run in ((torch.float32, reqs32), (torch.bfloat16, reqs),
+                    ("int8 KV", reqs8)):
         gaps = []
         for r in run:
-            ref_toks, g_r = reference_decode(cfg, packed, ctx, r.prompt,
-                                             len(r.output), max_seq, dt,
-                                             follow=r.output)
+            # int8 KV is judged against the bf16-cache oracle: its rounding
+            # is a perturbation of the same kind as the bf16 cache's
+            ref_toks, g_r = reference_decode(
+                cfg, packed, ctx, r.prompt, len(r.output), max_seq,
+                torch.bfloat16 if dt == "int8 KV" else dt, follow=r.output)
             gaps.append(max(g_r))
             if ref_toks != r.output.tolist():
                 i = next(i for i, (a, b_) in enumerate(
@@ -438,8 +697,9 @@ def main() -> int:
     for name in ("tlmm", "flash_prefill", "decode_attention"):
         if ora_counts[name] <= 0:
             raise AssertionError(f"oracle path did not launch {name}")
-    for row in rows:
-        row["launches"] = eng_counts[row["name"]] + ora_counts[row["name"]]
+    for row in rows:   # each path's launches, counted around that path alone
+        row["launches"] = sum(c[row["name"]] for c in (
+            eng_counts, paged_counts, kv8_counts, ora_counts))
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -26,10 +26,9 @@ import torch
 from torch import nn
 
 from repro_torch.core import ternary
+from repro_torch.kernels.tlmm import ops as tlmm_ops
 
 ROW_MULTIPLE = 64  # packed rows pad to this (mesh-shardable, as in JAX)
-
-IMPLS = ("kernel", "torch")
 
 
 class Linear(nn.Module):
@@ -78,32 +77,15 @@ def pack(p: Linear, g: int = ternary.DEFAULT_G,
                         g=g)
 
 
-def check_impl(impl: str, x: torch.Tensor) -> None:
-    """``impl`` is "kernel" (JAX's "pallas"): the kernel wrappers, which pick
-    the CUDA kernel for a CUDA tensor and the plain version for a CPU one;
-    or "torch" (JAX's "xla"): the plain PyTorch formulation, which is
-    refused for a tensor on the card so that nothing there bypasses a
-    kernel."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    if impl == "torch" and x.device.type != "cpu":
-        raise ValueError("impl='torch' runs on CPU tensors only; on the card "
-                         "every kernel path launches its kernel")
-
-
-def apply_packed(p: PackedLinear, x: torch.Tensor, *, impl: str = "kernel",
+def apply_packed(p: PackedLinear, x: torch.Tensor, *,
                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x: (..., n_in) float -> (..., n_out) out_dtype.  Absmax int8 quant,
-    packed ternary matmul (``tlmm``), then acc * x_scale * gamma (+ b)."""
-    check_impl(impl, x)
+    packed ternary matmul (``tlmm``: the kernel for a CUDA tensor, its plain
+    version for a CPU one), then acc * x_scale * gamma (+ b)."""
     n_in = x.shape[-1]
     lead = x.shape[:-1]
     x_q, x_scale = ternary.absmax_quant(x.reshape(-1, n_in))
-    if impl == "kernel":
-        from repro_torch.kernels.tlmm import ops as tlmm_ops
-        acc = tlmm_ops.tlmm(x_q, p.codes, g=p.g, n=n_in)
-    else:
-        acc = ternary.ternary_matmul_packed(x_q, p.codes, p.g)
+    acc = tlmm_ops.tlmm(x_q, p.codes, g=p.g, n=n_in)
     y = acc.float() * x_scale * p.gamma
     if p.b is not None:
         y = y + p.b.float()

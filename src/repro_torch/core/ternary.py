@@ -107,7 +107,7 @@ def unpack_ternary(codes: torch.Tensor, g: int = DEFAULT_G,
 
 
 # ---------------------------------------------------------------------------
-# Plain ternary matmuls
+# Plain ternary matmul
 # ---------------------------------------------------------------------------
 
 def ternary_matmul_ref(a_q: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -117,15 +117,3 @@ def ternary_matmul_ref(a_q: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     below 2^53 whatever the summation order, and runs on the CPU and on the
     card alike (the card has no int32 matmul in PyTorch)."""
     return (a_q.double() @ wt.double()).to(torch.int32)
-
-
-def ternary_matmul_packed(a_q: torch.Tensor, codes: torch.Tensor,
-                          g: int) -> torch.Tensor:
-    """Unpack base-3 codes, then the int8 product.  Activations are
-    zero-padded up to the row-padded packed length rows * g (the padding
-    rows hold weight 0)."""
-    n_pad = codes.shape[0] * g
-    wt = unpack_ternary(codes, g)
-    if a_q.shape[-1] < n_pad:
-        a_q = torch.nn.functional.pad(a_q, (0, n_pad - a_q.shape[-1]))
-    return ternary_matmul_ref(a_q[..., :n_pad], wt)

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define REPRO_API extern "C" __attribute__((visibility("default")))
 
 namespace repro {
@@ -34,6 +36,83 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// f32 or bf16 K/V values widen to f32; an int8 value is dequantized as the
+// JAX paged int8 decode kernel does it, f32(bf16(f32(int8) * scale)) with
+// the scale already rounded to bf16 — the value a bf16 dequantized copy of
+// the cache holds.
+__device__ __forceinline__ float kv_value(float x, float) { return x; }
+__device__ __forceinline__ float kv_value(__nv_bfloat16 x, float) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float kv_value(int8_t x, float sc) {
+  return __bfloat162float(__float2bfloat16(static_cast<float>(x) * sc));
+}
+
+// One K or V row (head_dim values) and, for int8 rows, its scale.
+template <typename KV>
+struct Row {
+  const KV* p;
+  float sc;
+  __device__ __forceinline__ float operator[](int i) const {
+    return kv_value(p[i], sc);
+  }
+};
+
+// Where key j of one (slot, KV head) lies.  The attention kernels walk
+// logical key positions in the same tiles and order whatever the storage,
+// and ask one of these for each key's row, so a paged cache gives the same
+// numbers as a contiguous one holding the same rows.
+template <typename KV>
+struct ContigRows {   // row j at p + j * s
+  const KV* p;
+  int64_t s;
+  __device__ __forceinline__ Row<KV> operator()(int j) const {
+    return {p + j * s, 1.f};
+  }
+};
+
+template <typename KV>
+struct PagedRows {    // row j in page bt[j / ps] at slot j % ps
+  const KV* p;        // the pool at this head (page 0, slot 0)
+  int64_t page_s, row_s;
+  const float* sc;    // int8 pools: the scale plane at this head
+  int64_t sc_page_s, sc_row_s;
+  const int* bt;      // this slot's block-table row
+  int ps;
+  __device__ __forceinline__ Row<KV> operator()(int j) const {
+    const int64_t pg = bt[j / ps], r = j % ps;
+    float s = 1.f;
+    if constexpr (std::is_same_v<KV, int8_t>)
+      s = __bfloat162float(__float2bfloat16(sc[pg * sc_page_s + r * sc_row_s]));
+    return {p + pg * page_s + r * row_s, s};
+  }
+};
+
+// A whole K or V operand: rows(b, kvh) gives one (slot, KV head)'s rows.
+template <typename KV>
+struct ContigKV {     // (b, kv_h, S, d) through element strides
+  const KV* p;
+  int64_t sb, sh, ss;
+  __device__ __forceinline__ ContigRows<KV> rows(int b, int kvh) const {
+    return {p + b * sb + kvh * sh, ss};
+  }
+};
+
+template <typename KV>
+struct PagedKV {      // (P, ps, kv_h, d) pool, (P, ps, kv_h) scales, (b, n) table
+  const KV* p;
+  int64_t sp, sr, sh;
+  const float* sc;
+  int64_t ssp, ssr, ssh;
+  const int* bt;
+  int64_t bt_s;
+  int ps;
+  __device__ __forceinline__ PagedRows<KV> rows(int b, int kvh) const {
+    return {p + kvh * sh, sp, sr, sc != nullptr ? sc + kvh * ssh : nullptr,
+            ssp, ssr, bt + b * bt_s, ps};
+  }
+};
 
 }  // namespace repro
 

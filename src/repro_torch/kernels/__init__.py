@@ -12,6 +12,25 @@ tensor launches the kernel (or raises), a CPU tensor takes the plain
 version.  Counterpart of ``repro/kernels`` and its ``default_interpret()``.
 """
 
+import torch
+
+
+def on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"{what} has no path for device {x.device}")
+    return False
+
+
+def per_row(value, q: torch.Tensor) -> torch.Tensor:
+    """An int or (b,) lengths/offsets -> a contiguous (b,) int32 tensor on
+    q's device, b = q.shape[0]."""
+    x = torch.as_tensor(value, dtype=torch.int32, device=q.device)
+    return x.reshape(-1).expand(q.shape[0]).contiguous()
+
 
 def launch_counters() -> dict:
     """name -> the wrapper function whose ``launches`` attribute counts the
@@ -21,7 +40,11 @@ def launch_counters() -> dict:
     from repro_torch.kernels.tlmm import kernel as tl
     return {"tlmm": tl.tlmm_cuda, "flash_prefill": fp.flash_prefill_cuda,
             "flash_chunk_prefill": fp.flash_chunk_prefill_cuda,
-            "decode_attention": da.decode_attention_cuda}
+            "flash_chunk_prefill_paged": fp.flash_chunk_prefill_paged_cuda,
+            "decode_attention": da.decode_attention_cuda,
+            "decode_attention_paged": da.decode_attention_paged_cuda,
+            "decode_attention_paged_quant":
+                da.decode_attention_paged_quant_cuda}
 
 
 def reset_launch_counts() -> None:

@@ -34,7 +34,13 @@ SIGNATURES = {
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "decode_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _I, _P],
+                           _I, _F, _I, _I, _P],
+    "decode_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP,
+                                 _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F,
+                                 _I, _I, _P],
+    "flash_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _L, _P, _LP,
+                                _P, _LP, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _I, _I, _P],
 }
 
 _lib = None          # the loaded library: one per process

@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the prompt and chunk attention kernels.
+"""Plain PyTorch versions of the prompt and chunk attention kernels, on
+contiguous rows and on a page pool.
 
-Dense f32 formulation of the kernels' function: scores q.k * d**-0.5,
-masked scores -1e30, p = exp(s - rowmax) on live keys only, and the output
+f32 formulation of the kernels' function: scores q.k * d**-0.5, masked
+scores -1e30, the softmax over live keys only, and the output
 sum(p v) / max(sum p, 1e-30) — a row with no live key gives zeros, as the
 kernels do.  GQA is computed grouped (q viewed as (b, kv_h, group, t, d)),
-so no KV head is copied.
+so no KV head is copied.  Keys are taken in tiles of ``KEY_TILE`` with an
+online softmax, as the kernels take them: a tile wholly past every live key
+changes nothing, so rows that hold the same live keys give the same bits
+whatever their length — a page pool gathered to n_pages * page_size rows
+gives what the contiguous cache gives.
 """
 
 from __future__ import annotations
@@ -12,23 +17,38 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+KEY_TILE = 32
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """q: (b, h, t, d); k, v: (b, kv_h, S, d); mask: broadcastable to
     (b, 1, 1, t, S), True where query row may attend key -> (b, h, t, d) in
-    q's dtype."""
+    q's dtype.  Masked keys must hold finite values."""
     b, h, t, d = q.shape
-    kv_h = k.shape[1]
+    kv_h, S = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kv_h, h // kv_h, t, d)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (1.0 / float(d) ** 0.5)
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    out = out / torch.clamp_min(l, 1e-30)
+    mask = mask.expand(b, 1, 1, t, S)
+    m = torch.full((b, kv_h, h // kv_h, t, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    for s0 in range(0, S, KEY_TILE):
+        mt = mask[..., s0:s0 + KEY_TILE]
+        kt, vt = k[:, :, s0:s0 + KEY_TILE].float(), v[:, :, s0:s0 + KEY_TILE].float()
+        pad = KEY_TILE - mt.shape[-1]
+        if pad:   # a short last tile computes at the full tile shape
+            mt = torch.nn.functional.pad(mt, (0, pad))
+            kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kt) * (1.0 / float(d) ** 0.5)
+        s = torch.where(mt, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mt, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p, vt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
@@ -77,3 +97,21 @@ def flash_chunk_prefill_ref(q: torch.Tensor, k: torch.Tensor,
     k, v = overlay_chunk(k, k_new, offset), overlay_chunk(v, v_new, offset)
     q_pos = offset.to(q.device).long()[:, None] + torch.arange(t, device=q.device)
     return masked_attention(q, k, v, _positions_mask(q_pos, k.shape[2], window))
+
+
+def flash_chunk_prefill_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  offset: torch.Tensor, k_fresh: torch.Tensor,
+                                  v_fresh: torch.Tensor, *,
+                                  window: int | None = None) -> torch.Tensor:
+    """Chunk attention against the page pool: gather each row's pages into
+    contiguous rows, then :func:`flash_chunk_prefill_ref` with the chunk's
+    fresh K/V.  q: (b, h, t, d); pools: (P, ps, kv_h, d); block_tables:
+    (b, n_pages); offset: (b,); k_fresh, v_fresh: (b, kv_h, t, d)."""
+    # imported here: the decode package's plain version imports this module
+    from repro_torch.kernels.decode_attention.ref import gather_pages_ref
+    return flash_chunk_prefill_ref(
+        q, gather_pages_ref(k_pool, block_tables),
+        gather_pages_ref(v_pool, block_tables), k_fresh, v_fresh, offset,
+        window=window)

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ternary
+from repro_torch.kernels import on_card
 from repro_torch.kernels.tlmm import kernel, ref
 
 
@@ -20,8 +21,6 @@ def tlmm(a_q: torch.Tensor, codes: torch.Tensor, *, g: int = ternary.DEFAULT_G,
     takes the plain version."""
     n_in = a_q.shape[1]
     n_eff = min(n if n is not None else n_in, n_in, codes.shape[0] * g)
-    if a_q.is_cuda:
+    if on_card(a_q, "tlmm"):
         return kernel.tlmm_cuda(a_q, codes, g=g, n=n_eff)
-    if a_q.device.type != "cpu":
-        raise ValueError(f"tlmm has no path for device {a_q.device}")
     return ref.tlmm_ref(a_q, codes, g, n_eff)

@@ -21,15 +21,12 @@ from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
 class Ctx:
     """Execution context threaded through the model.
 
-    ``impl`` (ternary matmuls) and ``attn_impl`` (attention) are "kernel" by
-    default — JAX's ``impl="pallas"`` / ``attn_impl="pallas"``: each call
-    goes through a kernel wrapper, which launches the hand-written CUDA
-    kernel for a CUDA tensor and takes the kernel's plain version for a CPU
-    tensor.  "torch" — JAX's "xla" — runs the plain PyTorch formulation and
-    is refused for tensors on the card (see ``bitlinear.check_impl``).
+    Every ternary matmul and attention call goes through a kernel wrapper —
+    JAX's ``impl="pallas"`` / ``attn_impl="pallas"`` — which launches the
+    hand-written CUDA kernel for a CUDA tensor and takes the kernel's plain
+    version for a CPU tensor, so there is nothing to choose here but the
+    activation dtype.
     """
-    impl: str = "kernel"
-    attn_impl: str = "kernel"
     act_dtype: torch.dtype = torch.float32
 
 
@@ -41,7 +38,7 @@ def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     if isinstance(p, PredecodedLinear):   # serving engine's hot path
         return bitlinear.apply_predecoded(p, x, out_dtype=x.dtype)
     if isinstance(p, PackedLinear):       # packed inference params
-        return bitlinear.apply_packed(p, x, impl=ctx.impl, out_dtype=x.dtype)
+        return bitlinear.apply_packed(p, x, out_dtype=x.dtype)
     if isinstance(p, Linear):             # dense layer (untied LM head)
         y = x @ p.w.to(x.dtype)
         return y + p.b.to(y.dtype) if p.b is not None else y

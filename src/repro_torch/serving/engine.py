@@ -1,5 +1,6 @@
 """Continuous-batching serving engine: chunked in-place admission waves
-interleaved with multi-tick decode blocks, on a contiguous KV cache.
+interleaved with multi-tick decode blocks, on a contiguous or a paged KV
+cache, in bf16/f32 or int8.
 
 Counterpart of the core of ``repro/serving/engine.py`` with host-driven
 scheduling (JAX's ``device_sched=False``):
@@ -16,13 +17,32 @@ scheduling (JAX's ``device_sched=False``):
     bookkeeping on the device; the host reads the block's tokens and emit
     masks back once per block.  A lane that finishes mid-block keeps
     ticking under the mask: it emits nothing, and its KV write is parked at
-    position ``max_seq``, which the cache write clamps to row position
-    ``max_seq - 1`` (masked by the live length, or never attended again
-    before the slot is retired — checked after every block).
+    position ``max_seq``, which the contiguous cache write clamps to row
+    position ``max_seq - 1`` (masked by the live length, or never attended
+    again before the slot is retired — checked after every block) and the
+    paged write resolves through the lane's table row: to the null page
+    when ``max_seq`` is a whole number of pages, else to the final page's
+    slack row past ``max_seq - 1`` (or the null page while that page is
+    not yet owned).
   * **bounded interleaving** — one beat (``step()``) runs at most one
     admission wave and one decode block, so in-flight lanes stall for at
     most one chunk between blocks
     (``stats["max_chunks_between_decode_blocks"]``).
+  * **paged KV** (``paged=True``) — a global pool of ``kv_pages`` pages of
+    ``page_size`` tokens (page 0 the null page) and one block-table row
+    per slot, so KV memory follows live tokens instead of
+    ``slots x max_seq``.  A host allocator hands out pages lazily (the
+    admission chunk's span, then each decode block's appends) under FIFO
+    admission gated by each request's worst-case reservation
+    (``worst_case_pages``): a request whose reservation does not fit waits
+    (``admissions_deferred_pages``), so growth never runs dry mid-flight.
+    Retirement frees the pages and zeroes the table row.  The block table
+    lives on the device as one (slots, pages_per_slot) int32 tensor,
+    updated row by row.  Paged serving emits the contiguous engine's tokens
+    exactly: its kernels walk keys in the contiguous kernels' order.
+  * **int8 KV** (``kv_quant=True``, contiguous or paged) — K/V stored as
+    int8 with per-(token, head) absmax scales; chunk attention reads them as
+    f32(int8) * f32(scale), decode through bf16, as the JAX model does.
 
 The JAX engine unpacks the base-3 codes again at every dispatch.  Weights
 are immutable while serving, so this engine pre-decodes them ONCE when it is
@@ -36,9 +56,10 @@ alone — Gumbel-max noise from a ``torch.Generator`` seeded with the pair —
 so a request samples the same tokens whatever slot or schedule it gets.
 It does not reproduce JAX's threefry draws.
 
-Left out of this engine: paged KV, prefix sharing, int8 KV, device-resident
-scheduling, fault handling and retries, and the mesh.  An invalid request
-raises ``ValueError`` at ``submit()``.
+Left out of this engine: prefix sharing, device-resident scheduling, fault
+handling and retries, and the mesh.  An invalid request — one whose
+worst-case KV pages exceed the pool among them — raises ``ValueError`` at
+``submit()`` (the JAX engine stamps it REJECTED).
 """
 
 from __future__ import annotations
@@ -126,6 +147,50 @@ def sample(logits: torch.Tensor, seeds, emit_idx, temps) -> torch.Tensor:
     return tokens
 
 
+class _PagePool:
+    """Host-side allocator over the global KV page pool (the JAX engine's,
+    without the reference counts that prefix sharing adds).  Page 0 is the
+    reserved null page and is never handed out; the free list is LIFO, so a
+    retired page is reused first.  Freeing a page that is not allocated
+    fails fast."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("page pool needs >= 2 pages (one is the "
+                             "reserved null page)")
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, 0, -1))
+        self._owned: set = set()
+
+    @property
+    def usable(self) -> int:
+        return self.num_pages - 1
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.usable - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV page pool exhausted: asked {n}, have {len(self._free)} "
+                "(reservation-gated admission should make this unreachable)")
+        out = [self._free.pop() for _ in range(n)]
+        self._owned.update(out)
+        return out
+
+    def free(self, pages: List[int]) -> None:
+        for p in pages:
+            if p not in self._owned:
+                raise RuntimeError(f"double free of page {p}")
+            self._owned.remove(p)
+            self._free.append(p)
+
+
 def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
                      prompt, max_new: int, max_seq: int,
                      cache_dtype: torch.dtype = torch.bfloat16, follow=None):
@@ -167,16 +232,22 @@ def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
 
 
 class ServingEngine:
-    """Token-level continuous batching over ``batch_slots`` cache rows of
+    """Token-level continuous batching over ``batch_slots`` lanes of up to
     ``max_seq`` positions.  ``params`` are packed parameters
     (``transformer.pack_params`` or ``convert.from_jax_packed``) on
-    ``device``; the engine runs on the card unless ``device="cpu"``."""
+    ``device``; the engine runs on the card unless ``device="cpu"``.
+
+    ``paged=True`` keeps KV in a pool of ``kv_pages`` pages of
+    ``page_size`` tokens (default: every slot can reach ``max_seq``, plus
+    the null page); ``kv_quant=True`` stores int8 KV with f32 scales."""
 
     def __init__(self, cfg: ModelConfig, params: nn.ModuleDict, *,
                  max_seq: int, batch_slots: int = 4,
                  ctx: Optional[Ctx] = None, seed: int = 0,
                  prefill_chunk: int = 32, decode_block: int = 8,
                  cache_dtype: torch.dtype = torch.bfloat16,
+                 paged: bool = False, page_size: int = 16,
+                 kv_pages: Optional[int] = None, kv_quant: bool = False,
                  device: str | torch.device = "cuda"):
         transformer.require_attn(cfg)
         dev = torch.device(device)
@@ -195,6 +266,22 @@ class ServingEngine:
         self.prefill_chunk = max(1, min(prefill_chunk, max_seq))
         self.decode_block = max(1, decode_block)
         self.cache_dtype = cache_dtype
+        self.kv_quant = bool(kv_quant)
+        self.paged = bool(paged)
+        if self.paged:
+            self.page_size = max(1, min(int(page_size), max_seq))
+            self.pages_per_slot = -(-max_seq // self.page_size)
+            self.kv_pages = (int(kv_pages) if kv_pages is not None
+                             else batch_slots * self.pages_per_slot + 1)
+            self._pool = _PagePool(self.kv_pages)
+            # host block table and its device copy; dead entries: page 0
+            self._bt = np.zeros((batch_slots, self.pages_per_slot), np.int32)
+            self._bt_dev = torch.zeros(self._bt.shape, dtype=torch.int32,
+                                       device=self.device)
+            self._slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
+            self._slot_reserved = [0] * batch_slots
+            self._reserved_total = 0
+            self._deferred_head = None
         self.ctx = ctx or Ctx()
         self.seed = seed
         self._lanes = [_Slot() for _ in range(batch_slots)]
@@ -214,6 +301,10 @@ class ServingEngine:
                       "decode_blocks": 0, "decode_tokens": 0,
                       "decode_wall_s": 0.0,
                       "max_chunks_between_decode_blocks": 0}
+        if self.paged:
+            self.stats.update({"kv_pages_peak": 0, "kv_live_tokens_peak": 0,
+                               "kv_reserved_pages_peak": 0,
+                               "admissions_deferred_pages": 0})
         self._window_requests: List[Request] = []
         self._window_t0 = time.perf_counter()
 
@@ -227,6 +318,10 @@ class ServingEngine:
             return "max_new_tokens must be >= 1"
         if int(p.min()) < 0 or int(p.max()) >= self.cfg.vocab_size:
             return f"prompt token ids must be in [0, {self.cfg.vocab_size})"
+        if self.paged and self.worst_case_pages(req) > self._pool.usable:
+            return (f"request needs {self.worst_case_pages(req)} KV pages "
+                    f"worst-case but the pool only has {self._pool.usable}; "
+                    "raise kv_pages or shrink the request")
         return None
 
     def submit(self, req: Request) -> Request:
@@ -256,13 +351,20 @@ class ServingEngine:
         if not self.has_work:
             return False
         if self._cache is None:
-            self._cache = transformer.init_cache(
-                self.cfg, self.slots, self.max_seq, self.cache_dtype,
-                self.device)
+            if self.paged:
+                self._cache = transformer.init_paged_cache(
+                    self.cfg, self.kv_pages, self.page_size, self.cache_dtype,
+                    self.device, kv_quant=self.kv_quant)
+            else:
+                self._cache = transformer.init_cache(
+                    self.cfg, self.slots, self.max_seq, self.cache_dtype,
+                    self.device, kv_quant=self.kv_quant)
         for i, s in enumerate(slots):
             if not queue:
                 break
             if not s.active and i not in pending:
+                if self.paged and not self._reserve(i, queue[0]):
+                    break   # page-starved: FIFO waits for lanes to retire
                 req = queue.popleft()
                 plen = len(req.prompt)
                 pending[i] = {"slot": i, "req": req,
@@ -316,6 +418,10 @@ class ServingEngine:
         for i, adm in pending.items():
             plen = adm["plen"]
             lo = min(adm["next"] * c, self.max_seq - c)   # shifted final chunk
+            if self.paged:
+                # cover the chunk's prompt span; its slack past the prompt
+                # lands in the owned final page's tail or the null page
+                self._grow_pages(i, min(lo + c, plen))
             seg = adm["prompt"][lo:lo + c]
             toks[i, :len(seg)] = seg
             offs[i] = lo
@@ -329,7 +435,8 @@ class ServingEngine:
             self.cfg, self.params, torch.from_numpy(toks).to(dev), self.ctx,
             self._cache, offsets=torch.from_numpy(offs).to(dev),
             admit_mask=torch.from_numpy(mask).to(dev),
-            last_index=torch.from_numpy(last).to(dev))
+            last_index=torch.from_numpy(last).to(dev),
+            page_table=self._page_table())
         if not completing:
             return
         reqs = [pending[i]["req"] if i in completing else None
@@ -349,13 +456,23 @@ class ServingEngine:
         s.last_token = tok
         self.stats["admissions"] += 1
         if len(s.tokens) >= req.max_new_tokens or s.cache_len >= self.max_seq:
-            s.free()   # finished at prefill (budget or cache row exhausted)
+            self._retire(i)   # finished at prefill (budget or row exhausted)
 
     # -- decode ------------------------------------------------------------
 
     def _decode_block(self, slots) -> None:
         t0 = time.perf_counter()
         st = self.stats
+        if self.paged:
+            # cover every append this block can make, bounded by each
+            # lane's remaining budget (so within its reservation)
+            for i, s in enumerate(slots):
+                if s.active:
+                    remaining = s.request.max_new_tokens - len(s.tokens)
+                    self._grow_pages(i, min(s.cache_len + min(
+                        self.decode_block, remaining), self.max_seq))
+            self._note_live_tokens(
+                sum(s.cache_len for s in slots if s.active))
         st["decode_blocks"] += 1
         st["decode_steps"] += self.decode_block
         dev, reqs = self.device, [s.request for s in slots]
@@ -376,7 +493,7 @@ class ServingEngine:
             step_len = torch.where(active, cache_len, self.max_seq)
             logits, _ = transformer.decode_step(
                 self.cfg, self.params, tokens[:, None], self.ctx, self._cache,
-                step_len)
+                step_len, page_table=self._page_table())
             nxt = sample(logits, seeds, [len(s.tokens) + tick for s in slots],
                          temps)
             outs.append(torch.where(active, nxt, 0))
@@ -389,17 +506,21 @@ class ServingEngine:
         blk = torch.stack(outs, 1).cpu().numpy()      # the block's one sync
         mask = torch.stack(masks, 1).cpu().numpy()
         st["decode_tokens"] += int(mask.sum())
+        live_after = 0
         for i, s in enumerate(slots):
             if not s.active:
                 continue
             new = blk[i][mask[i]].tolist()
             s.tokens.extend(new)
             s.cache_len += len(new)
+            live_after += s.cache_len
             if new:
                 s.last_token = new[-1]
             if (len(s.tokens) >= s.request.max_new_tokens
                     or s.cache_len >= self.max_seq):
-                s.free()
+                self._retire(i)
+        if self.paged:   # the entry sample misses the block's own appends
+            self._note_live_tokens(live_after)
         # the parked-write contract: a lane that filled its row parks its
         # remaining ticks on its own last KV entry, which is only safe
         # because it retires here, before any later block reads that row
@@ -407,6 +528,71 @@ class ServingEngine:
             raise RuntimeError("active lane at cache_len >= max_seq: parked "
                                "decode writes could clobber a live token")
         st["decode_wall_s"] += time.perf_counter() - t0
+
+    def _retire(self, i: int) -> None:
+        self._lanes[i].free()
+        if self.paged:
+            self._release_slot_pages(i)
+
+    # -- paged KV (host side) ----------------------------------------------
+
+    def worst_case_pages(self, req: Request) -> int:
+        """Pages the request can ever need, its admission reservation: the
+        row holds at most min(prompt + max_new - 1, max_seq) KV entries (the
+        last emitted token's KV is never written)."""
+        if not self.paged:
+            raise ValueError("worst_case_pages is only meaningful on a paged "
+                             "engine (paged=True)")
+        total = min(len(req.prompt) + req.max_new_tokens - 1, self.max_seq)
+        return -(-total // self.page_size)
+
+    def _page_table(self) -> Optional[torch.Tensor]:
+        return self._bt_dev if self.paged else None
+
+    def _reserve(self, i: int, req: Request) -> bool:
+        """Reserve the head request's worst case for slot i, or count one
+        deferral episode per starved head and refuse."""
+        need = self.worst_case_pages(req)
+        if self._reserved_total + need > self._pool.usable:
+            if req is not self._deferred_head:
+                self.stats["admissions_deferred_pages"] += 1
+                self._deferred_head = req
+            return False
+        self._slot_reserved[i] = need
+        self._reserved_total += need
+        self.stats["kv_reserved_pages_peak"] = max(
+            self.stats["kv_reserved_pages_peak"], self._reserved_total)
+        return True
+
+    def _grow_pages(self, i: int, upto_tokens: int) -> None:
+        """Extend slot i's pages to cover flat positions [0, upto_tokens)."""
+        pages = self._slot_pages[i]
+        need = -(-upto_tokens // self.page_size)
+        if need <= len(pages):
+            return
+        new = self._pool.alloc(need - len(pages))
+        self._bt[i, len(pages):need] = new
+        pages.extend(new)
+        self._push_bt_row(i)
+        self.stats["kv_pages_peak"] = max(self.stats["kv_pages_peak"],
+                                          self._pool.used_pages)
+
+    def _release_slot_pages(self, i: int) -> None:
+        """Return slot i's pages and reservation; zero its table row so any
+        later write of the dead lane lands in the null page."""
+        pages, self._slot_pages[i] = self._slot_pages[i], []
+        self._reserved_total -= self._slot_reserved[i]
+        self._slot_reserved[i] = 0
+        self._bt[i, :] = 0
+        self._push_bt_row(i)
+        self._pool.free(pages)
+
+    def _push_bt_row(self, i: int) -> None:
+        self._bt_dev[i].copy_(torch.from_numpy(self._bt[i]))
+
+    def _note_live_tokens(self, live: int) -> None:
+        self.stats["kv_live_tokens_peak"] = max(
+            self.stats["kv_live_tokens_peak"], live)
 
     # -- stats -------------------------------------------------------------
 
@@ -426,3 +612,7 @@ class ServingEngine:
             "ttft_p50_s": float(np.percentile(ttfts, 50)) if ttfts else None,
             "ttft_p95_s": float(np.percentile(ttfts, 95)) if ttfts else None,
         })
+        if self.paged:
+            st.update({"kv_page_size": self.page_size,
+                       "kv_pool_pages": self._pool.usable,
+                       "kv_pages_in_use": self._pool.used_pages})

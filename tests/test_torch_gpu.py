@@ -4,7 +4,9 @@ skips without one).  Imports no JAX, so it runs where JAX is not installed.
 
 tlmm and the packed linear are compared for equality (int32 sums); the f32
 attention kernels within 2e-5 absolute and relative — they sum in another
-order than the dense plain versions, a few ULPs of values of order one.
+order than the plain versions, a few ULPs of values of order one.  The
+paged kernels walk keys in the contiguous kernels' order, so against those
+on the same rows they are compared with ``torch.equal``.
 """
 
 import pytest
@@ -20,6 +22,8 @@ from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm import ref as tlmm_ref
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+PAGE_SIZES = (4, 5, 16)
+WINDOWS = (None, 33)   # 33: the first live key falls inside a 32-key tile
 
 
 @pytest.fixture
@@ -109,7 +113,121 @@ def test_decode_kernel_matches_plain(cuda, kv_dtype, b, h, kv_h, S, d, lens):
     k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
                         ).to(kv_dtype).transpose(1, 2) for _ in range(2))
     cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    got = da_ops.decode_attention(q, k, v, cl)
-    torch.testing.assert_close(got, da_ref.decode_attention_ref(q, k, v, cl),
-                               **TOL)
+    for window in WINDOWS:
+        got = da_ops.decode_attention(q, k, v, cl, window=window)
+        torch.testing.assert_close(
+            got, da_ref.decode_attention_ref(q, k, v, cl, window=window),
+            **TOL)
 
+
+
+def _paged(rows, ps, gen, garbage):
+    """(b, S, kv_h, d) rows -> a shuffled (1 + b * n, ps, kv_h, d) pool
+    holding them, garbage in page 0 and in every slack row, and its (b, n)
+    int32 block table."""
+    b, S = rows.shape[:2]
+    n = -(-S // ps)
+    perm = torch.randperm(b * n, generator=torch.Generator().manual_seed(ps))
+    bt = (perm + 1).reshape(b, n).to(torch.int32).to(rows.device)
+    pool = garbage((1 + b * n, ps) + tuple(rows.shape[2:]))
+    pad = torch.cat([rows, garbage((b, n * ps - S) + tuple(rows.shape[2:]))],
+                    dim=1)
+    pool[bt.long()] = pad.reshape((b, n, ps) + tuple(rows.shape[2:]))
+    return pool, bt
+
+
+def _float_garbage(gen, dtype, dev):
+    return lambda shape: (torch.randn(shape, generator=gen, device=dev)
+                          * 100).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", PAGE_SIZES)
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv_h,S,d,lens", [
+    (4, 24, 24, 256, 64, [1, 77, 200, 256]),
+    (3, 8, 2, 48, 32, [0, 17, 48]),
+    (2, 4, 1, 70, 128, [70, 33])])
+def test_paged_decode_kernel_matches_plain_and_contiguous(
+        cuda, ps, kv_dtype, b, h, kv_h, S, d, lens):
+    gen = torch.Generator(device=cuda).manual_seed(S + ps)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(kv_dtype) for _ in range(2))
+    junk = _float_garbage(gen, kv_dtype, cuda)
+    (kp, bt), (vp, _) = _paged(k, ps, gen, junk), _paged(v, ps, gen, junk)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for window in WINDOWS:
+        before = launch_counts()["decode_attention_paged"]
+        got = da_ops.decode_attention_paged(q, kp, vp, bt, cl, window=window)
+        assert launch_counts()["decode_attention_paged"] == before + 1
+        torch.testing.assert_close(got, da_ref.paged_decode_attention_ref(
+            q, kp, vp, bt, cl, window=window), **TOL)
+        assert torch.equal(got, da_ops.decode_attention(
+            q, k.transpose(1, 2), v.transpose(1, 2), cl, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", PAGE_SIZES)
+@pytest.mark.parametrize("b,h,kv_h,S,d,lens", [
+    (4, 24, 24, 256, 64, [1, 77, 200, 256]),
+    (3, 8, 2, 48, 32, [0, 17, 48])])
+def test_paged_int8_decode_kernel_matches_plain_and_contiguous(
+        cuda, ps, b, h, kv_h, S, d, lens):
+    """Against the contiguous kernel reading the bf16 dequantized copy;
+    the null page and the slack rows carry garbage values and scales."""
+    gen = torch.Generator(device=cuda).manual_seed(S + ps)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+
+    def ints(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                             dtype=torch.int8)
+
+    def scales(shape):
+        return torch.rand(shape, generator=gen, device=cuda) * 0.05
+
+    k, v = ints((b, S, kv_h, d)), ints((b, S, kv_h, d))
+    ks, vs = scales((b, S, kv_h)), scales((b, S, kv_h))
+    (kp, bt), (vp, _) = _paged(k, ps, gen, ints), _paged(v, ps, gen, ints)
+    (ksp, _), (vsp, _) = _paged(ks, ps, gen, scales), _paged(vs, ps, gen, scales)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kd, vd = da_ref.dequant_bf16(k, ks), da_ref.dequant_bf16(v, vs)
+    for window in WINDOWS:
+        before = launch_counts()["decode_attention_paged_quant"]
+        got = da_ops.decode_attention_paged_quant(q, kp, vp, ksp, vsp, bt, cl,
+                                                  window=window)
+        assert launch_counts()["decode_attention_paged_quant"] == before + 1
+        torch.testing.assert_close(
+            got, da_ref.paged_decode_attention_quant_ref(
+                q, kp, vp, ksp, vsp, bt, cl, window=window), **TOL)
+        assert torch.equal(got, da_ops.decode_attention(
+            q, kd.transpose(1, 2), vd.transpose(1, 2), cl, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", PAGE_SIZES)
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv_h,t,S,d,offsets,window", [
+    (4, 24, 24, 32, 256, 64, [0, 37, 100, 224], None),
+    (3, 8, 2, 12, 40, 32, [0, 5, 28], 9),
+    (2, 4, 4, 20, 64, 128, [44, 3], None)])
+def test_paged_chunk_kernel_matches_plain_and_contiguous(
+        cuda, ps, cache_dtype, b, h, kv_h, t, S, d, offsets, window):
+    gen = torch.Generator(device=cuda).manual_seed(t + S + ps)
+    q = torch.randn(b, t, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(cache_dtype) for _ in range(2))
+    k_new, v_new = (torch.randn(b, t, kv_h, d, generator=gen, device=cuda
+                                ).transpose(1, 2) for _ in range(2))
+    junk = _float_garbage(gen, cache_dtype, cuda)
+    (kp, bt), (vp, _) = _paged(k, ps, gen, junk), _paged(v, ps, gen, junk)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    before = launch_counts()["flash_chunk_prefill_paged"]
+    got = fp_ops.flash_chunk_prefill_paged(q, kp, vp, bt, off, k_new, v_new,
+                                           window=window)
+    assert launch_counts()["flash_chunk_prefill_paged"] == before + 1
+    torch.testing.assert_close(got, fp_ref.flash_chunk_prefill_paged_ref(
+        q, kp, vp, bt, off, k_new, v_new, window=window), **TOL)
+    assert torch.equal(got, fp_ops.flash_chunk_prefill(
+        q, k.transpose(1, 2), v.transpose(1, 2), k_new, v_new, off,
+        window=window))

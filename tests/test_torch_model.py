@@ -32,8 +32,10 @@ from repro.models.layers import Ctx as JCtx
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_packed
-from repro_torch.core import bitlinear
+from repro_torch.core import bitlinear, ternary
 from repro_torch.core.bitlinear import PackedLinear
+from repro_torch.kernels.tlmm import ops as tlmm_ops
+from repro_torch.kernels.tlmm import ref as tlmm_ref
 from repro_torch.models import transformer
 from repro_torch.models.layers import Ctx
 from repro_torch.serving.engine import reference_decode
@@ -74,9 +76,13 @@ def test_bitlinear_packed_and_predecoded_match_jax(g):
     want = np.asarray(j_bl.apply_packed(jp, jnp.asarray(x), g=g,
                                         out_dtype=jnp.float32))
     xt = torch.from_numpy(x)
-    for impl in ("kernel", "torch"):
-        got = bitlinear.apply_packed(tp, xt, impl=impl, out_dtype=torch.float32)
-        np.testing.assert_array_equal(got.numpy(), want)
+    got = bitlinear.apply_packed(tp, xt, out_dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # on the CPU the tlmm wrapper is its plain version
+    x_q, _ = ternary.absmax_quant(xt)
+    np.testing.assert_array_equal(
+        tlmm_ops.tlmm(x_q, tp.codes, g=g).numpy(),
+        tlmm_ref.tlmm_ref(x_q, tp.codes, g, 70).numpy())
     dec = bitlinear.predecode(tp)
     np.testing.assert_array_equal(dec.wt.numpy(),
                                   np.asarray(j_bl.predecode(jp, g=g)["wt"]))

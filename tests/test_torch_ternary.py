@@ -1,7 +1,7 @@
 """Port vs JAX: base-3 packing, int8 activation quantization, the packed
 ternary matmul (plain tlmm vs the JAX Pallas kernel in interpret mode),
 RMSNorm and both RoPE styles, and the port's package rules (no JAX import,
-TF32 off, the plain ctx refused on the card).
+TF32 off, every kernel wrapper choosing by the device of its tensor).
 
 Integer stages are compared for equality from identical inputs; RMSNorm
 and RoPE within 1e-6 (f32 ``rsqrt``/``cos``/``sin`` differ by ULPs between
@@ -23,8 +23,16 @@ from repro.kernels.tlmm import ops as j_tlmm
 from repro.models import layers as j_layers
 
 import repro_torch  # noqa: F401  (pins TF32 off)
-from repro_torch.core import bitlinear, ternary
+from repro_torch.core import ternary
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+from repro_torch.kernels.flash_prefill import ops as fp_ops
+from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.tlmm import kernel as tlmm_kernel
 from repro_torch.kernels.tlmm import ops as t_tlmm
+from repro_torch.kernels.tlmm import ref as tlmm_ref
 from repro_torch.models import layers
 
 
@@ -113,13 +121,67 @@ def test_tf32_is_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-def test_plain_impl_refused_off_the_cpu():
-    bitlinear.check_impl("torch", torch.zeros(1))
-    bitlinear.check_impl("kernel", torch.zeros(1, device="meta"))
-    with pytest.raises(ValueError, match="CPU tensors only"):
-        bitlinear.check_impl("torch", torch.zeros(1, device="meta"))
-    with pytest.raises(ValueError, match="unknown impl"):
-        bitlinear.check_impl("pallas", torch.zeros(1))
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card: shows which path a
+    wrapper takes for a CUDA tensor without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _wrapper_cases():
+    """wrapper name -> (ops module, kernel module, kernel launch, plain
+    module, plain version, CPU arguments)."""
+    r = torch.randn
+    q1, q4 = r(2, 4, 1, 16), r(2, 4, 4, 16)
+    kv, fresh = r(2, 2, 8, 16), r(2, 2, 4, 16)
+    pool, bt = r(5, 4, 2, 16), torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pool8 = torch.randint(-127, 128, (5, 4, 2, 16), dtype=torch.int8)
+    scales = torch.rand(5, 4, 2)
+    lens, off = torch.tensor([3, 8], dtype=torch.int32), [0, 4]
+    codes = ternary.pack_ternary(torch.randint(-1, 2, (10, 3),
+                                               dtype=torch.int8), 5, 1)
+    a_q = torch.randint(-127, 128, (2, 10), dtype=torch.int8)
+    return {
+        "tlmm": (t_tlmm, tlmm_kernel, "tlmm_cuda", tlmm_ref, "tlmm_ref",
+                 (a_q, codes)),
+        "flash_prefill": (fp_ops, fp_kernel, "flash_prefill_cuda", fp_ref,
+                          "flash_prefill_ref", (q4, fresh, fresh)),
+        "flash_chunk_prefill": (fp_ops, fp_kernel, "flash_chunk_prefill_cuda",
+                                fp_ref, "flash_chunk_prefill_ref",
+                                (q4, kv, kv, fresh, fresh, off)),
+        "flash_chunk_prefill_paged": (
+            fp_ops, fp_kernel, "flash_chunk_prefill_paged_cuda", fp_ref,
+            "flash_chunk_prefill_paged_ref",
+            (q4, pool, pool, bt, off, fresh, fresh)),
+        "decode_attention": (da_ops, da_kernel, "decode_attention_cuda",
+                             da_ref, "decode_attention_ref",
+                             (q1, kv, kv, lens)),
+        "decode_attention_paged": (
+            da_ops, da_kernel, "decode_attention_paged_cuda", da_ref,
+            "paged_decode_attention_ref", (q1, pool, pool, bt, lens)),
+        "decode_attention_paged_quant": (
+            da_ops, da_kernel, "decode_attention_paged_quant_cuda", da_ref,
+            "paged_decode_attention_quant_ref",
+            (q1, pool8, pool8, scales, scales, bt, lens)),
+    }
+
+
+@pytest.mark.parametrize("wrapper", sorted(_wrapper_cases()))
+def test_wrapper_chooses_by_tensor_device(monkeypatch, wrapper):
+    """A CPU tensor takes the plain version, a CUDA tensor the kernel's
+    launch (no setting chooses), any other device raises."""
+    ops, kmod, launch, rmod, plain, args = _wrapper_cases()[wrapper]
+    calls = []
+    monkeypatch.setattr(kmod, launch, lambda *a, **k: calls.append("kernel"))
+    monkeypatch.setattr(rmod, plain, lambda *a, **k: calls.append("plain"))
+    fn = getattr(ops, wrapper)
+    fn(*args)
+    fn(args[0].as_subclass(_OnCard), *args[1:])
+    assert calls == ["plain", "kernel"]
+    with pytest.raises(ValueError, match="no path for device meta"):
+        fn(args[0].to("meta"), *args[1:])
 
 
 def test_port_imports_no_jax_and_no_reference_package():
