@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it (with times and bounds) — the paged kernels also bit
+serving path (or, for tlmm_lut, rmsnorm_quant and swiglu_quant, the LUT
+oracle and the fused FFN) gives it (with times and bounds) — the paged kernels also bit
 for bit against their contiguous counterparts on the same rows — and serves
 bitnet-0.73b at full width and depth (random weights from a seed) through
 the continuous-batching ``ServingEngine``: with its bf16 cache, then with a
@@ -16,7 +17,12 @@ then holds the model to its packed-weight oracle (``prefill_step`` +
 ``decode_step``): chunked against monolithic prefill logits, decode against
 prefill logits, and every token of every request of the engine run again
 with an f32 cache, of the bf16 run and of the int8 KV run, against the
-oracle on the same history.
+oracle on the same history.  Last, it runs the paper's fused FFN
+(``fused_ffn_packed``: rmsnorm_quant -> tlmm x2 -> swiglu_quant -> tlmm) on
+every layer of the model, against the same dataflow on the plain versions
+and against the unfused packed path, and the oracle with every ternary
+linear on the table-lookup ``tlmm_lut`` (``Ctx(matmul="tlmm_lut")``), whose
+logits and tokens must equal the ``tlmm`` oracle's.
 
 Prints, before its last line, one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit; the last line is
@@ -26,6 +32,7 @@ when there is no CUDA device or any phase fails.  Never imports JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -61,6 +68,11 @@ LOGIT_TOL_PERTURBED = 0.15
 # oracle's top logit minus its logit of the engine's token.  Logits within
 # tol of each other allow at most 2 * tol there.
 TOKEN_GAP = 2 * LOGIT_TOL_PERTURBED
+# Fused FFN on the card against the same dataflow on the plain versions: the
+# kernels' sums of squares run in another order, which can move an int8 code
+# by one; one code of the SwiGLU output moves an output by about 1e-3 of the
+# outputs' std (a row sums some 4096 such terms), so 0.02 allows twenty.
+FFN_PLAIN_TOL = 0.02
 
 
 def log(*a):
@@ -144,14 +156,20 @@ def main() -> int:
                                     "src"))
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core import bitlinear, ternary
+    from repro_torch.core import bitlinear, fused_block, ternary
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.kernels.flash_prefill import ref as fp_ref
+    from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
+    from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
+    from repro_torch.kernels.swiglu_quant import ops as sq_ops
+    from repro_torch.kernels.swiglu_quant import ref as sq_ref
     from repro_torch.kernels.tlmm import ops as tlmm_ops
     from repro_torch.kernels.tlmm import ref as tlmm_ref
+    from repro_torch.kernels.tlmm_lut import ops as lut_ops
+    from repro_torch.kernels.tlmm_lut import ref as lut_ref
     from repro_torch.models import transformer
     from repro_torch.models.layers import Ctx
     from repro_torch.serving import Request, ServingEngine
@@ -190,16 +208,19 @@ def main() -> int:
             # a plain version launches up to ~150 kernels per call: 3 calls
             # stay inside the held stream's launch queue (see device_ms)
             pms = device_ms(c["plain"], iters=3)
-            lms = device_ms(c["library"])
+            # None: no one PyTorch call computes the kernel's function
+            lms = device_ms(c["library"]) if c["library"] else None
             b_ms, b_by = bound_ms(c["bytes"], c["ops"], c["peak"])
             log(f"  {name} {c['shape']}: max_abs_err {c['err']:.3g}  "
                 f"kernel_ms {event_ms(c['kernel']):.4f} (events, host "
                 f"included)  device_ms {ms:.4f} (stream held, host excluded)  "
-                f"plain_ms {pms:.4f}  "
-                f"library_ms {lms:.4f}  bound_ms {b_ms:.5f} ({b_by})")
+                f"plain_ms {pms:.4f}  library_ms "
+                f"{'none' if lms is None else f'{lms:.4f}'}  bound_ms "
+                f"{b_ms:.5f} ({b_by})")
             tot["ms"] += ms
             tot["plain_ms"] += pms
-            tot["library_ms"] += lms
+            tot["library_ms"] = (None if lms is None or tot["library_ms"] is None
+                                 else tot["library_ms"] + lms)
             tot["bound_ms"] += b_ms
             by[b_by] = by.get(b_by, 0.0) + b_ms
             errs.append(c["err"])
@@ -236,6 +257,116 @@ def main() -> int:
                 "ops": 2.0 * m * n * k, "peak": INT8_OPS_PER_S})
     entry("tlmm", "src/repro_torch/csrc/tlmm.cu",
           "src/repro/kernels/tlmm/kernel.py:35", calls)
+
+    # tlmm_lut: the same linears at the model's g = 5 and re-packed at the
+    # paper's g = 3, each equal to its plain version and to tlmm on the same
+    # codes; its library call is tlmm's, and its bound tlmm's bytes
+    calls, table4 = [], []
+    for g in (5, 3):
+        for m in (4, 128):
+            for n, k in ((1536, 1536), (1536, 4096), (4096, 1536)):
+                w = torch.randint(-1, 2, (n, k), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                codes = ternary.pack_ternary(w, g, bitlinear.ROW_MULTIPLE)
+                a = torch.randint(-127, 128, (m, n), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                got = lut_ops.tlmm_lut(a, codes, g=g)
+                torch.cuda.synchronize()
+                if not torch.equal(got, lut_ref.tlmm_lut_ref(a, codes, g, n)):
+                    raise AssertionError(f"tlmm_lut g={g} m={m} n={n} k={k}: "
+                                         "kernel != plain")
+                if not torch.equal(got, tlmm_ops.tlmm(a, codes, g=g)):
+                    raise AssertionError(f"tlmm_lut g={g} m={m} n={n} k={k}: "
+                                         "kernel != tlmm")
+                w_f, a_f = w.float(), a.float()
+                lib = ((lambda a=a, w=w: torch._int_mm(a, w)) if m > 16
+                       else (lambda a_f=a_f, w_f=w_f: a_f @ w_f))
+                shape = f"g={g} m={m} n={n} k={k}"
+                calls.append({
+                    "shape": shape, "err": 0.0,
+                    "kernel": lambda a=a, c=codes, g=g: lut_ops.tlmm_lut(
+                        a, c, g=g),
+                    "plain": lambda a=a, c=codes, g=g, n=n:
+                        lut_ref.tlmm_lut_ref(a, c, g, n),
+                    "library": lib,
+                    "bytes": m * n + codes.numel() + m * k * 4,
+                    "ops": 2.0 * m * n * k, "peak": INT8_OPS_PER_S})
+                table4.append((shape, calls[-1]["kernel"],
+                               lambda a=a, c=codes, g=g: tlmm_ops.tlmm(
+                                   a, c, g=g)))
+    entry("tlmm_lut", "src/repro_torch/csrc/tlmm_lut.cu",
+          "src/repro/kernels/tlmm_lut/kernel.py:29", calls)
+    # the paper's Table 4 on this card: decode-to-int8 against table lookup,
+    # same codes, timed in turns (tlmm, lut, lut, tlmm) within this call
+    for shape, lut_fn, tlmm_fn in table4:
+        t1, l1, l2, t2 = (device_ms(f) for f in (tlmm_fn, lut_fn, lut_fn,
+                                                 tlmm_fn))
+        log(f"  table4 {shape}: tlmm_ms {(t1 + t2) / 2:.4f}  tlmm_lut_ms "
+            f"{(l1 + l2) / 2:.4f}  lut/tlmm {(l1 + l2) / (t1 + t2):.2f}")
+
+    # rmsnorm_quant: the norm before an FFN (and before QKV) of one decode
+    # tick (m = 4) and one admission chunk (m = 128), bf16 and f32 input
+    def quant_err(name, got, want):
+        """Scales within rel 1e-6, codes at most one apart; returns the
+        largest code difference."""
+        (q, sc), (q_w, sc_w) = got, want
+        rel = ((sc - sc_w).abs() / sc_w.abs()).max().item()
+        diff = (q.int() - q_w.int()).abs()
+        log(f"  {name}: scale max rel err {rel:.3g}, codes differing "
+            f"{int((diff > 0).sum())} of {q.numel()}")
+        if not (rel <= 1e-6 and diff.max().item() <= 1):
+            raise AssertionError(f"{name}: kernel and plain version disagree")
+        return float(diff.max())
+
+    calls = []
+    d, f = 1536, 4096
+    for dt in (torch.bfloat16, torch.float32):
+        for m in (4, 128):
+            x = (torch.randn(m, d, generator=gen, device=dev) * 3).to(dt)
+            w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            shape = f"x ({m}, {d}) {dt}, w f32"
+            err = quant_err(f"rmsnorm_quant {shape}",
+                            rq_ops.rmsnorm_quant(x, w),
+                            rq_ref.rmsnorm_quant_ref(x, w))
+            calls.append({
+                "shape": shape, "err": err,
+                "kernel": lambda x=x, w=w: rq_ops.rmsnorm_quant(x, w),
+                "plain": lambda x=x, w=w: rq_ref.rmsnorm_quant_ref(x, w),
+                "library": None,
+                "bytes": m * d * (x.element_size() + 1) + d * 4 + m * 4,
+                # square, add, scale by rsqrt and w, abs-max, divide, round,
+                # clamp: 8 f32 operations an element
+                "ops": 8.0 * m * d, "peak": F32_FLOPS_PER_S})
+    entry("rmsnorm_quant", "src/repro_torch/csrc/rmsnorm_quant.cu",
+          "src/repro/kernels/rmsnorm_quant/kernel.py:20", calls)
+
+    # swiglu_quant: on gate and up accumulators that tlmm made from the
+    # quantized norm output, with the FFN's dequant scales
+    calls = []
+    for m in (4, 128):
+        xq, xs = rq_ops.rmsnorm_quant(torch.randn(m, d, generator=gen,
+                                                  device=dev),
+                                      torch.ones(d, device=dev))
+        acc = [tlmm_ops.tlmm(xq, ternary.pack_ternary(
+            torch.randint(-1, 2, (d, f), generator=gen, device=dev,
+                          dtype=torch.int8), 5, bitlinear.ROW_MULTIPLE))
+            for _ in range(2)]
+        gs, us = xs * 0.8, xs * 0.9       # x_scale * gamma of each linear
+        args = (acc[0], acc[1], gs, us)
+        shape = f"gate, up ({m}, {f}) int32 from tlmm"
+        err = quant_err(f"swiglu_quant {shape}", sq_ops.swiglu_quant(*args),
+                        sq_ref.swiglu_quant_ref(*args))
+        calls.append({
+            "shape": shape, "err": err,
+            "kernel": lambda a=args: sq_ops.swiglu_quant(*a),
+            "plain": lambda a=args: sq_ref.swiglu_quant_ref(*a),
+            "library": None,
+            "bytes": m * f * (4 + 4 + 1) + m * 4 * 3,
+            # two dequant products, exp, add, divide, two products, abs-max,
+            # divide, round, clamp: 12 f32 operations an element
+            "ops": 12.0 * m * f, "peak": F32_FLOPS_PER_S})
+    entry("swiglu_quant", "src/repro_torch/csrc/swiglu_quant.cu",
+          "src/repro/kernels/swiglu_quant/kernel.py:17", calls)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -697,9 +828,84 @@ def main() -> int:
     for name in ("tlmm", "flash_prefill", "decode_attention"):
         if ora_counts[name] <= 0:
             raise AssertionError(f"oracle path did not launch {name}")
+
+    # -- 6. the fused FFN (paper Fig. 4a) at full width ------------------------
+    # every layer's packed MLP and ln2 on a decode tick's rows (m = 4) and an
+    # admission chunk's (m = 128): five kernels, int8/int32 between them
+    xs_ffn = [torch.randn(m, cfg.d_model, generator=gen, device=dev)
+              for m in (4, 128)]
+    blocks = packed["layers"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fused = [[fused_block.fused_ffn_packed(blk["mlp"], blk["ln2"].w, x)
+              for x in xs_ffn] for blk in blocks]
+    torch.cuda.synchronize()
+    ffn_counts = kernels.launch_counts()
+    log(f"fused FFN launches: {ffn_counts}")
+    calls_ffn = cfg.n_layers * len(xs_ffn)
+    want = {"rmsnorm_quant": calls_ffn, "swiglu_quant": calls_ffn,
+            "tlmm": 3 * calls_ffn}
+    if {k: ffn_counts[k] for k in want} != want:
+        raise AssertionError(f"fused FFN launches {ffn_counts}, not {want}")
+    # the same dataflow on the plain versions (a CPU copy of the weights),
+    # and the unfused packed path under the JAX fused-block test's tolerance
+    worst_plain, worst_unfused = 0.0, 0.0
+    for blk, outs in zip(blocks, fused):
+        mlp_cpu = copy.deepcopy(blk["mlp"]).cpu()
+        for x, y in zip(xs_ffn, outs):
+            if not (torch.isfinite(y).all() and y.shape == x.shape):
+                raise AssertionError("fused FFN output not finite or of the "
+                                     "wrong shape")
+            plain = fused_block.fused_ffn_packed(mlp_cpu, blk["ln2"].w.cpu(),
+                                                 x.cpu())
+            diff = (y.cpu() - plain).abs().max().item()
+            worst_plain = max(worst_plain, diff / plain.std().item())
+            if diff > FFN_PLAIN_TOL * plain.std().item():
+                failures.append(f"fused FFN differs from its plain dataflow "
+                                f"by {diff}")
+            ref = fused_block.unfused_reference(blk["mlp"], blk["ln2"].w, x)
+            lim = 0.05 * ref.std().item() + 1e-3 + 0.1 * ref.abs()
+            worst_unfused = max(worst_unfused,
+                                ((y - ref).abs() / lim).max().item())
+    log(f"fused FFN, {cfg.n_layers} layers x m {[x.shape[0] for x in xs_ffn]}"
+        f": max |fused - plain dataflow| {worst_plain:.3g} x std (limit "
+        f"{FFN_PLAIN_TOL}); max |fused - unfused| {worst_unfused:.3g} of "
+        f"the tolerance 0.05 std + 1e-3 + 0.1 |unfused|")
+    if worst_unfused > 1:
+        failures.append(f"fused FFN off the unfused path ({worst_unfused} of "
+                        f"the tolerance)")
+
+    # -- 7. the LUT oracle: every ternary linear on tlmm_lut ------------------
+    # two requests at full depth with an f32 cache; the int32 sums are exact
+    # either way, so logits and tokens equal the tlmm oracle's
+    lut_reqs = reqs32[:2]
+    tlmm_logits, lut_logits = [], []
+    tlmm_toks = [reference_decode(cfg, packed, Ctx(), r.prompt,
+                                  len(r.output), max_seq, torch.float32,
+                                  logits=tlmm_logits)[0] for r in lut_reqs]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lut_toks = [reference_decode(cfg, packed, Ctx(matmul="tlmm_lut"),
+                                 r.prompt, len(r.output), max_seq,
+                                 torch.float32, logits=lut_logits)[0]
+                for r in lut_reqs]
+    torch.cuda.synchronize()
+    lut_counts = kernels.launch_counts()
+    log(f"LUT oracle launches: {lut_counts}")
+    log(f"LUT oracle tokens: {lut_toks}; tlmm oracle: {tlmm_toks}")
+    if lut_counts["tlmm_lut"] <= 0 or lut_counts["tlmm"] != 0:
+        failures.append(f"LUT oracle launches {lut_counts}")
+    if lut_toks != tlmm_toks or not all(
+            torch.equal(a, b) for a, b in zip(lut_logits, tlmm_logits)):
+        failures.append("LUT oracle logits or tokens differ from the tlmm "
+                        "oracle's")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c[row["name"]] for c in (
-            eng_counts, paged_counts, kv8_counts, ora_counts))
+            eng_counts, paged_counts, kv8_counts, ora_counts, ffn_counts,
+            lut_counts))
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -4,7 +4,9 @@
 pack_params`` returns (layer leaves stacked along a leading L axis), with
 every leaf already converted to a numpy array by the caller, and builds the
 port's packed parameters — so both packages compute on the same codes,
-gammas, biases, norms and embeddings.  This module never imports JAX.
+gammas, biases, norms and embeddings.  ``packed_from_jax`` does the same for
+one packed linear (``repro.core.bitlinear.pack``'s dict).  This module never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -19,17 +21,29 @@ from repro_torch.models.layers import Embedding, RMSNorm
 from repro_torch.models.transformer import require_attn
 
 
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def packed_from_jax(d: dict, g: int, device: str | torch.device = "cuda"
+                    ) -> PackedLinear:
+    """One packed linear, {"codes", "gamma"[, "b"]} as numpy arrays, packed
+    with group g -> the port's PackedLinear on ``device``."""
+    return PackedLinear(_tensor(d["codes"], device),
+                        _tensor(d["gamma"], device),
+                        _tensor(d["b"], device) if "b" in d else None, g=g)
+
+
 def from_jax_packed(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> nn.ModuleDict:
     require_attn(cfg)
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _tensor(a, device)
 
     def packed(d, i):
-        return PackedLinear(t(d["codes"][i]), t(d["gamma"][i]),
-                            t(d["b"][i]) if "b" in d else None,
-                            g=cfg.group_size)
+        return packed_from_jax({k: v[i] for k, v in d.items()},
+                               cfg.group_size, device)
 
     lay = tree["layers"]
     blocks = nn.ModuleList()

@@ -27,8 +27,12 @@ from torch import nn
 
 from repro_torch.core import ternary
 from repro_torch.kernels.tlmm import ops as tlmm_ops
+from repro_torch.kernels.tlmm_lut import ops as lut_ops
 
 ROW_MULTIPLE = 64  # packed rows pad to this (mesh-shardable, as in JAX)
+# the packed matmul of apply_packed: decode-to-int8 (JAX impl "pallas") or
+# the paper's table lookup (JAX impl "pallas_lut")
+MATMULS = ("tlmm", "tlmm_lut")
 
 
 class Linear(nn.Module):
@@ -77,15 +81,21 @@ def pack(p: Linear, g: int = ternary.DEFAULT_G,
                         g=g)
 
 
-def apply_packed(p: PackedLinear, x: torch.Tensor, *,
+def apply_packed(p: PackedLinear, x: torch.Tensor, *, matmul: str = "tlmm",
                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x: (..., n_in) float -> (..., n_out) out_dtype.  Absmax int8 quant,
-    packed ternary matmul (``tlmm``: the kernel for a CUDA tensor, its plain
-    version for a CPU one), then acc * x_scale * gamma (+ b)."""
+    packed ternary matmul (``matmul``: ``tlmm`` or ``tlmm_lut``, each the
+    kernel for a CUDA tensor and its plain version for a CPU one; both give
+    the same int32 sums), then acc * x_scale * gamma (+ b)."""
     n_in = x.shape[-1]
     lead = x.shape[:-1]
     x_q, x_scale = ternary.absmax_quant(x.reshape(-1, n_in))
-    acc = tlmm_ops.tlmm(x_q, p.codes, g=p.g, n=n_in)
+    if matmul == "tlmm":
+        acc = tlmm_ops.tlmm(x_q, p.codes, g=p.g, n=n_in)
+    elif matmul == "tlmm_lut":
+        acc = lut_ops.tlmm_lut(x_q, p.codes, g=p.g)
+    else:
+        raise ValueError(f"unknown matmul {matmul!r}, not one of {MATMULS}")
     y = acc.float() * x_scale * p.gamma
     if p.b is not None:
         y = y + p.b.float()

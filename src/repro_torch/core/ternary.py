@@ -18,8 +18,19 @@ from typing import Tuple
 import torch
 
 DEFAULT_G = 5   # 3^5 = 243 codes fit a uint8 (the paper's FPGA uses 3)
+PAPER_G = 3     # the paper's FPGA group: 27 codes, 5-bit indices
 
 _POW3 = (1, 3, 9, 27, 81, 243, 729)
+
+
+def num_codes(g: int) -> int:
+    """Number of distinct base-3 codes of a group of g (the paper's N_TB)."""
+    return 3 ** g
+
+
+def index_bits(g: int) -> int:
+    """Bit width of one group index (the paper's B_idx = ceil(log2 3^g))."""
+    return (3 ** g - 1).bit_length()
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +128,46 @@ def ternary_matmul_ref(a_q: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     below 2^53 whatever the summation order, and runs on the CPU and on the
     card alike (the card has no int32 matmul in PyTorch)."""
     return (a_q.double() @ wt.double()).to(torch.int32)
+
+
+def enumeration_matrix(g: int, dtype: torch.dtype = torch.int8,
+                       device=None) -> torch.Tensor:
+    """C in {-1,0,1}^{g x 3^g}: column c holds the digits of code c, so
+    ``a_grouped @ C`` is every table of the paper's precompute unit."""
+    codes = torch.arange(3 ** g, device=device)
+    rows = []
+    for _ in range(g):
+        rows.append(codes % 3 - 1)
+        codes = codes // 3
+    return torch.stack(rows).to(dtype)
+
+
+# Elements of one (m, groups, k) lookup block of ternary_matmul_lut_ref:
+# bounds its memory whatever the shape.
+_LUT_BLOCK_ELEMS = 1 << 25
+
+
+def ternary_matmul_lut_ref(a_q: torch.Tensor, codes: torch.Tensor, g: int
+                           ) -> torch.Tensor:
+    """Table-lookup matmul (the paper's Method 3, full table): int8 (m, n)
+    x base-3 codes (groups, k), n <= groups * g -> int32 (m, k).
+
+    Stage 1 (precompute): tables[m, group, c] = sum over the group of
+    a[m, group * g + i] * digit_i(c) = a_grouped @ C.  Stage 2 (lookup):
+    out[m, k] = sum over groups of tables[m, group, codes[group, k]].
+    Groups are taken in blocks so that no (m, groups, k) lookup exceeds
+    ``_LUT_BLOCK_ELEMS`` elements; int32 sums are exact in any order."""
+    m, n = a_q.shape
+    n_groups, k = codes.shape
+    a = torch.nn.functional.pad(a_q.to(torch.int32), (0, n_groups * g - n))
+    a_grouped = a.reshape(m, n_groups, g)
+    c_mat = enumeration_matrix(g, torch.int32, a_q.device)       # (g, 3^g)
+    out = torch.zeros((m, k), dtype=torch.int32, device=a_q.device)
+    step = max(1, _LUT_BLOCK_ELEMS // max(1, m * k, m * g * 3 ** g))
+    for lo in range(0, n_groups, step):
+        blk = a_grouped[:, lo:lo + step]
+        # integer "matmul" as a broadcast product: the card has no int32 GEMM
+        tables = (blk[..., None] * c_mat).sum(dim=2, dtype=torch.int32)
+        idx = codes[lo:lo + step].long()[None].expand(m, -1, -1)
+        out += torch.gather(tables, 2, idx).sum(dim=1, dtype=torch.int32)
+    return out

@@ -37,6 +37,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Block-wide sum (MAX false) or maximum (MAX true) of one float per thread
+// of a block of WARPS warps, returned to every thread; red holds WARPS + 1
+// floats of shared memory.  Maxima are taken of absolute values, so 0 pads
+// the missing lanes of either.
+template <int WARPS, bool MAX>
+__device__ float block_reduce(float v, float* red) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < WARPS ? red[lane] : 0.0f;
+    v = MAX ? warp_max(v) : warp_sum(v);
+    if (lane == 0) red[WARPS] = v;
+  }
+  __syncthreads();
+  const float out = red[WARPS];
+  __syncthreads();   // red is free again for the next reduction
+  return out;
+}
+
 // f32 or bf16 K/V values widen to f32; an int8 value is dequantized as the
 // JAX paged int8 decode kernel does it, f32(bf16(f32(int8) * scale)) with
 // the scale already rounded to bf16 — the value a bf16 dequantized copy of

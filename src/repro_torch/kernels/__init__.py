@@ -37,8 +37,14 @@ def launch_counters() -> dict:
     launches of that kernel in this process."""
     from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.flash_prefill import kernel as fp
+    from repro_torch.kernels.rmsnorm_quant import kernel as rq
+    from repro_torch.kernels.swiglu_quant import kernel as sq
     from repro_torch.kernels.tlmm import kernel as tl
-    return {"tlmm": tl.tlmm_cuda, "flash_prefill": fp.flash_prefill_cuda,
+    from repro_torch.kernels.tlmm_lut import kernel as lut
+    return {"tlmm": tl.tlmm_cuda, "tlmm_lut": lut.tlmm_lut_cuda,
+            "rmsnorm_quant": rq.rmsnorm_quant_cuda,
+            "swiglu_quant": sq.swiglu_quant_cuda,
+            "flash_prefill": fp.flash_prefill_cuda,
             "flash_chunk_prefill": fp.flash_chunk_prefill_cuda,
             "flash_chunk_prefill_paged": fp.flash_chunk_prefill_paged_cuda,
             "decode_attention": da.decode_attention_cuda,

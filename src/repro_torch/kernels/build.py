@@ -31,6 +31,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _LP = ctypes.POINTER(ctypes.c_int64)
 SIGNATURES = {
     "tlmm_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
+    "tlmm_lut_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
+    "rmsnorm_quant_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "swiglu_quant_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _P],
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "decode_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _P, _I, _I, _I, _I,

@@ -21,13 +21,21 @@ from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
 class Ctx:
     """Execution context threaded through the model.
 
-    Every ternary matmul and attention call goes through a kernel wrapper —
-    JAX's ``impl="pallas"`` / ``attn_impl="pallas"`` — which launches the
-    hand-written CUDA kernel for a CUDA tensor and takes the kernel's plain
-    version for a CPU tensor, so there is nothing to choose here but the
-    activation dtype.
+    Every ternary matmul and attention call goes through a kernel wrapper
+    (JAX's ``attn_impl="pallas"``), which launches the hand-written CUDA
+    kernel for a CUDA tensor and takes the kernel's plain version for a CPU
+    tensor.  ``matmul`` chooses the packed linears' kernel: ``"tlmm"``
+    (JAX's ``impl="pallas"``) or the paper's table lookup ``"tlmm_lut"``
+    (``impl="pallas_lut"``).  Both give the same int32 sums.  Pre-decoded
+    linears (the serving engine's) ignore it, as in JAX.
     """
     act_dtype: torch.dtype = torch.float32
+    matmul: str = "tlmm"
+
+    def __post_init__(self):
+        if self.matmul not in bitlinear.MATMULS:
+            raise ValueError(f"Ctx.matmul {self.matmul!r} not one of "
+                             f"{bitlinear.MATMULS}")
 
 
 # ---------------------------------------------------------------------------
@@ -38,7 +46,8 @@ def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     if isinstance(p, PredecodedLinear):   # serving engine's hot path
         return bitlinear.apply_predecoded(p, x, out_dtype=x.dtype)
     if isinstance(p, PackedLinear):       # packed inference params
-        return bitlinear.apply_packed(p, x, out_dtype=x.dtype)
+        return bitlinear.apply_packed(p, x, matmul=ctx.matmul,
+                                      out_dtype=x.dtype)
     if isinstance(p, Linear):             # dense layer (untied LM head)
         y = x @ p.w.to(x.dtype)
         return y + p.b.to(y.dtype) if p.b is not None else y

@@ -193,7 +193,8 @@ class _PagePool:
 
 def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
                      prompt, max_new: int, max_seq: int,
-                     cache_dtype: torch.dtype = torch.bfloat16, follow=None):
+                     cache_dtype: torch.dtype = torch.bfloat16, follow=None,
+                     logits: list | None = None):
     """Unbatched greedy prefill + decode on the given (packed) parameters —
     the oracle the engine is held against.  Returns (tokens, margins):
     tokens[i] is the oracle's argmax at step i and margins[i] its top-1
@@ -203,13 +204,16 @@ def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
     those tokens instead of its own (teacher forcing), so every step of the
     other decoder is judged on the same history, and margins[i] is the
     oracle's top logit minus its logit of follow[i]: 0 where the two agree,
-    otherwise how far from the oracle's choice the other decoder's was."""
+    otherwise how far from the oracle's choice the other decoder's was.
+    With a ``logits`` list, each step's (vocab,) logits row is appended."""
     dev = transformer.param_device(params)
     cache = transformer.init_cache(cfg, 1, max_seq, cache_dtype, dev)
     toks, margins = [], []
 
-    def take(logits):
-        row = logits[0].float()
+    def take(step_logits):
+        row = step_logits[0].float()
+        if logits is not None:
+            logits.append(row)
         toks.append(int(torch.argmax(row)))
         if follow is None:
             top = torch.topk(row, 2).values
@@ -219,14 +223,14 @@ def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
         return toks[-1] if follow is None else int(follow[len(toks) - 1])
 
     prompt_t = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)
-    logits, cache = transformer.prefill_step(cfg, params, prompt_t[None], ctx,
-                                             cache)
-    nxt = take(logits)
+    step, cache = transformer.prefill_step(cfg, params, prompt_t[None], ctx,
+                                           cache)
+    nxt = take(step)
     pos = len(prompt)
     for _ in range(max_new - 1):
-        logits, cache = transformer.decode_step(
+        step, cache = transformer.decode_step(
             cfg, params, torch.tensor([[nxt]], device=dev), ctx, cache, pos)
-        nxt = take(logits)
+        nxt = take(step)
         pos += 1
     return toks, margins
 

@@ -2,9 +2,12 @@
 device (``pytest -m gpu tests/test_torch_gpu.py`` on the card; every test
 skips without one).  Imports no JAX, so it runs where JAX is not installed.
 
-tlmm and the packed linear are compared for equality (int32 sums); the f32
-attention kernels within 2e-5 absolute and relative — they sum in another
-order than the plain versions, a few ULPs of values of order one.  The
+tlmm, tlmm_lut and the packed linear are compared for equality (int32
+sums); rmsnorm_quant and swiglu_quant with their plain versions by scales
+within rtol 1e-6 and codes at most one apart (a sum of squares taken in
+another order); the f32 attention kernels within 2e-5 absolute and
+relative — they sum in another order than the plain versions, a few ULPs
+of values of order one.  The
 paged kernels walk keys in the contiguous kernels' order, so against those
 on the same rows they are compared with ``torch.equal``.
 """
@@ -12,14 +15,20 @@ on the same rows they are compared with ``torch.equal``.
 import pytest
 import torch
 
-from repro_torch.core import bitlinear, ternary
+from repro_torch.core import bitlinear, fused_block, ternary
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
+from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
+from repro_torch.kernels.swiglu_quant import ops as sq_ops
+from repro_torch.kernels.swiglu_quant import ref as sq_ref
 from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm import ref as tlmm_ref
+from repro_torch.kernels.tlmm_lut import ops as lut_ops
+from repro_torch.kernels.tlmm_lut import ref as lut_ref
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 PAGE_SIZES = (4, 5, 16)
@@ -231,3 +240,97 @@ def test_paged_chunk_kernel_matches_plain_and_contiguous(
     assert torch.equal(got, fp_ops.flash_chunk_prefill(
         q, k.transpose(1, 2), v.transpose(1, 2), k_new, v_new, off,
         window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [2, 3, 5])
+@pytest.mark.parametrize("m,n,k,row_multiple", [
+    (1, 1536, 1536, 64), (4, 4096, 1536, 64), (70, 165, 130, 1),
+    (5, 96, 300, 8), (130, 1536, 257, 64)])
+def test_tlmm_lut_kernel_equals_plain_and_tlmm(cuda, g, m, n, k,
+                                               row_multiple):
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k + g)
+    w = torch.randint(-1, 2, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    codes = ternary.pack_ternary(w, g, row_multiple)
+    a = torch.randint(-128, 128, (m, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    before = launch_counts()["tlmm_lut"]
+    got = lut_ops.tlmm_lut(a, codes, g=g)
+    assert launch_counts()["tlmm_lut"] == before + 1
+    assert torch.equal(got, lut_ref.tlmm_lut_ref(a, codes, g, n))
+    assert torch.equal(got, tlmm_ops.tlmm(a, codes, g=g))
+    # activations longer than the codes: the columns past rows * g are unused
+    short = codes[:n // (2 * g)]
+    assert torch.equal(lut_ops.tlmm_lut(a, short, g=g),
+                       tlmm_ops.tlmm(a, short, g=g))
+
+
+def _assert_quant_close(got, want):
+    (q, s), (q_want, s_want) = got, want
+    torch.testing.assert_close(s, s_want, rtol=1e-6, atol=0)
+    assert q.dtype == torch.int8 and q.shape == q_want.shape
+    assert (q.int() - q_want.int()).abs().max().item() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(4, 1536), (128, 1536), (5, 96), (3, 1000)])
+def test_rmsnorm_quant_kernel_matches_plain(cuda, dtype, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(m * d)
+    x = (torch.randn(m, d, generator=gen, device=cuda) * 3).to(dtype)
+    w = torch.randn(d, generator=gen, device=cuda).to(dtype)
+    before = launch_counts()["rmsnorm_quant"]
+    got = rq_ops.rmsnorm_quant(x, w)
+    assert launch_counts()["rmsnorm_quant"] == before + 1
+    _assert_quant_close(got, rq_ref.rmsnorm_quant_ref(x, w))
+    # f32 weight on bf16 activations, as the model's norms
+    _assert_quant_close(rq_ops.rmsnorm_quant(x, w.float()),
+                        rq_ref.rmsnorm_quant_ref(x, w.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f", [(4, 4096), (128, 4096), (3, 100)])
+def test_swiglu_quant_kernel_matches_plain(cuda, m, f):
+    gen = torch.Generator(device=cuda).manual_seed(m + f)
+    gate, up = (torch.randint(-3000, 3000, (m, f), generator=gen,
+                              device=cuda, dtype=torch.int32)
+                for _ in range(2))
+    gs, us = (torch.rand(m, 1, generator=gen, device=cuda) * 1e-3
+              for _ in range(2))
+    before = launch_counts()["swiglu_quant"]
+    got = sq_ops.swiglu_quant(gate, up, gs, us)
+    assert launch_counts()["swiglu_quant"] == before + 1
+    _assert_quant_close(got, sq_ref.swiglu_quant_ref(gate, up, gs, us))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_on_the_card(cuda, dtype):
+    """bitnet-0.73b's FFN widths: five kernel launches and the same
+    dataflow as on the CPU's plain versions; in f32, within the tolerance
+    of tests/test_fused_block.py (an f32 test) of the unfused packed path.
+    In bf16 the unfused path rounds its norm and SwiGLU outputs to bf16
+    before it quantizes them, which moves a share of the 4096 SwiGLU codes
+    of a row by one: at this width that moved outputs by up to 0.077 std
+    on the H100, past that tolerance, without a fault in either path."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mlp = torch.nn.ModuleDict({
+        name: bitlinear.pack(bitlinear.init(gen, n_in, n_out))
+        for name, n_in, n_out in (("gate", 1536, 4096), ("up", 1536, 4096),
+                                  ("down", 4096, 1536))})
+    norm_w = 1 + 0.1 * torch.randn(1536, generator=gen, device=cuda)
+    x = torch.randn(7, 1536, generator=gen, device=cuda).to(dtype)
+    before = launch_counts()
+    got = fused_block.fused_ffn_packed(mlp, norm_w, x)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in
+            ("rmsnorm_quant", "tlmm", "swiglu_quant")} == {
+        "rmsnorm_quant": 1, "tlmm": 3, "swiglu_quant": 1}
+    on_cpu = fused_block.fused_ffn_packed(mlp.cpu(), norm_w.cpu(), x.cpu())
+    torch.testing.assert_close(got.float().cpu(), on_cpu.float(),
+                               atol=1e-2, rtol=1e-2)
+    if dtype == torch.float32:
+        ref = fused_block.unfused_reference(mlp.to(cuda), norm_w, x)
+        torch.testing.assert_close(got, ref, rtol=0.1,
+                                   atol=0.05 * ref.std().item() + 1e-3)

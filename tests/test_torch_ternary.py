@@ -30,9 +30,18 @@ from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.rmsnorm_quant import kernel as rq_kernel
+from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
+from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
+from repro_torch.kernels.swiglu_quant import kernel as sq_kernel
+from repro_torch.kernels.swiglu_quant import ops as sq_ops
+from repro_torch.kernels.swiglu_quant import ref as sq_ref
 from repro_torch.kernels.tlmm import kernel as tlmm_kernel
 from repro_torch.kernels.tlmm import ops as t_tlmm
 from repro_torch.kernels.tlmm import ref as tlmm_ref
+from repro_torch.kernels.tlmm_lut import kernel as lut_kernel
+from repro_torch.kernels.tlmm_lut import ops as lut_ops
+from repro_torch.kernels.tlmm_lut import ref as lut_ref
 from repro_torch.models import layers
 
 
@@ -142,10 +151,19 @@ def _wrapper_cases():
     lens, off = torch.tensor([3, 8], dtype=torch.int32), [0, 4]
     codes = ternary.pack_ternary(torch.randint(-1, 2, (10, 3),
                                                dtype=torch.int8), 5, 1)
+    codes3 = ternary.pack_ternary(torch.randint(-1, 2, (10, 3),
+                                                dtype=torch.int8), 3, 1)
     a_q = torch.randint(-127, 128, (2, 10), dtype=torch.int8)
     return {
         "tlmm": (t_tlmm, tlmm_kernel, "tlmm_cuda", tlmm_ref, "tlmm_ref",
                  (a_q, codes)),
+        "tlmm_lut": (lut_ops, lut_kernel, "tlmm_lut_cuda", lut_ref,
+                     "tlmm_lut_ref", (a_q, codes3)),   # default g = 3
+        "rmsnorm_quant": (rq_ops, rq_kernel, "rmsnorm_quant_cuda", rq_ref,
+                          "rmsnorm_quant_ref", (r(2, 3, 16), r(16))),
+        "swiglu_quant": (sq_ops, sq_kernel, "swiglu_quant_cuda", sq_ref,
+                         "swiglu_quant_ref",
+                         (a_q.int(), a_q.int(), r(2, 1), r(2, 1))),
         "flash_prefill": (fp_ops, fp_kernel, "flash_prefill_cuda", fp_ref,
                           "flash_prefill_ref", (q4, fresh, fresh)),
         "flash_chunk_prefill": (fp_ops, fp_kernel, "flash_chunk_prefill_cuda",
@@ -173,10 +191,13 @@ def test_wrapper_chooses_by_tensor_device(monkeypatch, wrapper):
     """A CPU tensor takes the plain version, a CUDA tensor the kernel's
     launch (no setting chooses), any other device raises."""
     ops, kmod, launch, rmod, plain, args = _wrapper_cases()[wrapper]
-    calls = []
-    monkeypatch.setattr(kmod, launch, lambda *a, **k: calls.append("kernel"))
-    monkeypatch.setattr(rmod, plain, lambda *a, **k: calls.append("plain"))
     fn = getattr(ops, wrapper)
+    out = fn(*args)   # what the stand-ins return, for wrappers that unpack it
+    calls = []
+    monkeypatch.setattr(kmod, launch,
+                        lambda *a, **k: calls.append("kernel") or out)
+    monkeypatch.setattr(rmod, plain,
+                        lambda *a, **k: calls.append("plain") or out)
     fn(*args)
     fn(args[0].as_subclass(_OnCard), *args[1:])
     assert calls == ["plain", "kernel"]
@@ -189,7 +210,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         import runpy, sys
         import repro_torch, repro_torch.convert, repro_torch.serving
         import repro_torch.kernels.build
-        for mod in ("tlmm", "flash_prefill", "decode_attention"):
+        import repro_torch.core.fused_block
+        for mod in ("tlmm", "tlmm_lut", "rmsnorm_quant", "swiglu_quant",
+                    "flash_prefill", "decode_attention"):
             for part in ("kernel", "ops", "ref"):
                 __import__(f"repro_torch.kernels.{mod}.{part}")
         runpy.run_path("chip_smoke.py", run_name="not_main")
