@@ -147,6 +147,27 @@ def event_ms(fn, iters: int = 20) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def ptxas_summary(build_log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name
+    (template arguments of the tlmm kernels spelled out), registers, shared
+    memory and spills."""
+    import re
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"\d+(tlmm\w*_kernel)I((?:Li\d+E)+)E", name)
+            if t:
+                name = f"{t.group(1)}<{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "registers" in line and name is not None:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def main() -> int:
     # -- 1. card -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -181,16 +202,26 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
     log(f"card: {kind} x{count}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; nvidia-smi: {smi}")
+        f"{torch.version.cuda}; nvidia-smi: {smi}; top SM clock "
+        f"{clock_mhz:.0f} MHz")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  ptxas:", line.strip())
+    for line in ptxas_summary(build.build_log):
+        log("  ptxas:", line)
+    lib = build.load()
+    log("  dynamic shared memory a block: tlmm mma " + ", ".join(
+        f"g={g} {lib.tlmm_dynamic_smem(g, 64)} B" for g in (3, 5))
+        + "; tlmm_lut " + ", ".join(
+            f"g={g} rows={bm} {lib.tlmm_lut_dynamic_smem(g, bm)} B"
+            for g in (3, 5) for bm in (2, 4, 8)))
 
     # -- 3. each kernel against its plain version at main-path shapes --------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -217,6 +248,7 @@ def main() -> int:
                 f"plain_ms {pms:.4f}  library_ms "
                 f"{'none' if lms is None else f'{lms:.4f}'}  bound_ms "
                 f"{b_ms:.5f} ({b_by})")
+            c["ms"] = ms
             tot["ms"] += ms
             tot["plain_ms"] += pms
             tot["library_ms"] = (None if lms is None or tot["library_ms"] is None
@@ -258,6 +290,29 @@ def main() -> int:
     entry("tlmm", "src/repro_torch/csrc/tlmm.cu",
           "src/repro/kernels/tlmm/kernel.py:35", calls)
 
+    # the oracle's decode shape (m = 1: reference_decode is unbatched) for
+    # either kernel, outside the summed rows: device ms and bound per linear
+    def decode_line(name, fn, g):
+        parts, tot, tot_b = [], 0.0, 0.0
+        for n, k in ((1536, 1536), (1536, 4096), (4096, 1536)):
+            w = torch.randint(-1, 2, (n, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            codes = ternary.pack_ternary(w, g, bitlinear.ROW_MULTIPLE)
+            a = torch.randint(-127, 128, (1, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            if not torch.equal(fn(a, codes, g),
+                               tlmm_ref.tlmm_ref(a, codes, g, n)):
+                raise AssertionError(f"{name} m=1 n={n} k={k}: kernel != plain")
+            ms = device_ms(lambda a=a, c=codes: fn(a, c, g))
+            b_ms, _ = bound_ms(n + codes.numel() + k * 4, 2.0 * n * k,
+                               INT8_OPS_PER_S)
+            parts.append(f"n={n} k={k} {ms:.4f} (bound {b_ms:.5f})")
+            tot, tot_b = tot + ms, tot_b + b_ms
+        log(f"  {name} m=1 g={g} (decode, not in the row): device_ms "
+            f"{'; '.join(parts)}; sum {tot:.4f} (bound {tot_b:.5f})")
+
+    decode_line("tlmm", lambda a, c, g: tlmm_ops.tlmm(a, c, g=g), 5)
+
     # tlmm_lut: the same linears at the model's g = 5 and re-packed at the
     # paper's g = 3, each equal to its plain version and to tlmm on the same
     # codes; its library call is tlmm's, and its bound tlmm's bytes
@@ -296,6 +351,16 @@ def main() -> int:
                                    a, c, g=g)))
     entry("tlmm_lut", "src/repro_torch/csrc/tlmm_lut.cu",
           "src/repro/kernels/tlmm_lut/kernel.py:29", calls)
+    decode_line("tlmm_lut", lambda a, c, g: lut_ops.tlmm_lut(a, c, g=g), 5)
+    # table reads: one per (row, group, column); per clock at the top SM clock
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in calls:
+        g_, m_, n_, k_ = (int(x.split("=")[1]) for x in c["shape"].split())
+        reads = m_ * k_ * -(-n_ // g_)
+        log(f"  tlmm_lut {c['shape']}: {reads / 1e6:.1f} M table reads, "
+            f"{reads / (c['ms'] * 1e-3) / sms / 1e6:.1f} per us an SM, "
+            f"{reads / (c['ms'] * 1e-3) / sms / (clock_mhz * 1e6):.2f} per "
+            f"clock an SM at {clock_mhz:.0f} MHz")
     # the paper's Table 4 on this card: decode-to-int8 against table lookup,
     # same codes, timed in turns (tlmm, lut, lut, tlmm) within this call
     for shape, lut_fn, tlmm_fn in table4:

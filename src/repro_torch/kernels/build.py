@@ -30,8 +30,15 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _LP = ctypes.POINTER(ctypes.c_int64)
 SIGNATURES = {
-    "tlmm_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
-    "tlmm_lut_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P],
+    # ..., m, k, rows, L, g, then the plan (kernels/tlmm/plan.py): rows and
+    # columns a block, groups a split, splits
+    "tlmm_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P],
+    "tlmm_lut_launch": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    # (g, rows a block) -> dynamic shared memory bytes of a block
+    "tlmm_dynamic_smem": [_I, _I],
+    "tlmm_lut_dynamic_smem": [_I, _I],
     "rmsnorm_quant_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "swiglu_quant_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _P],
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,

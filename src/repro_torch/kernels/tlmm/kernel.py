@@ -1,12 +1,14 @@
-"""Launch of the TLMM CUDA kernel (``csrc/tlmm.cu``).
+"""Launch of the TLMM CUDA kernels (``csrc/tlmm.cu``).
 
 Replaces ``repro/kernels/tlmm/kernel.py::tlmm_kernel``; the source note in
-``tlmm.cu`` says what bounds it on the card and how its design answers.
+``tlmm.cu`` says what bounds it on the card and how its two regimes answer.
+The grid comes from ``plan.plan_tlmm``.
 """
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tlmm import plan as tlmm_plan
 
 
 def check_operands(what: str, a_q: torch.Tensor, codes: torch.Tensor, g: int,
@@ -28,22 +30,34 @@ def check_operands(what: str, a_q: torch.Tensor, codes: torch.Tensor, g: int,
                          f"{min(a_q.shape[1], codes.shape[0] * g)}]")
 
 
+def launch(name: str, plan_fn, a_q: torch.Tensor, codes: torch.Tensor,
+           g: int, n: int) -> tuple:
+    """Plan and launch ``<name>_launch`` of the kernel library: (out,
+    launched).  An output with no element, or an empty reduction (zeros),
+    launches nothing."""
+    check_operands(f"{name}_cuda", a_q, codes, g, n)
+    m, k, rows = a_q.shape[0], codes.shape[1], codes.shape[0]
+    p = plan_fn(m, n, k, g, tlmm_plan.sm_count(a_q.device.index or 0))
+    if m == 0 or k == 0 or p.split == 0:
+        return torch.zeros((m, k), dtype=torch.int32, device=a_q.device), 0
+    alloc = torch.zeros if p.atomic else torch.empty
+    out = alloc((m, k), dtype=torch.int32, device=a_q.device)
+    err = getattr(build.load(), f"{name}_launch")(
+        a_q.data_ptr(), a_q.stride(0), codes.data_ptr(), codes.stride(0),
+        out.data_ptr(), m, k, rows, n, g, p.rows, p.cols, p.per, p.split,
+        torch.cuda.current_stream(a_q.device).cuda_stream)
+    build.check(err, name)
+    return out, 1
+
+
 def tlmm_cuda(a_q: torch.Tensor, codes: torch.Tensor, *, g: int,
               n: int) -> torch.Tensor:
     """(m, >= n) int8 x (rows, k) uint8 base-3 codes -> (m, k) int32, summed
     over reduction indices [0, n), n <= rows * g.  CUDA tensors only; the
-    kernel masks every ragged edge itself."""
-    check_operands("tlmm_cuda", a_q, codes, g, n)
-    m, k, rows = a_q.shape[0], codes.shape[1], codes.shape[0]
-    out = torch.empty((m, k), dtype=torch.int32, device=a_q.device)
-    if m == 0 or k == 0:
-        return out
-    lib = build.load()
-    err = lib.tlmm_launch(a_q.data_ptr(), a_q.stride(0), codes.data_ptr(),
-                          codes.stride(0), out.data_ptr(), m, k, rows, n, g,
-                          torch.cuda.current_stream(a_q.device).cuda_stream)
-    build.check(err, "tlmm")
-    tlmm_cuda.launches += 1
+    kernel masks every ragged edge itself.  An empty reduction gives zeros
+    without a launch."""
+    out, launched = launch("tlmm", tlmm_plan.plan_tlmm, a_q, codes, g, n)
+    tlmm_cuda.launches += launched
     return out
 
 

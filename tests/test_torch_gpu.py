@@ -42,22 +42,45 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k,g,row_multiple", [
+# (m, n, k, g, row_multiple): the regime edge m = 16 / 17, m = 1 at full
+# width, k = 130 and 257 (not a multiple of 4 columns), n = 0 (all zeros),
+# and a split whose last block ends inside a step (TLMM_PARTIAL_STEP)
+TLMM_PARTIAL_STEP = (73, 1536, 1536, 5, 64)
+TLMM_SHAPES = [
     (1, 1536, 1536, 5, 64), (70, 165, 130, 5, 1), (5, 96, 64, 3, 8),
-    (130, 4096, 200, 5, 64), (3, 64, 48, 4, 1)])
-def test_tlmm_kernel_equals_plain(cuda, m, n, k, g, row_multiple):
-    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    (130, 4096, 200, 5, 64), (3, 64, 48, 4, 1), (16, 1536, 1536, 5, 64),
+    (17, 1536, 1536, 5, 64), (1, 1536, 4096, 5, 64), (1, 4096, 1536, 5, 64),
+    (4, 1536, 130, 5, 64), (17, 300, 257, 3, 1), (128, 1536, 257, 5, 64),
+    (4, 0, 96, 5, 1), (40, 0, 64, 3, 1), TLMM_PARTIAL_STEP]
+
+
+def _ternary_operands(cuda, m, n, k, g, row_multiple, lead):
+    """Codes of a random (n, k) ternary matrix and (m, n) int8 activations;
+    lead > 0 takes the activations as a column slice, from column lead, of
+    a wider tensor (lda = n + lead + 13, a misaligned start when lead is
+    odd)."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k + g + lead)
     w = torch.randint(-1, 2, (n, k), generator=gen, device=cuda,
                       dtype=torch.int8)
     codes = ternary.pack_ternary(w, g, row_multiple)
-    a = torch.randint(-128, 128, (m, n), generator=gen, device=cuda,
-                      dtype=torch.int8)
+    wide = torch.randint(-128, 128, (m, n + (lead + 13 if lead else 0)),
+                         generator=gen, device=cuda, dtype=torch.int8)
+    return codes, wide[:, lead:lead + n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [0, 3])
+@pytest.mark.parametrize("m,n,k,g,row_multiple", TLMM_SHAPES)
+def test_tlmm_kernel_equals_plain(cuda, m, n, k, g, row_multiple, lead):
+    codes, a = _ternary_operands(cuda, m, n, k, g, row_multiple, lead)
     before = launch_counts()["tlmm"]
     got = tlmm_ops.tlmm(a, codes, g=g)
-    assert launch_counts()["tlmm"] == before + 1
+    assert launch_counts()["tlmm"] == before + (n > 0)
     torch.testing.assert_close(got, tlmm_ref.tlmm_ref(a, codes, g, n),
                                rtol=0, atol=0)
+    assert torch.equal(got, tlmm_ops.tlmm(a, codes, g=g))   # atomics: any order
+    if n == 0:
+        assert not got.any()
 
 
 @pytest.mark.gpu
@@ -242,24 +265,32 @@ def test_paged_chunk_kernel_matches_plain_and_contiguous(
         window=window))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("g", [2, 3, 5])
-@pytest.mark.parametrize("m,n,k,row_multiple", [
+# (m, n, k, row_multiple), at g in {2, 3, 5}: as TLMM_SHAPES, the split
+# with a partial step being LUT_PARTIAL_STEP at g = 5
+LUT_PARTIAL_STEP = (128, 1536, 4096, 64)
+LUT_SHAPES = [
     (1, 1536, 1536, 64), (4, 4096, 1536, 64), (70, 165, 130, 1),
-    (5, 96, 300, 8), (130, 1536, 257, 64)])
+    (5, 96, 300, 8), (130, 1536, 257, 64), (16, 1536, 1536, 64),
+    (17, 1536, 1536, 64), (1, 1536, 4096, 64), (1, 4096, 1536, 64),
+    (4, 1536, 130, 64), (3, 0, 64, 1), LUT_PARTIAL_STEP]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [0, 3])
+@pytest.mark.parametrize("g", [2, 3, 5])
+@pytest.mark.parametrize("m,n,k,row_multiple", LUT_SHAPES)
 def test_tlmm_lut_kernel_equals_plain_and_tlmm(cuda, g, m, n, k,
-                                               row_multiple):
-    gen = torch.Generator(device=cuda).manual_seed(m + n + k + g)
-    w = torch.randint(-1, 2, (n, k), generator=gen, device=cuda,
-                      dtype=torch.int8)
-    codes = ternary.pack_ternary(w, g, row_multiple)
-    a = torch.randint(-128, 128, (m, n), generator=gen, device=cuda,
-                      dtype=torch.int8)
+                                               row_multiple, lead):
+    codes, a = _ternary_operands(cuda, m, n, k, g, row_multiple, lead)
     before = launch_counts()["tlmm_lut"]
     got = lut_ops.tlmm_lut(a, codes, g=g)
-    assert launch_counts()["tlmm_lut"] == before + 1
+    assert launch_counts()["tlmm_lut"] == before + (n > 0)
     assert torch.equal(got, lut_ref.tlmm_lut_ref(a, codes, g, n))
     assert torch.equal(got, tlmm_ops.tlmm(a, codes, g=g))
+    assert torch.equal(got, lut_ops.tlmm_lut(a, codes, g=g))
+    if n == 0:
+        assert not got.any()
+        return
     # activations longer than the codes: the columns past rows * g are unused
     short = codes[:n // (2 * g)]
     assert torch.equal(lut_ops.tlmm_lut(a, short, g=g),
