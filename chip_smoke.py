@@ -35,6 +35,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,15 +152,19 @@ def ptxas_summary(build_log: str) -> list:
     """One line per compiled kernel from nvcc's -Xptxas -v output: its name
     (template arguments of the tlmm kernels spelled out), registers, shared
     memory and spills."""
-    import re
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             t = re.search(r"\d+(tlmm\w*_kernel)I((?:Li\d+E)+)E", name)
+            f = re.search(r"flash_attn_kernelILi(\d+)EN5repro\d+"
+                          r"(ContigKV|PagedKV)I(f|13__nv_bfloat16)E", name)
             if t:
                 name = f"{t.group(1)}<{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
+            elif f:
+                kv = "float" if f.group(3) == "f" else "bf16"
+                name = f"flash_attn_kernel<{f.group(1)}, {f.group(2)}<{kv}>>"
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name is not None:
@@ -182,6 +187,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.flash_prefill import plan as fp_plan
     from repro_torch.kernels.flash_prefill import ref as fp_ref
     from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
     from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
@@ -216,7 +222,14 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
     for line in ptxas_summary(build.build_log):
         log("  ptxas:", line)
+    spills = [line for line in ptxas_summary(build.build_log)
+              if "flash_attn_kernel" in line
+              and not re.search(r"(?<!\d)0 bytes spill stores", line)]
+    log(f"  flash_attn_kernel instantiations spilling: {spills or 'none'}")
     lib = build.load()
+    log("  flash_attn_kernel warps a block by head dim: " + "; ".join(
+        f"d={d} {w} warps, {fp_plan.smem_bytes(d, w)} B"
+        for d, w in fp_plan.WARPS.items()))
     log("  dynamic shared memory a block: tlmm mma " + ", ".join(
         f"g={g} {lib.tlmm_dynamic_smem(g, 64)} B" for g in (3, 5))
         + "; tlmm_lut " + ", ".join(
@@ -444,6 +457,23 @@ def main() -> int:
     err = (got - fp_ref.flash_prefill_ref(q, k_, v)).abs().max().item()
     if not err <= ATTN_ATOL:
         raise AssertionError(f"flash: max_abs_err {err} > {ATTN_ATOL}")
+    # the prompt as the engine's 32-token chunks against an f32 cache that
+    # holds its earlier rows (the rest NaN, never read): the prompt kernel's
+    # bits, as keys fall to tiles and warps by absolute position alone
+    cache_rows = 256
+    for lo in range(0, s, 32):
+        kc, vc = (torch.full((b, h, cache_rows, d), float("nan"), device=dev)
+                  for _ in range(2))
+        kc[:, :, :lo], vc[:, :, :lo] = k_[:, :, :lo], v[:, :, :lo]
+        part = fp_ops.flash_chunk_prefill(
+            q[:, :, lo:lo + 32], kc, vc, k_[:, :, lo:lo + 32],
+            v[:, :, lo:lo + 32], torch.full((b,), lo, dtype=torch.int32,
+                                            device=dev))
+        if not torch.equal(part, got[:, :, lo:lo + 32]):
+            raise AssertionError(f"flash: chunk at {lo} differs from the "
+                                 "prompt kernel on f32 rows")
+    log(f"  flash q ({b}, {h}, {s}, {d}): the prompt kernel equals the chunk "
+        f"kernel fed its {s // 32} chunks of 32 (f32 cache), bit for bit")
     pairs = s * (s + 1) / 2
     entry("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
           "src/repro/kernels/flash_prefill/kernel.py:35", [{

@@ -113,6 +113,7 @@ struct PagedRows {    // row j in page bt[j / ps] at slot j % ps
 // A whole K or V operand: rows(b, kvh) gives one (slot, KV head)'s rows.
 template <typename KV>
 struct ContigKV {     // (b, kv_h, S, d) through element strides
+  using value_type = KV;
   const KV* p;
   int64_t sb, sh, ss;
   __device__ __forceinline__ ContigRows<KV> rows(int b, int kvh) const {
@@ -122,6 +123,7 @@ struct ContigKV {     // (b, kv_h, S, d) through element strides
 
 template <typename KV>
 struct PagedKV {      // (P, ps, kv_h, d) pool, (P, ps, kv_h) scales, (b, n) table
+  using value_type = KV;
   const KV* p;
   int64_t sp, sr, sh;
   const float* sc;

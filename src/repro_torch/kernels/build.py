@@ -41,8 +41,9 @@ SIGNATURES = {
     "tlmm_lut_dynamic_smem": [_I, _I],
     "rmsnorm_quant_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "swiglu_quant_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _P],
+    # ..., window, kv_bf16, then warps a block (kernels/flash_prefill/plan.py)
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "decode_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _P, _I, _I, _I, _I,
                            _I, _F, _I, _I, _P],
     "decode_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP,
@@ -50,7 +51,7 @@ SIGNATURES = {
                                  _I, _I, _P],
     "flash_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _L, _P, _LP,
                                 _P, _LP, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _I, _I, _P],
+                                _F, _I, _I, _I, _P],
 }
 
 _lib = None          # the loaded library: one per process

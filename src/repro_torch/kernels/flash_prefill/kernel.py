@@ -8,7 +8,8 @@ answers.  Every operand is read through its strides (the last dim must be
 contiguous), so the transposed views of the (b, S, kv_h, d) layout are never
 copied, and the chunk kernels read the cache (contiguous rows or a page pool
 through its block table) in its own dtype, taking the chunk's span from the
-fresh K/V operand.
+fresh K/V operand.  The warps a block come from ``plan.WARPS`` by head
+dim.
 """
 
 from __future__ import annotations
@@ -16,8 +17,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill import plan
 
 HEAD_DIMS = (32, 64, 128)
+
+
+def _warps(d: int) -> int:
+    """Warps a block of the launch at head dim d."""
+    plan.check_warps(d, plan.WARPS[d])
+    return plan.WARPS[d]
 
 
 def _check(what, name, x, dev, dtypes):
@@ -73,7 +81,7 @@ def _launch(q, k, v, k_new, v_new, offset, window, what):
         build.strides(v_new) if fresh else None, out.data_ptr(),
         None if offset is None else offset.data_ptr(), b, h, kv_h, t, S, d,
         1.0 / float(d) ** 0.5, -1 if window is None else int(window),
-        int(k.dtype == torch.bfloat16),
+        int(k.dtype == torch.bfloat16), _warps(d),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
     return out
@@ -148,7 +156,7 @@ def flash_chunk_prefill_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         build.strides(k_fresh), v_fresh.data_ptr(), build.strides(v_fresh),
         out.data_ptr(), offset.data_ptr(), b, h, kv_h, t, n_pages, ps, d,
         1.0 / float(d) ** 0.5, -1 if window is None else int(window),
-        int(k_pool.dtype == torch.bfloat16),
+        int(k_pool.dtype == torch.bfloat16), _warps(d),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
     flash_chunk_prefill_paged_cuda.launches += 1

@@ -265,6 +265,130 @@ def test_paged_chunk_kernel_matches_plain_and_contiguous(
         window=window))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("b,h,kv_h,s,d,chunk", [
+    (1, 24, 24, 128, 64, 32),    # the oracle's prompt as the engine's chunks
+    (2, 8, 2, 77, 32, 20),       # chunks cross 16-row and key-tile edges
+    (1, 4, 1, 50, 128, 16)])
+def test_prompt_kernel_equals_chunk_kernel_on_f32_rows(cuda, window, b, h,
+                                                       kv_h, s, d, chunk):
+    """A prompt fed as chunks against an f32 cache holding its earlier rows
+    gives the prompt kernel's bits: keys fall to tiles and warps by absolute
+    position alone.  The cache rows from each chunk on hold NaN: the chunk
+    kernel never reads them."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, s, kv_h, d, generator=gen, device=cuda
+                        ).transpose(1, 2) for _ in range(2))
+    whole = fp_ops.flash_prefill(q, k, v, window=window)
+    S = s + 40
+    for lo in range(0, s, chunk):
+        hi = min(lo + chunk, s)
+        kc, vc = (torch.full((b, kv_h, S, d), float("nan"), device=cuda)
+                  for _ in range(2))
+        kc[:, :, :lo], vc[:, :, :lo] = k[:, :, :lo], v[:, :, :lo]
+        off = torch.full((b,), lo, dtype=torch.int32, device=cuda)
+        got = fp_ops.flash_chunk_prefill(
+            q[:, :, lo:hi], kc, vc, k[:, :, lo:hi], v[:, :, lo:hi], off,
+            window=window)
+        assert torch.equal(got, whole[:, :, lo:hi]), (lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [5, 16])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_chunk_kernels_never_read_dead_rows(cuda, ps, cache_dtype):
+    """Slack rows, the null page every dead table entry names, and the rows
+    of each slot at or past offset + t hold NaN: the paged and contiguous
+    outputs are finite, equal, and the plain version's on zeroed rows."""
+    b, h, kv_h, t, S, d = 3, 8, 4, 20, 96, 64
+    off = torch.tensor([0, 37, 70], dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    q = torch.randn(b, t, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(cache_dtype) for _ in range(2))
+    dead = (torch.arange(S, device=cuda)[None, :] >= off[:, None] + t)
+    k[dead], v[dead] = float("nan"), float("nan")
+    k_new, v_new = (torch.randn(b, t, kv_h, d, generator=gen, device=cuda
+                                ).transpose(1, 2) for _ in range(2))
+
+    def nans(shape):
+        return torch.full(shape, float("nan"), device=cuda).to(cache_dtype)
+
+    (kp, bt), (vp, _) = _paged(k, ps, gen, nans), _paged(v, ps, gen, nans)
+    # table entries wholly past a slot's live rows name the null page 0
+    pages_live = (off + t + ps - 1) // ps
+    bt[torch.arange(bt.shape[1], device=cuda)[None, :]
+       >= pages_live[:, None]] = 0
+    got = fp_ops.flash_chunk_prefill_paged(q, kp, vp, bt, off, k_new, v_new)
+    contiguous = fp_ops.flash_chunk_prefill(
+        q, k.transpose(1, 2), v.transpose(1, 2), k_new, v_new, off)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, contiguous)
+    kz, vz = (torch.nan_to_num(x, nan=0.0).transpose(1, 2) for x in (k, v))
+    torch.testing.assert_close(got, fp_ref.flash_chunk_prefill_ref(
+        q, kz, vz, k_new, v_new, off), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv_h,t,S,d,offsets,window", [
+    (2, 4, 2, 20, 70, 64, [3, 50], None),    # row 1's span crosses key 64
+    (1, 2, 2, 7, 9, 32, [2], None),          # one tile: the other warps idle
+    (3, 4, 4, 33, 100, 128, [0, 31, 67], 40),
+    (2, 6, 3, 17, 130, 64, [120, 60], 50)])  # row 0's span clamps to S - t
+def test_chunk_kernel_ragged_tiles(cuda, cache_dtype, b, h, kv_h, t, S, d,
+                                   offsets, window):
+    """t and S off the 16-row and key-tile grids, spans crossing a key
+    tile, blocks in which some warps get no live tile."""
+    gen = torch.Generator(device=cuda).manual_seed(t * S)
+    q = torch.randn(b, t, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(cache_dtype).transpose(1, 2) for _ in range(2))
+    k_new, v_new = (torch.randn(b, t, kv_h, d, generator=gen, device=cuda
+                                ).transpose(1, 2) for _ in range(2))
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = fp_ops.flash_chunk_prefill(q, k, v, k_new, v_new, off,
+                                     window=window)
+    torch.testing.assert_close(got, fp_ref.flash_chunk_prefill_ref(
+        q, k, v, k_new, v_new, off, window=window), **TOL)
+    # the prompt kernel at a length off both grids
+    qp, kp, vp = q[:1, :, :t], k_new[:1], v_new[:1]
+    torch.testing.assert_close(
+        fp_ops.flash_prefill(qp, kp, vp, window=window),
+        fp_ref.flash_prefill_ref(qp, kp, vp, window=window), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_take_misaligned_operands(cuda, cache_dtype):
+    """Operands starting off a 16-byte boundary (column slices of wider
+    tensors) are copied element by element: the aligned operands' bits."""
+    b, h, kv_h, t, S, d = 2, 4, 2, 20, 70, 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def sliced(*shape, dtype=torch.float32):
+        wide = torch.randn(*shape[:-1], shape[-1] + 2, generator=gen,
+                           device=cuda).to(dtype)
+        return wide[..., 1:shape[-1] + 1].transpose(1, 2)
+
+    q = sliced(b, t, h, d)
+    k, v = sliced(b, S, kv_h, d, dtype=cache_dtype), sliced(
+        b, S, kv_h, d, dtype=cache_dtype)
+    k_new, v_new = sliced(b, t, kv_h, d), sliced(b, t, kv_h, d)
+    off = torch.tensor([3, 50], dtype=torch.int32, device=cuda)
+    got = fp_ops.flash_chunk_prefill(q, k, v, k_new, v_new, off)
+    assert torch.equal(got, fp_ops.flash_chunk_prefill(
+        q.contiguous(), k.contiguous(), v.contiguous(), k_new.contiguous(),
+        v_new.contiguous(), off))
+    torch.testing.assert_close(got, fp_ref.flash_chunk_prefill_ref(
+        q, k, v, k_new, v_new, off), **TOL)
+    prompt = fp_ops.flash_prefill(q, k_new, v_new)
+    assert torch.equal(prompt, fp_ops.flash_prefill(
+        q.contiguous(), k_new.contiguous(), v_new.contiguous()))
+
+
 # (m, n, k, row_multiple), at g in {2, 3, 5}: as TLMM_SHAPES, the split
 # with a partial step being LUT_PARTIAL_STEP at g = 5
 LUT_PARTIAL_STEP = (128, 1536, 4096, 64)
