@@ -22,7 +22,12 @@ oracle on the same history.  Last, it runs the paper's fused FFN
 every layer of the model, against the same dataflow on the plain versions
 and against the unfused packed path, and the oracle with every ternary
 linear on the table-lookup ``tlmm_lut`` (``Ctx(matmul="tlmm_lut")``), whose
-logits and tokens must equal the ``tlmm`` oracle's.
+logits and tokens must equal the ``tlmm`` oracle's, and the oracle at bf16
+activations (``Ctx(act_dtype=torch.bfloat16)``): every kernel launches on
+bf16 queries, with finite logits and tokens in the vocabulary.  Phase 3
+also holds each attention wrapper's bf16 query to its f32 launch, times
+the decode kernel at the oracle's one-slot shape, and the build's ``ptxas``
+lines are searched for spills in the attention kernels.
 
 Prints, before its last line, one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit; the last line is
@@ -160,11 +165,19 @@ def ptxas_summary(build_log: str) -> list:
             t = re.search(r"\d+(tlmm\w*_kernel)I((?:Li\d+E)+)E", name)
             f = re.search(r"flash_attn_kernelILi(\d+)EN5repro\d+"
                           r"(ContigKV|PagedKV)I(f|13__nv_bfloat16)E", name)
+            da = re.search(r"decode_attn_kernelILi(\d+)ELb([01])EN5repro\d+"
+                           r"(ContigKV|PagedKV)I(f|13__nv_bfloat16|a)EE(\w)",
+                           name)
             if t:
                 name = f"{t.group(1)}<{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
             elif f:
                 kv = "float" if f.group(3) == "f" else "bf16"
                 name = f"flash_attn_kernel<{f.group(1)}, {f.group(2)}<{kv}>>"
+            elif da:
+                kv = {"f": "float", "a": "int8"}.get(da.group(4), "bf16")
+                qt = "float" if da.group(5) == "f" else "bf16"
+                name = (f"decode_attn_kernel<{da.group(1)}, WIN={da.group(2)}, "
+                        f"{da.group(3)}<{kv}>, q {qt}>")
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name is not None:
@@ -185,6 +198,7 @@ def main() -> int:
     from repro_torch.core import bitlinear, fused_block, ternary
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import plan as da_plan
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_prefill import ops as fp_ops
     from repro_torch.kernels.flash_prefill import plan as fp_plan
@@ -222,14 +236,18 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
     for line in ptxas_summary(build.build_log):
         log("  ptxas:", line)
-    spills = [line for line in ptxas_summary(build.build_log)
-              if "flash_attn_kernel" in line
-              and not re.search(r"(?<!\d)0 bytes spill stores", line)]
-    log(f"  flash_attn_kernel instantiations spilling: {spills or 'none'}")
+    for kernel in ("flash_attn_kernel", "decode_attn_kernel"):
+        spills = [line for line in ptxas_summary(build.build_log)
+                  if kernel in line
+                  and not re.search(r"(?<!\d)0 bytes spill stores", line)]
+        log(f"  {kernel} instantiations spilling: {spills or 'none'}")
     lib = build.load()
     log("  flash_attn_kernel warps a block by head dim: " + "; ".join(
         f"d={d} {w} warps, {fp_plan.smem_bytes(d, w)} B"
         for d, w in fp_plan.WARPS.items()))
+    log("  decode_attn_kernel warps a block by head dim: " + "; ".join(
+        f"d={d} {w} warps, {da_plan.smem_bytes(d, 2, w)} B (bf16 rows)"
+        for d, w in da_plan.PLAN.items()))
     log("  dynamic shared memory a block: tlmm mma " + ", ".join(
         f"g={g} {lib.tlmm_dynamic_smem(g, 64)} B" for g in (3, 5))
         + "; tlmm_lut " + ", ".join(
@@ -539,6 +557,29 @@ def main() -> int:
               "bytes": 2 * b * h * d * 4 + keys * h * d * 2 * 2,
               "ops": keys * h * 4 * d, "peak": F32_FLOPS_PER_S}])
 
+    # the oracle's decode shape (one slot: reference_decode is unbatched),
+    # outside the summed row: q (1, 24, 1, 64) against the 256-row bf16
+    # cache above at lengths 77 and 200
+    parts, tot, tot_b, tot_l = [], 0.0, 0.0, 0.0
+    for n in (77, 200):
+        one = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (q[:1], kc[:1], vc[:1], one)
+        err = (da_ops.decode_attention(*args)
+               - da_ref.decode_attention_ref(*args)).abs().max().item()
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"decode, one slot of {n} keys: max_abs_err "
+                                 f"{err} > {ATTN_ATOL}")
+        ms = device_ms(lambda a=args: da_ops.decode_attention(*a))
+        lms = device_ms(lambda n=n: sdpa(q[:1], kf[:1, :, :n], vf[:1, :, :n]))
+        b_ms, _ = bound_ms(2 * h * d * 4 + n * h * d * 2 * 2, n * h * 4 * d,
+                           F32_FLOPS_PER_S)
+        parts.append(f"cache_len {n}: {ms:.4f} (library {lms:.4f}, bound "
+                     f"{b_ms:.5f}, max_abs_err {err:.3g})")
+        tot, tot_b, tot_l = tot + ms, tot_b + b_ms, tot_l + lms
+    log(f"  decode_attention q (1, {h}, 1, {d}) vs bf16 (1, {h}, {S}, {d}) "
+        f"(the oracle's, not in the row): device_ms {'; '.join(parts)}; sum "
+        f"{tot:.4f} (library {tot_l:.4f}, bound {tot_b:.5f})")
+
     # paged kernels at the same shapes: each slot's rows in shuffled pages
     # of a pool whose other pages and slack rows hold garbage, at page size
     # 16 (16 table columns for the 256 rows) and 5 (52 columns: divides
@@ -680,6 +721,80 @@ def main() -> int:
     entry("decode_attention_paged_quant",
           "src/repro_torch/csrc/decode_attention.cu",
           "src/repro/kernels/decode_attention/kernel.py:168", calls)
+
+    # bf16 queries (and fresh chunk K/V, as the model's at bf16
+    # activations): each attention wrapper returns bf16, the bits of its f32
+    # launch on the same exactly widened values rounded to bf16, within
+    # ATTN_ATOL plus one bf16 ULP (2^-7 of the value) of its plain version
+    # on the same bf16 inputs (which rounds its own f32 result).  The prompt
+    # runs at phase 8's shape: q (1, 24, 128, 64) against bf16 K/V, 128 the
+    # longest of its 64-128-token prompts.
+    def bf16_inputs():
+        def rnd(*shape, dtype=torch.bfloat16):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+        qp, kp_, vp_ = (rnd(1, 128, h, d).transpose(1, 2) for _ in range(3))
+        qc = rnd(4, 32, h, d).transpose(1, 2)
+        kr_, vr_ = rnd(4, S, h, d), rnd(4, S, h, d)
+        kn_, vn_ = (rnd(4, 32, h, d).transpose(1, 2) for _ in range(2))
+        (kpool, bt_), (vpool, _) = (paged_copy(x, 16, noise)
+                                    for x in (kr_, vr_))
+        qd = rnd(4, 1, h, d).transpose(1, 2)
+        ki_, vi_ = int8s((4, S, h, d)), int8s((4, S, h, d))
+        (kip, bti), (vip, _) = paged_copy(ki_, 16, int8s), paged_copy(
+            vi_, 16, int8s)
+        (ksp, _), (vsp, _) = (paged_copy(unit_scales((4, S, h)), 16,
+                                         unit_scales) for _ in range(2))
+        kc_, vc_ = kr_.transpose(1, 2), vr_.transpose(1, 2)
+        return {   # name -> (the wrapper on a query dtype, its plain version)
+            "flash_prefill": (
+                lambda dt: fp_ops.flash_prefill(qp.to(dt), kp_, vp_),
+                lambda: fp_ref.flash_prefill_ref(qp, kp_, vp_)),
+            "flash_chunk_prefill": (
+                lambda dt: fp_ops.flash_chunk_prefill(
+                    qc.to(dt), kc_, vc_, kn_.to(dt), vn_.to(dt), off),
+                lambda: fp_ref.flash_chunk_prefill_ref(qc, kc_, vc_, kn_, vn_,
+                                                       off)),
+            "flash_chunk_prefill_paged": (
+                lambda dt: fp_ops.flash_chunk_prefill_paged(
+                    qc.to(dt), kpool, vpool, bt_, off, kn_.to(dt),
+                    vn_.to(dt)),
+                lambda: fp_ref.flash_chunk_prefill_paged_ref(
+                    qc, kpool, vpool, bt_, off, kn_, vn_)),
+            "decode_attention": (
+                lambda dt: da_ops.decode_attention(qd.to(dt), kc_, vc_, cl),
+                lambda: da_ref.decode_attention_ref(qd, kc_, vc_, cl)),
+            "decode_attention_paged": (
+                lambda dt: da_ops.decode_attention_paged(qd.to(dt), kpool,
+                                                         vpool, bt_, cl),
+                lambda: da_ref.paged_decode_attention_ref(qd, kpool, vpool,
+                                                          bt_, cl)),
+            "decode_attention_paged_quant": (
+                lambda dt: da_ops.decode_attention_paged_quant(
+                    qd.to(dt), kip, vip, ksp, vsp, bti, cl),
+                lambda: da_ref.paged_decode_attention_quant_ref(
+                    qd, kip, vip, ksp, vsp, bti, cl))}
+
+    bf16_errs = []
+    for name, (call, plain) in bf16_inputs().items():
+        got = call(torch.bfloat16)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(
+                got, call(torch.float32).to(torch.bfloat16)):
+            raise AssertionError(f"{name}: a bf16 query does not give the "
+                                 "f32 launch's bits rounded to bf16")
+        want = plain()
+        gap = (got.float() - want.float()).abs()
+        excess = (gap - ATTN_ATOL - 2 ** -7 * want.float().abs()).max().item()
+        if want.dtype != torch.bfloat16 or not excess <= 0:
+            raise AssertionError(f"{name}: bf16 output off its plain version "
+                                 f"by {gap.max().item()} (more than "
+                                 f"{ATTN_ATOL} + 2^-7 of the value by "
+                                 f"{excess})")
+        bf16_errs.append(f"{name} {gap.max().item():.3g}")
+    log("  bf16 queries: the six attention wrappers return bf16, equal to "
+        "their f32 launches rounded and within ATTN_ATOL + one bf16 ULP of "
+        "their plain versions (max abs gap: " + ", ".join(bf16_errs) + ")")
 
     # -- 4. the serving engine at full width ----------------------------------
     cfg = get_config("bitnet-0.73b")
@@ -994,13 +1109,42 @@ def main() -> int:
             torch.equal(a, b) for a, b in zip(lut_logits, tlmm_logits)):
         failures.append("LUT oracle logits or tokens differ from the tlmm "
                         "oracle's")
+
+    # -- 8. bf16 activations: the oracle at Ctx(act_dtype=bfloat16) ---------
+    # two requests at full depth with a bf16 cache: every kernel launches on
+    # bf16 queries, the logits are finite and the tokens in the vocabulary;
+    # each token's gap to the f32-activation oracle's choice on the same
+    # history is logged (a diagnostic: bf16 rounds every activation)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    bf16_logits = []
+    bf16_toks = [reference_decode(cfg, packed, Ctx(act_dtype=torch.bfloat16),
+                                  r.prompt, len(r.output), max_seq,
+                                  torch.bfloat16, logits=bf16_logits)[0]
+                 for r in lut_reqs]
+    torch.cuda.synchronize()
+    bf16_counts = kernels.launch_counts()
+    log(f"bf16 oracle launches: {bf16_counts}")
+    gaps = [max(reference_decode(cfg, packed, Ctx(), r.prompt, len(t),
+                                 max_seq, torch.bfloat16, follow=t)[1])
+            for r, t in zip(lut_reqs, bf16_toks)]
+    log(f"bf16 oracle tokens: {bf16_toks}; gap to the f32-activation "
+        f"oracle's choice per request {[round(g, 5) for g in gaps]}")
+    for name in ("tlmm", "flash_prefill", "decode_attention"):
+        if bf16_counts[name] <= 0:
+            failures.append(f"bf16 oracle did not launch {name}")
+    if not all(torch.isfinite(x).all() and x.shape == (cfg.vocab_size,)
+               for x in bf16_logits) or not all(
+            0 <= tok < cfg.vocab_size for t in bf16_toks for tok in t):
+        failures.append("bf16 oracle logits not finite or tokens out of "
+                        "range")
     if failures:
         raise AssertionError("; ".join(failures))
 
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c[row["name"]] for c in (
             eng_counts, paged_counts, kv8_counts, ora_counts, ffn_counts,
-            lut_counts))
+            lut_counts, bf16_counts))
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #define REPRO_API extern "C" __attribute__((visibility("default")))
@@ -58,26 +59,13 @@ __device__ float block_reduce(float v, float* red) {
   return out;
 }
 
-// f32 or bf16 K/V values widen to f32; an int8 value is dequantized as the
-// JAX paged int8 decode kernel does it, f32(bf16(f32(int8) * scale)) with
-// the scale already rounded to bf16 — the value a bf16 dequantized copy of
-// the cache holds.
-__device__ __forceinline__ float kv_value(float x, float) { return x; }
-__device__ __forceinline__ float kv_value(__nv_bfloat16 x, float) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float kv_value(int8_t x, float sc) {
-  return __bfloat162float(__float2bfloat16(static_cast<float>(x) * sc));
-}
-
-// One K or V row (head_dim values) and, for int8 rows, its scale.
+// One K or V row (head_dim values) and, for int8 rows, its scale rounded
+// to bf16 (an int8 value v then reads as f32(bf16(f32(v) * scale)), the JAX
+// paged int8 kernel's dequantization and a bf16 dequantized copy's value).
 template <typename KV>
 struct Row {
   const KV* p;
   float sc;
-  __device__ __forceinline__ float operator[](int i) const {
-    return kv_value(p[i], sc);
-  }
 };
 
 // Where key j of one (slot, KV head) lies.  The attention kernels walk
@@ -136,6 +124,28 @@ struct PagedKV {      // (P, ps, kv_h, d) pool, (P, ps, kv_h) scales, (b, n) tab
             ssp, ssr, bt + b * bt_s, ps};
   }
 };
+
+// Host side: whether an operand can be copied 16 bytes at a time (cp.async):
+// its base pointer and every byte stride a multiple of 16.  A null pointer
+// (an absent operand) passes.
+inline bool aligned16(const void* p, std::initializer_list<int64_t> byte_strides) {
+  if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int64_t s : byte_strides)
+    if (s % 16 != 0) return false;
+  return true;
+}
+
+template <typename KV>
+bool aligned16(const ContigKV<KV>& x) {
+  return aligned16(x.p, {x.sb * int64_t(sizeof(KV)), x.sh * int64_t(sizeof(KV)),
+                         x.ss * int64_t(sizeof(KV))});
+}
+
+template <typename KV>
+bool aligned16(const PagedKV<KV>& x) {
+  return aligned16(x.p, {x.sp * int64_t(sizeof(KV)), x.sr * int64_t(sizeof(KV)),
+                         x.sh * int64_t(sizeof(KV))});
+}
 
 }  // namespace repro
 

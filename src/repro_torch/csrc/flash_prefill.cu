@@ -79,7 +79,6 @@
 // addressed through strides, so the (b, S, kv_h, d) cache layout is read in
 // place.  The warps a block come from the wrapper (kernels/flash_prefill/
 // plan.py, by head dim).
-#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
@@ -545,25 +544,6 @@ Strides strides_of(const int64_t* st) {
   return st != nullptr ? Strides{st[0], st[1], st[2]} : Strides{0, 0, 0};
 }
 
-bool aligned16(const void* p, std::initializer_list<int64_t> byte_strides) {
-  if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  for (int64_t s : byte_strides)
-    if (s % 16 != 0) return false;
-  return true;
-}
-
-template <typename KV>
-bool aligned16(const repro::ContigKV<KV>& x) {
-  return aligned16(x.p, {x.sb * int64_t(sizeof(KV)), x.sh * int64_t(sizeof(KV)),
-                         x.ss * int64_t(sizeof(KV))});
-}
-
-template <typename KV>
-bool aligned16(const repro::PagedKV<KV>& x) {
-  return aligned16(x.p, {x.sp * int64_t(sizeof(KV)), x.sr * int64_t(sizeof(KV)),
-                         x.sh * int64_t(sizeof(KV))});
-}
-
 template <int D, typename Src>
 int launch_kernel(dim3 grid, int warps, cudaStream_t stream, const float* q,
                   Strides qs, Src k, Src v, const float* kn, Strides kns,
@@ -597,10 +577,10 @@ int launch(int d, const float* q, const int64_t* qs, Src k, Src v,
   const dim3 grid((t + BQ - 1) / BQ, h, b);
   const Strides QS = strides_of(qs), KNS = strides_of(kns),
                 VNS = strides_of(vns);
-  const bool vec = aligned16(q, {QS.b * 4, QS.h * 4, QS.s * 4}) &&
-                   aligned16(k) && aligned16(v) &&
-                   aligned16(kn, {KNS.b * 4, KNS.h * 4, KNS.s * 4}) &&
-                   aligned16(vn, {VNS.b * 4, VNS.h * 4, VNS.s * 4});
+  const bool vec = repro::aligned16(q, {QS.b * 4, QS.h * 4, QS.s * 4}) &&
+                   repro::aligned16(k) && repro::aligned16(v) &&
+                   repro::aligned16(kn, {KNS.b * 4, KNS.h * 4, KNS.s * 4}) &&
+                   repro::aligned16(vn, {VNS.b * 4, VNS.h * 4, VNS.s * 4});
   switch (d) {
     case 32: return launch_kernel<32, Src>(grid, warps, stream, q, QS, k, v, kn, KNS, vn, VNS, out, offset, h, kv_h, t, S, scale, window, vec);
     case 64: return launch_kernel<64, Src>(grid, warps, stream, q, QS, k, v, kn, KNS, vn, VNS, out, offset, h, kv_h, t, S, scale, window, vec);

@@ -44,11 +44,13 @@ SIGNATURES = {
     # ..., window, kv_bf16, then warps a block (kernels/flash_prefill/plan.py)
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # ..., window, kv_bf16 (kv_kind), q_bf16, then warps a block
+    # (kernels/decode_attention/plan.py)
     "decode_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _P],
+                           _I, _F, _I, _I, _I, _I, _P],
     "decode_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP,
                                  _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F,
-                                 _I, _I, _P],
+                                 _I, _I, _I, _I, _P],
     "flash_attn_paged_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _L, _P, _LP,
                                 _P, _LP, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _I, _I, _I, _P],

@@ -6,7 +6,9 @@ note in ``decode_attention.cu`` says what bounds them on the card and how
 the design answers.  The contiguous cache is read through its strides (last
 dim contiguous), so the (b, kv_h, S, d) view of the (b, S, kv_h, d) cache is
 never copied; a page pool (P, ps, kv_h, d) is read in place through the
-block table.
+block table.  The query is f32 or bf16 and the output takes its dtype (the
+kernel computes in f32 and rounds as ``astype`` does); the warps a block
+come from ``plan.PLAN`` by head dim.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import plan
 
 HEAD_DIMS = (32, 64, 128)
+Q_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_query(what, q, cache_len):
-    if not q.is_cuda or q.dtype != torch.float32 or q.dim() != 4 \
+    if not q.is_cuda or q.dtype not in Q_DTYPES or q.dim() != 4 \
             or q.shape[2] != 1:
-        raise ValueError(f"{what}: q must be a (b, h, 1, d) float32 CUDA "
-                         "tensor")
+        raise ValueError(f"{what}: q must be a (b, h, 1, d) float32 or "
+                         "bfloat16 CUDA tensor")
     b, _, _, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
@@ -41,9 +45,10 @@ def _window_arg(window):
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cache_len: torch.Tensor, *,
                           window: int | None = None) -> torch.Tensor:
-    """q: (b, h, 1, d) f32; k, v: (b, kv_h, S, d) bf16 or f32; cache_len:
-    (b,) int32, all on the card -> (b, h, 1, d) f32.  With ``window`` only
-    the last ``window`` live keys of each row are read."""
+    """q: (b, h, 1, d) f32 or bf16; k, v: (b, kv_h, S, d) bf16 or f32;
+    cache_len: (b,) int32, all on the card -> (b, h, 1, d) in q's dtype.
+    With ``window`` only the last ``window`` live keys of each row are
+    read."""
     _check_query("decode_attention", q, cache_len)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
@@ -60,7 +65,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not match")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("decode_attention: last dims must be contiguous")
-    out = torch.empty((b, h, 1, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     err = build.load().decode_attn_launch(
@@ -68,6 +73,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.strides(k), v.data_ptr(), build.strides(v), out.data_ptr(),
         cache_len.data_ptr(), b, h, kv_h, S, d, 1.0 / float(d) ** 0.5,
         _window_arg(window), int(k.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), plan.PLAN[d],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     decode_attention_cuda.launches += 1
@@ -110,7 +116,7 @@ def _launch_paged(what, q, k_pool, v_pool, k_scale, v_scale, block_tables,
             raise ValueError(f"{what}: scaled pools must be int8")
     elif k_pool.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what}: pools must be bf16 or f32")
-    out = torch.empty((b, h, 1, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     err = build.load().decode_attn_paged_launch(
@@ -123,7 +129,9 @@ def _launch_paged(what, q, k_pool, v_pool, k_scale, v_scale, block_tables,
         build.strides(v_scale[..., None]) if quant else None, out.data_ptr(),
         cache_len.data_ptr(), block_tables.data_ptr(), block_tables.stride(0),
         b, h, kv_h, block_tables.shape[1], ps, d, 1.0 / float(d) ** 0.5,
-        _window_arg(window), _KV_KIND[k_pool.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _window_arg(window), _KV_KIND[k_pool.dtype],
+        int(q.dtype == torch.bfloat16), plan.PLAN[d],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, what)
     return out
 
@@ -133,9 +141,9 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 cache_len: torch.Tensor, *,
                                 window: int | None = None) -> torch.Tensor:
-    """q: (b, h, 1, d) f32; k_pool, v_pool: (P, ps, kv_h, d) bf16 or f32;
-    block_tables: (b, n_pages) int32 (every entry a valid page);
-    cache_len: (b,) int32, all on the card -> (b, h, 1, d) f32."""
+    """q: (b, h, 1, d) f32 or bf16; k_pool, v_pool: (P, ps, kv_h, d) bf16
+    or f32; block_tables: (b, n_pages) int32 (every entry a valid page);
+    cache_len: (b,) int32, all on the card -> (b, h, 1, d) in q's dtype."""
     out = _launch_paged("decode_attention_paged", q, k_pool, v_pool, None,
                         None, block_tables, cache_len, window)
     if out.numel():
@@ -152,7 +160,7 @@ def decode_attention_paged_quant_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                       window: int | None = None
                                       ) -> torch.Tensor:
     """As :func:`decode_attention_paged_cuda` on int8 pools with their
-    (P, ps, kv_h) f32 scale planes -> (b, h, 1, d) f32."""
+    (P, ps, kv_h) f32 scale planes -> (b, h, 1, d) in q's dtype."""
     out = _launch_paged("decode_attention_paged_quant", q, k_pool, v_pool,
                         k_scale, v_scale, block_tables, cache_len, window)
     if out.numel():

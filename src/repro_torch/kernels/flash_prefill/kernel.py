@@ -9,7 +9,9 @@ contiguous), so the transposed views of the (b, S, kv_h, d) layout are never
 copied, and the chunk kernels read the cache (contiguous rows or a page pool
 through its block table) in its own dtype, taking the chunk's span from the
 fresh K/V operand.  The warps a block come from ``plan.WARPS`` by head
-dim.
+dim.  The query and the chunk's fresh K/V may be f32 or bf16: they are
+widened to f32 (exactly) for the launch, which computes in f32, and the
+output is rounded to the query's dtype, as the JAX kernels store it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_prefill import plan
 
 HEAD_DIMS = (32, 64, 128)
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _warps(d: int) -> int:
@@ -39,7 +42,7 @@ def _check(what, name, x, dev, dtypes):
 def _check_chunk(what, q, k_new, v_new, offset, kv_h, S):
     b, _, t, d = q.shape
     for name, x in (("k_new", k_new), ("v_new", v_new)):
-        _check(what, name, x, q.device, (torch.float32,))
+        _check(what, name, x, q.device, ACT_DTYPES)
         if x.shape != (b, kv_h, t, d):
             raise ValueError(f"{what}: {name} must be {(b, kv_h, t, d)}")
     if t > S:
@@ -52,12 +55,10 @@ def _check_chunk(what, q, k_new, v_new, offset, kv_h, S):
 
 
 def _launch(q, k, v, k_new, v_new, offset, window, what):
-    dev = q.device
-    _check(what, "q", q, dev, (torch.float32,))
-    kv_dtypes = (torch.float32,) if k_new is None else (torch.float32,
-                                                         torch.bfloat16)
+    dev, dtype = q.device, q.dtype
+    _check(what, "q", q, dev, ACT_DTYPES)
     for name, x in (("k", k), ("v", v)):
-        _check(what, name, x, dev, kv_dtypes)
+        _check(what, name, x, dev, ACT_DTYPES)
     b, h, t, d = q.shape
     kv_h, S = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.dtype != v.dtype or k.shape[0] != b
@@ -70,8 +71,11 @@ def _launch(q, k, v, k_new, v_new, offset, window, what):
         raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out
+        return out.to(dtype)
     fresh = k_new is not None
+    q = q.float()                   # widened exactly, as are the fresh K/V
+    if fresh:
+        k_new, v_new = k_new.float(), v_new.float()
     err = build.load().flash_attn_launch(
         q.data_ptr(), build.strides(q), k.data_ptr(), build.strides(k),
         v.data_ptr(), build.strides(v),
@@ -84,13 +88,14 @@ def _launch(q, k, v, k_new, v_new, offset, window, what):
         int(k.dtype == torch.bfloat16), _warps(d),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
-    return out
+    return out.to(dtype)
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        window: int | None = None) -> torch.Tensor:
     """Causal GQA attention over a prompt.  q: (b, h, s, d); k, v:
-    (b, kv_h, s, d), all f32 on the card -> (b, h, s, d) f32."""
+    (b, kv_h, s, d), f32 or bf16 on the card -> (b, h, s, d) in q's
+    dtype."""
     out = _launch(q, k, v, None, None, None, window, "flash_prefill")
     if out.numel():
         flash_prefill_cuda.launches += 1
@@ -121,13 +126,13 @@ def flash_chunk_prefill_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                    window: int | None = None) -> torch.Tensor:
     """Chunk queries at absolute positions offset[i] + [0, t) against row
     i's prefix in the page pool, the chunk's own span from its fresh K/V.
-    q: (b, h, t, d) f32; k_pool, v_pool: (P, ps, kv_h, d) bf16 or f32;
-    block_tables: (b, n_pages) int32 (every entry a valid page); offset:
-    (b,) int32; k_fresh, v_fresh: (b, kv_h, t, d) f32, all on the card ->
-    (b, h, t, d) f32."""
+    q: (b, h, t, d) f32 or bf16; k_pool, v_pool: (P, ps, kv_h, d) bf16 or
+    f32; block_tables: (b, n_pages) int32 (every entry a valid page);
+    offset: (b,) int32; k_fresh, v_fresh: (b, kv_h, t, d) f32 or bf16, all
+    on the card -> (b, h, t, d) in q's dtype."""
     what = "flash_chunk_prefill_paged"
-    dev = q.device
-    _check(what, "q", q, dev, (torch.float32,))
+    dev, dtype = q.device, q.dtype
+    _check(what, "q", q, dev, ACT_DTYPES)
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool)):
         _check(what, name, x, dev, (torch.float32, torch.bfloat16))
     b, h, t, d = q.shape
@@ -148,7 +153,8 @@ def flash_chunk_prefill_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out
+        return out.to(dtype)
+    q, k_fresh, v_fresh = q.float(), k_fresh.float(), v_fresh.float()
     err = build.load().flash_attn_paged_launch(
         q.data_ptr(), build.strides(q), k_pool.data_ptr(),
         build.strides(k_pool), v_pool.data_ptr(), build.strides(v_pool),
@@ -160,7 +166,7 @@ def flash_chunk_prefill_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
     flash_chunk_prefill_paged_cuda.launches += 1
-    return out
+    return out.to(dtype)
 
 
 flash_prefill_cuda.launches = 0

@@ -224,7 +224,8 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
         # cache and the chunk's own span from its fresh full-precision K/V —
         # the JAX model's cast-and-overlay, without copying the cache — so
         # within-chunk numerics match monolithic prefill.  An int8 cache is
-        # read dequantized to f32, f32(int8) * f32(scale), as in JAX.
+        # read dequantized in the activation dtype, as in JAX: int8 and
+        # scale each cast to it, then multiplied (exact casts in f32).
         offsets = cache_len
         if page_table is not None:
             attention.paged_update_kv_cache(cache["k"], cache["v"], kw, vw,
@@ -247,8 +248,10 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 attention.write_rows(cache[name], new, offsets, chunk_mask)
             k_read, v_read = cache["k"], cache["v"]
             if quant:
-                k_read = k_read.to(k.dtype) * cache["k_scale"][..., None]
-                v_read = v_read.to(v.dtype) * cache["v_scale"][..., None]
+                k_read = (k_read.to(k.dtype)
+                          * cache["k_scale"][..., None].to(k.dtype))
+                v_read = (v_read.to(v.dtype)
+                          * cache["v_scale"][..., None].to(v.dtype))
             o = fp_ops.flash_chunk_prefill(
                 qt, k_read.transpose(1, 2), v_read.transpose(1, 2), kt, vt,
                 offsets, window=window)

@@ -389,6 +389,276 @@ def test_attention_kernels_take_misaligned_operands(cuda, cache_dtype):
         q.contiguous(), k_new.contiguous(), v_new.contiguous()))
 
 
+def _decode_rows(cuda, gen, b, S, kv_h, d):
+    """Cache rows (b, S, kv_h, d) for the three decode forms: bf16 K, V;
+    int8 K, V and their (b, S, kv_h) f32 scales."""
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    ki, vi = (torch.randint(-127, 128, (b, S, kv_h, d), generator=gen,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(b, S, kv_h, generator=gen, device=cuda) * 0.05
+              for _ in range(2))
+    return k, v, ki, vi, ks, vs
+
+
+def _decode_forms(cuda, gen, rows, ps):
+    """The three decode forms on the same rows, each a callable of (q,
+    cache_len, window): the contiguous kernel on the bf16 rows, the paged
+    kernel on a shuffled pool of them, the paged int8 kernel on the int8
+    rows and scales (pools of ``ps``-token pages, garbage in the null page
+    and every slack row)."""
+    k, v, ki, vi, ks, vs = rows
+    junk = _float_garbage(gen, torch.bfloat16, cuda)
+
+    def ints(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                             dtype=torch.int8)
+
+    def scales(shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    (kp, bt), (vp, _) = _paged(k, ps, gen, junk), _paged(v, ps, gen, junk)
+    (kip, bti), (vip, _) = _paged(ki, ps, gen, ints), _paged(vi, ps, gen, ints)
+    (ksp, _), (vsp, _) = _paged(ks, ps, gen, scales), _paged(vs, ps, gen,
+                                                             scales)
+    return {
+        "decode_attention": lambda q, cl, w: da_ops.decode_attention(
+            q, k.transpose(1, 2), v.transpose(1, 2), cl, window=w),
+        "decode_attention_paged": lambda q, cl, w:
+            da_ops.decode_attention_paged(q, kp, vp, bt, cl, window=w),
+        "decode_attention_paged_quant": lambda q, cl, w:
+            da_ops.decode_attention_paged_quant(q, kip, vip, ksp, vsp, bti,
+                                                cl, window=w)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_kernels_are_batch_invariant(cuda, d):
+    """Each slot of a ragged 4-slot batch (256-row cache, 16-token pages)
+    decoded alone against a 300-row cache holding its rows and garbage
+    past them (5-token pages) gives its batch row bit for bit, in all three
+    forms: a slot's keys fall to units by position and head dim alone."""
+    b, h, kv_h, S = 4, 8, 4, 256
+    lens = [1, 77, 200, 256]
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+    rows = _decode_rows(cuda, gen, b, S, kv_h, d)
+    more = _decode_rows(cuda, gen, 1, 300 - S, kv_h, d)
+    batch = _decode_forms(cuda, gen, rows, 16)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for i, n in enumerate(lens):
+        alone = _decode_forms(cuda, gen, [
+            torch.cat([x[i:i + 1], y], dim=1) for x, y in zip(rows, more)],
+            5)
+        one = torch.tensor([n], dtype=torch.int32, device=cuda)
+        for name in batch:
+            for window in WINDOWS:
+                assert torch.equal(alone[name](q[i:i + 1], one, window),
+                                   batch[name](q, cl, window)[i:i + 1]), (
+                    name, i, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [5, 16])
+def test_decode_kernels_never_read_dead_keys(cuda, ps):
+    """NaN in every row at or past a slot's cache_len, in every slack row,
+    in the null page (named by the table entries past a slot's live pages)
+    and, windowed, below the window's start: every form's output is finite
+    and equals the plain version's on zeroed rows."""
+    b, h, kv_h, S, d = 3, 8, 4, 96, 64
+    lens = [0, 37, 90]
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+    def nans(shape):
+        return torch.full(shape, float("nan"), device=cuda
+                          ).to(torch.bfloat16)
+
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    ki, vi = (torch.randint(-127, 128, (b, S, kv_h, d), generator=gen,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(b, S, kv_h, generator=gen, device=cuda) * 0.05
+              for _ in range(2))
+    for window in WINDOWS:
+        lo = (cl - window).clamp(min=0) if window else torch.zeros_like(cl)
+        pos = torch.arange(S, device=cuda)[None, :]
+        dead = (pos >= cl[:, None]) | (pos < lo[:, None])
+        kz, vz = (x.masked_fill(dead[..., None, None], 0.0) for x in (k, v))
+        want = da_ref.decode_attention_ref(q, kz.transpose(1, 2),
+                                           vz.transpose(1, 2), cl,
+                                           window=window)
+        kn, vn = (x.masked_fill(dead[..., None, None], float("nan"))
+                  for x in (k, v))
+        ksn, vsn = (x.masked_fill(dead[..., None], float("nan"))
+                    for x in (ks, vs))
+        (kp, bt), (vp, _) = _paged(kn, ps, gen, nans), _paged(vn, ps, gen,
+                                                              nans)
+        (kip, _), (vip, _) = _paged(ki, ps, gen, lambda s: torch.zeros(
+            s, dtype=torch.int8, device=cuda)), _paged(
+            vi, ps, gen, lambda s: torch.zeros(s, dtype=torch.int8,
+                                               device=cuda))
+        (ksp, _), (vsp, _) = (_paged(x, ps, gen, lambda s: torch.full(
+            s, float("nan"), device=cuda)) for x in (ksn, vsn))
+        # table entries wholly past a slot's live rows name the null page 0
+        live_pages = (cl + ps - 1) // ps
+        bt[torch.arange(bt.shape[1], device=cuda)[None, :]
+           >= live_pages[:, None]] = 0
+        got = {
+            "contiguous": da_ops.decode_attention(
+                q, kn.transpose(1, 2), vn.transpose(1, 2), cl,
+                window=window),
+            "paged": da_ops.decode_attention_paged(q, kp, vp, bt, cl,
+                                                   window=window),
+            "paged int8": da_ops.decode_attention_paged_quant(
+                q, kip, vip, ksp, vsp, bt, cl, window=window)}
+        kd = da_ref.dequant_bf16(ki, ks.masked_fill(dead[..., None], 0.0))
+        vd = da_ref.dequant_bf16(vi, vs.masked_fill(dead[..., None], 0.0))
+        want_int8 = da_ref.decode_attention_ref(
+            q, kd.transpose(1, 2), vd.transpose(1, 2), cl, window=window)
+        for name, out in got.items():
+            assert torch.isfinite(out).all(), (name, window)
+            torch.testing.assert_close(
+                out, want_int8 if name == "paged int8" else want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_take_misaligned_operands(cuda, kv_dtype):
+    """A query, cache and pools starting off a 16-byte boundary (column
+    slices of wider tensors) are copied element by element: the aligned
+    operands' bits."""
+    b, h, kv_h, S, d, ps = 3, 8, 4, 70, 64, 5
+    gen = torch.Generator(device=cuda).manual_seed(11)
+
+    def sliced(*shape, dtype=torch.float32):
+        wide = torch.randn(*shape[:-1], shape[-1] + 2, generator=gen,
+                           device=cuda).to(dtype)
+        return wide[..., 1:shape[-1] + 1]
+
+    q = sliced(b, 1, h, d).transpose(1, 2)
+    k, v = sliced(b, S, kv_h, d, dtype=kv_dtype), sliced(b, S, kv_h, d,
+                                                         dtype=kv_dtype)
+    cl = torch.tensor([0, 33, 70], dtype=torch.int32, device=cuda)
+    for window in WINDOWS:
+        got = da_ops.decode_attention(q, k.transpose(1, 2),
+                                      v.transpose(1, 2), cl, window=window)
+        assert torch.equal(got, da_ops.decode_attention(
+            q.contiguous(), k.contiguous().transpose(1, 2),
+            v.contiguous().transpose(1, 2), cl, window=window))
+        torch.testing.assert_close(got, da_ref.decode_attention_ref(
+            q, k.transpose(1, 2), v.transpose(1, 2), cl, window=window),
+            **TOL)
+    junk = _float_garbage(gen, kv_dtype, cuda)
+    (kp, bt), (vp, _) = _paged(k.contiguous(), ps, gen, junk), _paged(
+        v.contiguous(), ps, gen, junk)
+    wide = [torch.cat([x, x[..., :2]], dim=-1) for x in (kp, vp)]
+    kp_s, vp_s = (x[..., 1:d + 1] for x in wide)
+    for x, y in zip((kp_s, vp_s), (kp, vp)):
+        x.copy_(y)
+    assert torch.equal(
+        da_ops.decode_attention_paged(q, kp_s, vp_s, bt, cl),
+        da_ops.decode_attention_paged(q.contiguous(), kp, vp, bt, cl))
+
+
+def _bf16_calls(cuda, gen):
+    """The six attention wrappers on bf16-typed queries (and chunk K/V)
+    at reduced shapes: name -> (the wrapper as a callable of the query
+    dtype, its plain version on the bf16 inputs)."""
+    b, h, kv_h, t, S, d, ps = 2, 8, 4, 20, 70, 64, 5
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    qp = randn(b, t, h, d).transpose(1, 2)
+    kp_, vp_ = (randn(b, t, kv_h, d).transpose(1, 2) for _ in range(2))
+    qc = randn(b, t, h, d).transpose(1, 2)
+    kc, vc = (randn(b, S, kv_h, d).transpose(1, 2) for _ in range(2))
+    kn, vn = (randn(b, t, kv_h, d).transpose(1, 2) for _ in range(2))
+    off = torch.tensor([3, 50], dtype=torch.int32, device=cuda)
+    junk = _float_garbage(gen, torch.bfloat16, cuda)
+    kr, vr = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    (kpool, bt), (vpool, _) = _paged(kr, ps, gen, junk), _paged(vr, ps, gen,
+                                                                 junk)
+    qd = randn(b, 1, h, d).transpose(1, 2)
+    cl = torch.tensor([33, 70], dtype=torch.int32, device=cuda)
+    ki, vi = (torch.randint(-127, 128, (b, S, kv_h, d), generator=gen,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(b, S, kv_h, generator=gen, device=cuda) * 0.05
+              for _ in range(2))
+    (kip, bti), (vip, _) = _paged(ki, ps, gen, lambda s: torch.zeros(
+        s, dtype=torch.int8, device=cuda)), _paged(vi, ps, gen, lambda s:
+                                                  torch.zeros(
+            s, dtype=torch.int8, device=cuda))
+    (ksp, _), (vsp, _) = (_paged(x, ps, gen, lambda s: torch.zeros(
+        s, device=cuda)) for x in (ks, vs))
+    return {
+        "flash_prefill": (
+            lambda dt: fp_ops.flash_prefill(qp.to(dt), kp_, vp_),
+            lambda: fp_ref.flash_prefill_ref(qp, kp_, vp_)),
+        "flash_chunk_prefill": (
+            lambda dt: fp_ops.flash_chunk_prefill(qc.to(dt), kc, vc,
+                                                  kn.to(dt), vn.to(dt), off),
+            lambda: fp_ref.flash_chunk_prefill_ref(qc, kc, vc, kn, vn, off)),
+        "flash_chunk_prefill_paged": (
+            lambda dt: fp_ops.flash_chunk_prefill_paged(
+                qc.to(dt), kpool, vpool, bt, off, kn.to(dt), vn.to(dt)),
+            lambda: fp_ref.flash_chunk_prefill_paged_ref(
+                qc, kpool, vpool, bt, off, kn, vn)),
+        "decode_attention": (
+            lambda dt: da_ops.decode_attention(qd.to(dt), kc, vc, cl),
+            lambda: da_ref.decode_attention_ref(qd, kc, vc, cl)),
+        "decode_attention_paged": (
+            lambda dt: da_ops.decode_attention_paged(qd.to(dt), kpool, vpool,
+                                                     bt, cl),
+            lambda: da_ref.paged_decode_attention_ref(qd, kpool, vpool, bt,
+                                                      cl)),
+        "decode_attention_paged_quant": (
+            lambda dt: da_ops.decode_attention_paged_quant(
+                qd.to(dt), kip, vip, ksp, vsp, bti, cl),
+            lambda: da_ref.paged_decode_attention_quant_ref(
+                qd, kip, vip, ksp, vsp, bti, cl))}
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_take_bf16_queries(cuda):
+    """Each of the six attention wrappers takes a bf16 query (and bf16
+    fresh chunk K/V), launches its kernel once and returns bf16: the f32
+    launch on the same (exactly widened) values, rounded to bf16, and
+    within TOL plus one bf16 ULP (2^-7 of the value) of its plain version
+    on the same bf16 inputs, which rounds its own f32 result to bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for name, (call, plain) in _bf16_calls(cuda, gen).items():
+        before = launch_counts()[name]
+        got = call(torch.bfloat16)
+        assert launch_counts()[name] == before + 1, name
+        assert got.dtype == torch.bfloat16, name
+        assert torch.equal(got, call(torch.float32).to(torch.bfloat16)), name
+        want = plain()
+        assert want.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL["atol"], rtol=2 ** -7, msg=name)
+
+
+@pytest.mark.gpu
+def test_decode_launches_once_per_call(cuda):
+    """One launch per decode call in each form, windowed or not, at every
+    head dim."""
+    for d in (32, 64, 128):
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        forms = _decode_forms(cuda, gen, _decode_rows(cuda, gen, 2, 64, 2, d),
+                              16)
+        q = torch.randn(2, 1, 4, d, generator=gen, device=cuda
+                        ).transpose(1, 2)
+        cl = torch.tensor([40, 64], dtype=torch.int32, device=cuda)
+        for name, call in forms.items():
+            for window in WINDOWS:
+                before = launch_counts()[name]
+                call(q, cl, window)
+                assert launch_counts()[name] == before + 1, (name, d)
+
+
 # (m, n, k, row_multiple), at g in {2, 3, 5}: as TLMM_SHAPES, the split
 # with a partial step being LUT_PARTIAL_STEP at g = 5
 LUT_PARTIAL_STEP = (128, 1536, 4096, 64)
