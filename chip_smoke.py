@@ -26,8 +26,12 @@ logits and tokens must equal the ``tlmm`` oracle's, and the oracle at bf16
 activations (``Ctx(act_dtype=torch.bfloat16)``): every kernel launches on
 bf16 queries, with finite logits and tokens in the vocabulary.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
-the decode kernel at the oracle's one-slot shape, and the build's ``ptxas``
-lines are searched for spills in the attention kernels.
+the decode kernel at the oracle's one-slot shape and an empty kernel (the
+launch floor), checks that a CUDA tensor divided by a Python scalar is its
+product by the scalar's f32 reciprocal, and holds swiglu_quant bit for bit
+to its plain version and rmsnorm_quant to its plain version summing in the
+kernel's order; the build's ``ptxas`` lines are searched for spills in the
+attention and quant kernels.
 
 Prints, before its last line, one JSON object ``{"kernels": [...]}`` and
 the card's name and power limit; the last line is
@@ -168,6 +172,9 @@ def ptxas_summary(build_log: str) -> list:
             da = re.search(r"decode_attn_kernelILi(\d+)ELb([01])EN5repro\d+"
                            r"(ContigKV|PagedKV)I(f|13__nv_bfloat16|a)EE(\w)",
                            name)
+            rq = re.search(r"rmsnorm_quant_kernelI(f|13__nv_bfloat16)"
+                           r"(f|13__nv_bfloat16|S\d*_)Lb([01])E", name)
+            sq = re.search(r"swiglu_quant_kernelILb([01])ELb([01])E", name)
             if t:
                 name = f"{t.group(1)}<{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
             elif f:
@@ -178,6 +185,13 @@ def ptxas_summary(build_log: str) -> list:
                 qt = "float" if da.group(5) == "f" else "bf16"
                 name = (f"decode_attn_kernel<{da.group(1)}, WIN={da.group(2)}, "
                         f"{da.group(3)}<{kv}>, q {qt}>")
+            elif rq:
+                tx, tw = ("f32" if g == "f" else "bf16" for g in rq.group(1, 2))
+                name = (f"rmsnorm_quant_kernel<x {tx}, w {tw}, "
+                        f"VEC={rq.group(3)}>")
+            elif sq:
+                name = (f"swiglu_quant_kernel<VEC={sq.group(1)}, "
+                        f"STAGED={sq.group(2)}>")
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name is not None:
@@ -204,8 +218,10 @@ def main() -> int:
     from repro_torch.kernels.flash_prefill import plan as fp_plan
     from repro_torch.kernels.flash_prefill import ref as fp_ref
     from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
+    from repro_torch.kernels.rmsnorm_quant import plan as rq_plan
     from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
     from repro_torch.kernels.swiglu_quant import ops as sq_ops
+    from repro_torch.kernels.swiglu_quant import plan as sq_plan
     from repro_torch.kernels.swiglu_quant import ref as sq_ref
     from repro_torch.kernels.tlmm import ops as tlmm_ops
     from repro_torch.kernels.tlmm import ref as tlmm_ref
@@ -236,7 +252,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
     for line in ptxas_summary(build.build_log):
         log("  ptxas:", line)
-    for kernel in ("flash_attn_kernel", "decode_attn_kernel"):
+    for kernel in ("flash_attn_kernel", "decode_attn_kernel",
+                   "rmsnorm_quant_kernel", "swiglu_quant_kernel"):
         spills = [line for line in ptxas_summary(build.build_log)
                   if kernel in line
                   and not re.search(r"(?<!\d)0 bytes spill stores", line)]
@@ -248,6 +265,12 @@ def main() -> int:
     log("  decode_attn_kernel warps a block by head dim: " + "; ".join(
         f"d={d} {w} warps, {da_plan.smem_bytes(d, 2, w)} B (bf16 rows)"
         for d, w in da_plan.PLAN.items()))
+    log("  rmsnorm_quant_kernel warps a row (a block): " + "; ".join(
+        f"d={d} {rq_plan.warps_per_row(d)}" for d in (1536, 1024))
+        + "; swiglu_quant_kernel threads a row (a block): " + "; ".join(
+            f"f={f} {sq_plan.threads(f)}"
+            + (" staged" if sq_plan.staged(f) else "")
+            for f in (4096, 2816)))
     log("  dynamic shared memory a block: tlmm mma " + ", ".join(
         f"g={g} {lib.tlmm_dynamic_smem(g, 64)} B" for g in (3, 5))
         + "; tlmm_lut " + ", ".join(
@@ -400,16 +423,38 @@ def main() -> int:
         log(f"  table4 {shape}: tlmm_ms {(t1 + t2) / 2:.4f}  tlmm_lut_ms "
             f"{(l1 + l2) / 2:.4f}  lut/tlmm {(l1 + l2) / (t1 + t2):.2f}")
 
+    # the launch floor: an empty kernel's device time, beside every bound
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_ms = device_ms(lambda: build.check(
+        build.load().repro_empty_launch(stream), "repro_empty_launch"))
+    log(f"  launch floor: empty kernel device_ms {floor_ms:.4f} (stream held, "
+        "host excluded)")
+
+    # the scale's arithmetic: a CUDA tensor divided by a Python scalar is a
+    # product by the scalar's f32 reciprocal (the JAX package's, jitted),
+    # by a tensor the true quotient
+    a = torch.rand(1 << 20, generator=gen, device=dev) * 64
+    by_scalar, prod = a / 127.0, a * ternary.INV_127
+    quot = a / torch.tensor(127.0, device=dev)
+    log(f"  scale arithmetic: amax / 127.0 on the card differs from amax * "
+        f"f32(1/127) in {int((by_scalar != prod).sum())} of {a.numel()} "
+        f"values, from the quotient in {int((by_scalar != quot).sum())}")
+    if not torch.equal(by_scalar, prod):
+        raise AssertionError("amax / 127.0 on the card is not the product "
+                             "by f32(1/127)")
+
     # rmsnorm_quant: the norm before an FFN (and before QKV) of one decode
     # tick (m = 4) and one admission chunk (m = 128), bf16 and f32 input
-    def quant_err(name, got, want):
-        """Scales within rel 1e-6, codes at most one apart; returns the
-        largest code difference."""
+    def quant_err(name, got, want, exact):
+        """Scales within rel 1e-6, codes at most one apart, or (exact)
+        equal; returns the largest code difference."""
         (q, sc), (q_w, sc_w) = got, want
         rel = ((sc - sc_w).abs() / sc_w.abs()).max().item()
         diff = (q.int() - q_w.int()).abs()
         log(f"  {name}: scale max rel err {rel:.3g}, codes differing "
             f"{int((diff > 0).sum())} of {q.numel()}")
+        if exact and not (torch.equal(q, q_w) and torch.equal(sc, sc_w)):
+            raise AssertionError(f"{name}: kernel and plain version differ")
         if not (rel <= 1e-6 and diff.max().item() <= 1):
             raise AssertionError(f"{name}: kernel and plain version disagree")
         return float(diff.max())
@@ -421,9 +466,12 @@ def main() -> int:
             x = (torch.randn(m, d, generator=gen, device=dev) * 3).to(dt)
             w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
             shape = f"x ({m}, {d}) {dt}, w f32"
-            err = quant_err(f"rmsnorm_quant {shape}",
-                            rq_ops.rmsnorm_quant(x, w),
-                            rq_ref.rmsnorm_quant_ref(x, w))
+            got = rq_ops.rmsnorm_quant(x, w)
+            err = quant_err(f"rmsnorm_quant {shape}", got,
+                            rq_ref.rmsnorm_quant_ref(x, w), exact=False)
+            quant_err(f"rmsnorm_quant {shape} vs the plain version in the "
+                      "kernel's order", got, rq_ref.rmsnorm_quant_ref(
+                          x, w, warps=rq_plan.warps_per_row(d)), exact=True)
             calls.append({
                 "shape": shape, "err": err,
                 "kernel": lambda x=x, w=w: rq_ops.rmsnorm_quant(x, w),
@@ -451,7 +499,7 @@ def main() -> int:
         args = (acc[0], acc[1], gs, us)
         shape = f"gate, up ({m}, {f}) int32 from tlmm"
         err = quant_err(f"swiglu_quant {shape}", sq_ops.swiglu_quant(*args),
-                        sq_ref.swiglu_quant_ref(*args))
+                        sq_ref.swiglu_quant_ref(*args), exact=True)
         calls.append({
             "shape": shape, "err": err,
             "kernel": lambda a=args: sq_ops.swiglu_quant(*a),

@@ -21,6 +21,7 @@ DEFAULT_G = 5   # 3^5 = 243 codes fit a uint8 (the paper's FPGA uses 3)
 PAPER_G = 3     # the paper's FPGA group: 27 codes, 5-bit indices
 
 _POW3 = (1, 3, 9, 27, 81, 243, 729)
+INV_127 = 1.0 / 127.0   # f32(1/127) in any f32 product
 
 
 def num_codes(g: int) -> int:
@@ -54,22 +55,32 @@ def ternarize(w: torch.Tensor, eps: float = 1e-5
 # INT8 activation quantization (per-token absmax)
 # ---------------------------------------------------------------------------
 
-def absmax_quant_values(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
+def absmax_quant_values(x: torch.Tensor, dim: int = -1, eps: float = 1e-5,
+                        *, reciprocal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """absmax_quant with the quantized values kept in f32 (already rounded
-    and clipped) — the exact-GEMM operand of the pre-decoded path."""
+    and clipped) — the exact-GEMM operand of the pre-decoded path.
+
+    The scale is ``amax / 127`` as the JAX function writes it.  Where it
+    runs, that is a product by f32(1/127) in JAX under ``jit`` (XLA's
+    rewrite of a division by a constant) and in PyTorch on the card
+    (ATen's division by a Python scalar), a true quotient in eager JAX and
+    in PyTorch on the CPU.  ``reciprocal`` takes the product everywhere:
+    the arithmetic of the JAX kernels, which always run jitted."""
     xf = x.float()
     amax = torch.clamp_min(xf.abs().amax(dim=dim, keepdim=True), eps)
-    scale = amax / 127.0
+    scale = amax * INV_127 if reciprocal else amax / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q, scale
 
 
-def absmax_quant(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
+def absmax_quant(x: torch.Tensor, dim: int = -1, eps: float = 1e-5, *,
+                 reciprocal: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: (int8 values, f32 scale with the
-    quantized dim kept at size 1) such that x ~= values * scale."""
-    q, scale = absmax_quant_values(x, dim, eps)
+    quantized dim kept at size 1) such that x ~= values * scale; the scale
+    as in :func:`absmax_quant_values`."""
+    q, scale = absmax_quant_values(x, dim, eps, reciprocal=reciprocal)
     return q.to(torch.int8), scale
 
 

@@ -38,25 +38,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Block-wide sum (MAX false) or maximum (MAX true) of one float per thread
-// of a block of WARPS warps, returned to every thread; red holds WARPS + 1
-// floats of shared memory.  Maxima are taken of absolute values, so 0 pads
-// the missing lanes of either.
-template <int WARPS, bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  v = MAX ? warp_max(v) : warp_sum(v);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < WARPS ? red[lane] : 0.0f;
-    v = MAX ? warp_max(v) : warp_sum(v);
-    if (lane == 0) red[WARPS] = v;
-  }
-  __syncthreads();
-  const float out = red[WARPS];
-  __syncthreads();   // red is free again for the next reduction
-  return out;
+// Asynchronous copies from global into shared memory (cp.async): 16 bytes
+// (both addresses on 16 bytes, cached in L2 only) or 4; commit closes a
+// group of this thread's copies, wait<N> waits until at most N of its
+// groups are in flight and makes the landed copies visible to it.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One K or V row (head_dim values) and, for int8 rows, its scale rounded
@@ -150,3 +154,4 @@ bool aligned16(const PagedKV<KV>& x) {
 }  // namespace repro
 
 REPRO_API const char* repro_error_string(int err);
+REPRO_API int repro_empty_launch(void* stream);

@@ -94,19 +94,9 @@ size_t smem_bytes(int warps) {
          warps * (D + 2) * sizeof(float);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // x rounded to bf16 (to nearest even) and widened back: the bits of
 // __float2bfloat16_rn for any non-NaN x, in integer operations, which issue
@@ -287,7 +277,7 @@ decode_attn_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
   for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
 
   while (kt < kt_end) {
-    if (vec) cp_async_wait_all();
+    if (vec) cp_async_wait<0>();
     __syncwarp();   // every lane's copies and zero rows are visible
     const int k0 = kt * TK, key = k0 + lane;
     // scores: lane j dots key j's row with the query

@@ -39,8 +39,12 @@ SIGNATURES = {
     # (g, rows a block) -> dynamic shared memory bytes of a block
     "tlmm_dynamic_smem": [_I, _I],
     "tlmm_lut_dynamic_smem": [_I, _I],
-    "rmsnorm_quant_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "swiglu_quant_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _P],
+    # ..., x_bf16, w_bf16, 16-byte loads
+    "rmsnorm_quant_launch": [_P, _L, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    # ..., m, f, 16-byte loads
+    "swiglu_quant_launch": [_P, _L, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
+    # an empty kernel: the launch floor
+    "repro_empty_launch": [_P],
     # ..., window, kv_bf16, then warps a block (kernels/flash_prefill/plan.py)
     "flash_attn_launch": [_P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _LP, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],

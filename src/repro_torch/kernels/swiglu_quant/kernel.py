@@ -3,18 +3,23 @@
 
 Replaces ``repro/kernels/swiglu_quant/kernel.py::swiglu_quant_kernel``; the
 source note in ``swiglu_quant.cu`` says what bounds it on the card and how
-its design answers.
+its design answers.  One block serves a row, in registers or, for rows
+wider than ``plan.MAX_REGISTER_F``, staged in shared memory (``plan.py``);
+16-byte loads are taken where gate's and up's rows start on 16 bytes, else
+the kernel's scalar instantiation reads the same chunks.
 """
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.swiglu_quant import plan
 
 
 def swiglu_quant_cuda(gate: torch.Tensor, up: torch.Tensor,
                       gscale: torch.Tensor, uscale: torch.Tensor):
     """(m, f) int32 gate and up accumulators, (m,) f32 dequant scales, on
-    the card -> ((m, f) int8, (m, 1) f32 scales)."""
+    the card -> ((m, f) int8, (m, 1) f32 scales).  Takes rows of
+    0 < f <= ``plan.MAX_F`` (29040) values and raises on wider ones."""
     ts = (gate, up, gscale, uscale)
     if not all(t.is_cuda and t.device == gate.device for t in ts):
         raise ValueError("swiglu_quant_cuda takes CUDA tensors on one device")
@@ -27,8 +32,7 @@ def swiglu_quant_cuda(gate: torch.Tensor, up: torch.Tensor,
         raise ValueError("swiglu_quant_cuda takes two (m, f) accumulators "
                          "with unit stride along f")
     m, f = gate.shape
-    if f == 0:
-        raise ValueError("swiglu_quant_cuda: rows must not be empty")
+    plan.check(f)
     for s in (gscale, uscale):
         if s.shape != (m,) or not s.is_contiguous():
             raise ValueError(f"swiglu_quant_cuda: scales must be contiguous "
@@ -37,10 +41,12 @@ def swiglu_quant_cuda(gate: torch.Tensor, up: torch.Tensor,
     scale = torch.empty((m, 1), dtype=torch.float32, device=gate.device)
     if m == 0:
         return q, scale
+    vec = plan.vector_ok((gate.data_ptr(), up.data_ptr()),
+                         (4 * gate.stride(0), 4 * up.stride(0)), f)
     err = build.load().swiglu_quant_launch(
         gate.data_ptr(), gate.stride(0), up.data_ptr(), up.stride(0),
         gscale.data_ptr(), uscale.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        m, f, torch.cuda.current_stream(gate.device).cuda_stream)
+        m, f, int(vec), torch.cuda.current_stream(gate.device).cuda_stream)
     build.check(err, "swiglu_quant")
     swiglu_quant_cuda.launches += 1
     return q, scale

@@ -1,5 +1,6 @@
 """Plain PyTorch version of the fused SwiGLU dequant/requant kernel (the
-arithmetic of ``repro/kernels/swiglu_quant/ref.py``)."""
+arithmetic of ``repro/kernels/swiglu_quant/ref.py`` as the JAX package runs
+it, jitted: the scale is ``amax * (1/127)``)."""
 
 import torch
 
@@ -13,4 +14,5 @@ def swiglu_quant_ref(gate_i32: torch.Tensor, up_i32: torch.Tensor,
     kernel computes it, then the per-row absmax int8 quant."""
     g = gate_i32.float() * gscale
     u = up_i32.float() * uscale
-    return ternary.absmax_quant(g * (1.0 / (1.0 + torch.exp(-g))) * u)
+    return ternary.absmax_quant(g * (1.0 / (1.0 + torch.exp(-g))) * u,
+                                reciprocal=True)

@@ -3,10 +3,12 @@ device (``pytest -m gpu tests/test_torch_gpu.py`` on the card; every test
 skips without one).  Imports no JAX, so it runs where JAX is not installed.
 
 tlmm, tlmm_lut and the packed linear are compared for equality (int32
-sums); rmsnorm_quant and swiglu_quant with their plain versions by scales
-within rtol 1e-6 and codes at most one apart (a sum of squares taken in
-another order); the f32 attention kernels within 2e-5 absolute and
-relative — they sum in another order than the plain versions, a few ULPs
+sums); swiglu_quant with its plain version for equality (the same
+operations on each value, the scale the same product); rmsnorm_quant with
+its plain version by scales within rtol 1e-6 and codes at most one apart
+(a sum of squares taken in another order), and for equality with the
+plain version summing in the kernel's order; the f32 attention kernels
+within 2e-5 absolute and relative — they sum in another order than the plain versions, a few ULPs
 of values of order one.  The
 paged kernels walk keys in the contiguous kernels' order, so against those
 on the same rows they are compared with ``torch.equal``.
@@ -16,14 +18,18 @@ import pytest
 import torch
 
 from repro_torch.core import bitlinear, fused_block, ternary
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.kernels.flash_prefill import ref as fp_ref
+from repro_torch.kernels.rmsnorm_quant import kernel as rq_kernel
 from repro_torch.kernels.rmsnorm_quant import ops as rq_ops
+from repro_torch.kernels.rmsnorm_quant import plan as rq_plan
 from repro_torch.kernels.rmsnorm_quant import ref as rq_ref
+from repro_torch.kernels.swiglu_quant import kernel as sq_kernel
 from repro_torch.kernels.swiglu_quant import ops as sq_ops
+from repro_torch.kernels.swiglu_quant import plan as sq_plan
 from repro_torch.kernels.swiglu_quant import ref as sq_ref
 from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm import ref as tlmm_ref
@@ -698,35 +704,157 @@ def _assert_quant_close(got, want):
     assert (q.int() - q_want.int()).abs().max().item() <= 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d", [(4, 1536), (128, 1536), (5, 96), (3, 1000)])
-def test_rmsnorm_quant_kernel_matches_plain(cuda, dtype, m, d):
-    gen = torch.Generator(device=cuda).manual_seed(m * d)
+def _assert_quant_equal(got, want):
+    (q, s), (q_want, s_want) = got, want
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(q, q_want) and torch.equal(s, s_want)
+
+
+def _norm_inputs(cuda, m, d, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(m * d + seed)
     x = (torch.randn(m, d, generator=gen, device=cuda) * 3).to(dtype)
     w = torch.randn(d, generator=gen, device=cuda).to(dtype)
+    return x, w
+
+
+@pytest.mark.gpu
+def test_scalar_division_on_the_card_is_the_reciprocal_product(cuda):
+    """ATen divides a CUDA tensor by a Python scalar as a product by the
+    scalar's f32 reciprocal, the arithmetic XLA gives the JAX package under
+    jit; a tensor divisor gives the true quotient.  So the main path's
+    ``amax / 127.0`` (core/ternary.py) on the card is the reference's."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.rand(1 << 20, generator=gen, device=cuda) * 64
+    prod = a * ternary.INV_127
+    assert torch.equal(a / 127.0, prod)
+    quot = a / torch.tensor(127.0, device=cuda)
+    assert not torch.equal(quot, prod)
+    assert torch.equal(quot.cpu(), a.cpu() / 127.0)   # the CPU divides
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(4, 1536), (128, 1536), (4, 1024),
+                                 (128, 1024), (5, 96), (3, 1000)])
+def test_rmsnorm_quant_kernel_matches_plain(cuda, dtype, m, d):
+    """Within the tolerance of the plain version (its sum of squares runs
+    in torch's order), and bit for bit the plain version in the kernel's
+    order (plan.sum_of_squares)."""
+    x, w = _norm_inputs(cuda, m, d, dtype)
+    warps = rq_plan.warps_per_row(d)
     before = launch_counts()["rmsnorm_quant"]
     got = rq_ops.rmsnorm_quant(x, w)
     assert launch_counts()["rmsnorm_quant"] == before + 1
     _assert_quant_close(got, rq_ref.rmsnorm_quant_ref(x, w))
+    _assert_quant_equal(got, rq_ref.rmsnorm_quant_ref(x, w, warps=warps))
     # f32 weight on bf16 activations, as the model's norms
-    _assert_quant_close(rq_ops.rmsnorm_quant(x, w.float()),
-                        rq_ref.rmsnorm_quant_ref(x, w.float()))
+    got = rq_ops.rmsnorm_quant(x, w.float())
+    _assert_quant_close(got, rq_ref.rmsnorm_quant_ref(x, w.float()))
+    _assert_quant_equal(got, rq_ref.rmsnorm_quant_ref(x, w.float(),
+                                                      warps=warps))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,f", [(4, 4096), (128, 4096), (3, 100)])
-def test_swiglu_quant_kernel_matches_plain(cuda, m, f):
-    gen = torch.Generator(device=cuda).manual_seed(m + f)
+@pytest.mark.parametrize("d", [1536, 1024, 1000, 96])
+def test_rmsnorm_quant_row_alone_and_strided_equal_the_batch(cuda, d):
+    """A row alone gives the bits it has in a batch of 128; a column slice
+    (rows not on 16 bytes: the scalar instantiation) gives the bits of its
+    contiguous copy (16-byte loads); bf16 x gives the bits of its f32
+    widening."""
+    x, w = _norm_inputs(cuda, 128, d + 3, torch.bfloat16, seed=1)
+    xs, w = x[:, 1:d + 1], w[:d]
+    assert not rq_plan.vector_ok(xs.data_ptr(), xs.stride(0) * 2,
+                                 w.data_ptr(), d)
+    xc = xs.contiguous()
+    want = rq_ops.rmsnorm_quant(xc, w)
+    for i in (0, 5, 127):
+        q, s = rq_ops.rmsnorm_quant(xc[i:i + 1], w)
+        assert torch.equal(q, want[0][i:i + 1]) and torch.equal(s, want[1][i:i + 1])
+    _assert_quant_equal(rq_ops.rmsnorm_quant(xs, w), want)
+    _assert_quant_equal(rq_ops.rmsnorm_quant(xc.float(), w.float()), want)
+    _assert_quant_equal(rq_ops.rmsnorm_quant(xs.float(), w), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 9, 2048, 4100, rq_plan.MAX_D])
+def test_rmsnorm_quant_widths_equal_the_replay(cuda, d):
+    """From one value to the widest row the kernel takes (one warp to 32):
+    bit for bit the plain version summing in the plan's order; a wider row
+    is refused before a launch."""
+    x, w = _norm_inputs(cuda, 37, d, torch.float32, seed=2)
+    _assert_quant_equal(rq_kernel.rmsnorm_quant_cuda(x, w, eps=1e-5),
+                        rq_ref.rmsnorm_quant_ref(
+                            x, w, warps=rq_plan.warps_per_row(d)))
+    x, w = _norm_inputs(cuda, 2, rq_plan.MAX_D + 8, torch.float32)
+    before = launch_counts()["rmsnorm_quant"]
+    with pytest.raises(ValueError):
+        rq_kernel.rmsnorm_quant_cuda(x, w, eps=1e-5)
+    assert launch_counts()["rmsnorm_quant"] == before
+
+
+def _swiglu_inputs(cuda, m, f, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(m + f + seed)
     gate, up = (torch.randint(-3000, 3000, (m, f), generator=gen,
                               device=cuda, dtype=torch.int32)
                 for _ in range(2))
     gs, us = (torch.rand(m, 1, generator=gen, device=cuda) * 1e-3
               for _ in range(2))
+    return gate, up, gs, us
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,f", [(4, 4096), (128, 4096), (4, 2816),
+                                 (128, 2816), (3, 100), (1, 4096), (2, 4100),
+                                 (2, 8192), (2, 8196), (2, 11008),
+                                 (2, sq_plan.MAX_F)])
+def test_swiglu_quant_kernel_matches_plain(cuda, m, f):
+    """Bit for bit: the kernel runs the plain version's operations on each
+    value and the scale is the same product.  f = 4100 takes more than the
+    plan's 512 threads to stay in registers, f = 8192 is the widest row
+    kept there; f = 8196 is staged in shared memory, 11008 (a 7B model's
+    FFN) in 88 KB, the widest row the kernel takes in 227 KB."""
+    gate, up, gs, us = _swiglu_inputs(cuda, m, f)
     before = launch_counts()["swiglu_quant"]
     got = sq_ops.swiglu_quant(gate, up, gs, us)
     assert launch_counts()["swiglu_quant"] == before + 1
-    _assert_quant_close(got, sq_ref.swiglu_quant_ref(gate, up, gs, us))
+    _assert_quant_equal(got, sq_ref.swiglu_quant_ref(gate, up, gs, us))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [4096, 2816, 100, 8196])
+def test_swiglu_quant_every_layout_equal(cuda, f):
+    """Registers (f <= 8192) or shared memory (8196), a column slice of
+    gate and up (the scalar instantiation) and a row alone give the bits
+    of the plain version on a batch of 128; a row wider than the kernel
+    takes is refused before a launch."""
+    gate, up, gs, us = _swiglu_inputs(cuda, 128, f + 3, seed=1)
+    gs1, us1 = gs.reshape(-1), us.reshape(-1)
+    g, u = gate[:, :f].contiguous(), up[:, :f].contiguous()
+    want = sq_ref.swiglu_quant_ref(g, u, gs, us)
+    _assert_quant_equal(sq_kernel.swiglu_quant_cuda(g, u, gs1, us1), want)
+    gsl, usl = gate[:, 1:f + 1], up[:, 3:f + 3]
+    assert not sq_plan.vector_ok((gsl.data_ptr(), usl.data_ptr()),
+                                 (4 * gsl.stride(0), 4 * usl.stride(0)), f)
+    _assert_quant_equal(sq_kernel.swiglu_quant_cuda(gsl, usl, gs1, us1),
+                        sq_ref.swiglu_quant_ref(gsl, usl, gs, us))
+    wide = torch.zeros((1, sq_plan.MAX_F + 4), dtype=torch.int32,
+                       device=cuda)
+    before = launch_counts()["swiglu_quant"]
+    with pytest.raises(ValueError):
+        sq_kernel.swiglu_quant_cuda(wide, wide, gs1[:1], us1[:1])
+    assert launch_counts()["swiglu_quant"] == before
+    for i in (0, 64, 127):
+        q, s = sq_ops.swiglu_quant(g[i:i + 1], u[i:i + 1], gs[i:i + 1],
+                                   us[i:i + 1])
+        assert torch.equal(q, want[0][i:i + 1]) and torch.equal(s, want[1][i:i + 1])
+
+
+@pytest.mark.gpu
+def test_empty_launch(cuda):
+    """The launch floor's empty kernel launches and returns no error."""
+    build.check(build.load().repro_empty_launch(
+        torch.cuda.current_stream().cuda_stream), "repro_empty_launch")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
