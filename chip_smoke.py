@@ -11,8 +11,16 @@ bitnet-0.73b at full width and depth (random weights from a seed) through
 the continuous-batching ``ServingEngine``: with its bf16 cache, then with a
 paged bf16 cache whose pool is too small for every slot's worst case (the
 paged tokens must equal the contiguous ones), then with int8 KV contiguous
-and paged (equal to each other).  Around each engine path it counts the
-kernel launches and checks that every kernel of that path launched.  It
+and paged (equal to each other).  Each of these engines serves the same
+requests host-driven (``device_sched=False``) and device-resident (the
+default: the decode block one captured CUDA graph, replayed), with equal
+tokens; a profiled window of each mode counts ``cudaLaunchKernel`` and
+``cudaGraphLaunch`` calls and fails on a kernel launch call inside a
+replayed block.  A templated mix (one 64-token template, 16-64-token tails)
+is then served with paged prefix sharing against plain paged: the same
+tokens from fewer prefill chunks.  Around each engine path it counts the
+kernel launches, a graph replay adding the launches it holds, and checks
+that every kernel of that path launched.  It
 then holds the model to its packed-weight oracle (``prefill_step`` +
 ``decode_step``): chunked against monolithic prefill logits, decode against
 prefill logits, and every token of every request of the engine run again
@@ -95,11 +103,17 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the serving engine's profiler span around a replayed decode block
+REPLAY = "ServingEngine.replay_block"
+
+
 def kernel_us(e) -> float:
     """Device time of a profiler entry that is a device kernel or copy (CPU
-    op entries are skipped: their device time repeats their kernels')."""
+    op entries are skipped: their device time repeats their kernels', and so
+    are user spans on the device timeline, such as REPLAY's)."""
     from torch.autograd import DeviceType
-    if e.device_type != DeviceType.CUDA:
+    if (e.device_type != DeviceType.CUDA or e.key == REPLAY
+            or getattr(e, "is_user_annotation", False)):
         return 0.0
     return (getattr(e, "self_device_time_total", None)
             or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
@@ -201,6 +215,7 @@ def ptxas_summary(build_log: str) -> list:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     # -- 1. card -----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -246,6 +261,7 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi: {smi}; top SM clock "
         f"{clock_mhz:.0f} MHz")
 
+    log(f"-- phase 2 at {time.perf_counter() - t_main:.1f} s")
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.load()
@@ -277,6 +293,7 @@ def main() -> int:
             f"g={g} rows={bm} {lib.tlmm_lut_dynamic_smem(g, bm)} B"
             for g in (3, 5) for bm in (2, 4, 8)))
 
+    log(f"-- phase 3 at {time.perf_counter() - t_main:.1f} s")
     # -- 3. each kernel against its plain version at main-path shapes --------
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []   # one entry per kernel for the JSON line
@@ -844,6 +861,7 @@ def main() -> int:
         "their f32 launches rounded and within ATTN_ATOL + one bf16 ULP of "
         "their plain versions (max abs gap: " + ", ".join(bf16_errs) + ")")
 
+    log(f"-- phase 4 at {time.perf_counter() - t_main:.1f} s")
     # -- 4. the serving engine at full width ----------------------------------
     cfg = get_config("bitnet-0.73b")
     master = transformer.init_params(cfg, torch.Generator(device=dev
@@ -859,60 +877,176 @@ def main() -> int:
                                           size=int(r.integers(64, 129))),
                         max_new_tokens=16 + 2 * i) for i in range(8)]
 
-    engine = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
-                           prefill_chunk=32, decode_block=8)
-    engine.run(requests()[:2])                 # warm-up (cuBLAS, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    reqs = engine.run(requests())
-    torch.cuda.synchronize()
-    eng_counts = kernels.launch_counts()
-    st = engine.stats
-    mem_contiguous = torch.cuda.max_memory_allocated()
-    log(f"engine: bitnet-0.73b L={cfg.n_layers} d={cfg.d_model} slots=4 "
-        f"max_seq={max_seq} chunk=32 block=8; {len(reqs)} requests, prompts "
-        f"{[len(r.prompt) for r in reqs]}, max_new "
-        f"{[r.max_new_tokens for r in reqs]}")
-    log(f"engine: {st['total_new_tokens']} tokens in {st['wall_s']:.3f} s = "
-        f"{st['tokens_per_s']:.1f} tok/s; decode {st['decode_tok_s']:.1f} "
-        f"tok/s; TTFT p50 {st['ttft_p50_s']:.4f} s p95 "
-        f"{st['ttft_p95_s']:.4f} s; admissions {st['admissions']} "
-        f"(mid-flight {st['mid_flight_admissions']}), waves "
-        f"{st['prefill_chunks']}, blocks {st['decode_blocks']}; "
-        f"max_memory_allocated {mem_contiguous / 2**30:.2f} GiB")
-    log(f"engine launches: {eng_counts}")
-    for r in reqs:
-        if not (r.done and len(r.output) == r.max_new_tokens
-                and ((r.output >= 0) & (r.output < cfg.vocab_size)).all()):
-            raise AssertionError(f"engine output wrong: {r.output}")
-    for name in ("flash_chunk_prefill", "decode_attention"):
-        if eng_counts[name] <= 0:
-            raise AssertionError(f"engine path did not launch {name}")
+    def kv_mib(rows):   # bf16 K and V over every layer
+        return rows * cfg.n_layers * cfg.kv_dim * 2 * 2 / 2**20
 
-    # where an engine window's time goes: host-side ops vs device kernels
+    def engine_line(name, s, mem=None):
+        extra = "" if mem is None else (f"; max_memory_allocated "
+                                        f"{mem / 2**30:.3f} GiB")
+        log(f"{name}: {s['total_new_tokens']} tokens in {s['wall_s']:.3f} s "
+            f"= {s['tokens_per_s']:.1f} tok/s; decode {s['decode_tok_s']:.1f} "
+            f"tok/s; TTFT p50 {s['ttft_p50_s']:.4f} s p95 "
+            f"{s['ttft_p95_s']:.4f} s; waves {s['prefill_chunks']}, blocks "
+            f"{s['decode_blocks']} (steady {s['steady_state_blocks']}, "
+            f"{s['steady_state_syncs_per_block']:.1f} gating syncs a steady "
+            f"block)" + extra)
+
+    # where an engine window's time goes: host-side ops vs device kernels.
+    # A replayed decode block is the span REPLAY (ServingEngine); a launch
+    # call inside it would be a kernel launched one by one in steady state.
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def is_launch(name):
+        return name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+
+    DECODE_COUNTERS = ("decode_attention", "decode_attention_paged",
+                       "decode_attention_paged_quant")
+
+    def decode_launches():
+        c = kernels.launch_counts()
+        return sum(c[k] for k in DECODE_COUNTERS)
+
     def profile_window(eng, label):
+        before = decode_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.run(requests()[:4])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        counted = decode_launches() - before
         ev = prof.key_averages()
+        # the decode kernels the profiler saw on the device, replays included
+        traced = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+                     and "decode_attn_kernel" in e.key)
         busy = sum(kernel_us(e) for e in ev) / 1e6
+        calls = {name: sum(e.count for e in ev if e.key == name)
+                 for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
+        replays = inside = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU:
+                continue
+            if e.name == REPLAY:
+                replays += 1
+            elif is_launch(e.name):
+                p = e.cpu_parent
+                while p is not None and p.name != REPLAY:
+                    p = p.cpu_parent
+                inside += p is not None
         log(f"profile, {label}: engine window of 4 requests {wall:.3f} s wall "
             f"(profiled), device busy {busy:.3f} s, idle share "
-            f"{1 - busy / wall:.3f}")
+            f"{1 - busy / wall:.3f}; cudaLaunchKernel {calls['cudaLaunchKernel']}"
+            f", cudaGraphLaunch {calls['cudaGraphLaunch']}, replayed blocks "
+            f"{replays}, launch calls inside them {inside}; decode kernels "
+            f"traced {traced}, counted {counted}")
         for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
             log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
                 f"{e.self_cpu_time_total / 1e3:9.1f} ms")
         for e in sorted(ev, key=lambda e: -kernel_us(e))[:8]:
             log(f"  device {e.key[:46]:46s} calls {e.count:7d} self "
                 f"{kernel_us(e) / 1e3:9.1f} ms")
+        if inside:
+            raise AssertionError(f"{label}: {inside} kernel launch calls "
+                                 "inside replayed decode blocks")
+        if traced != counted or counted <= 0:
+            raise AssertionError(f"{label}: the profiler traced {traced} "
+                                 f"decode attention kernels, the launch "
+                                 f"counters say {counted}")
+        if eng.device_sched and not (
+                replays > 0 and calls["cudaGraphLaunch"] >= replays):
+            raise AssertionError(f"{label}: no decode block replayed as a "
+                                 f"graph ({replays} spans, "
+                                 f"{calls['cudaGraphLaunch']} graph launches)")
 
-    profile_window(engine, "contiguous bf16")
+    def sampled():
+        """The 8 requests again, each with its own temperature and seed:
+        a sampled token depends on (seed, emit index, logits), so a replay
+        that read stale state would show even where greedy tokens repeat."""
+        reqs = requests()
+        for i, r in enumerate(reqs):
+            r.temperature, r.seed = 1.0 + 0.5 * i, 1000 + i
+        return reqs
+
+    def serve(label, prof=True, **kw):
+        """The 8 requests on a warmed engine in each scheduling mode,
+        host-driven then device-resident (its decode block captured at the
+        warm-up's first block and replayed from then on), one engine alive
+        at a time; the device-resident engine is kept.  The device tokens
+        must be the host ones, greedy and sampled, and only the
+        host-driven engine may wait on a readback in steady state.  Returns
+        {"host"/"device": {"engine", "reqs", "sampled", "counts", "mem",
+        "stats"}}."""
+        out = {}
+        for mode in ("host", "device"):
+            eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                                prefill_chunk=32, decode_block=8,
+                                device_sched=mode == "device", **kw)
+            eng.run(requests()[:2])            # warm-up (cuBLAS, allocator)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            run = {"reqs": eng.run(requests())}
+            torch.cuda.synchronize()
+            run.update(counts=kernels.launch_counts(), stats=eng.stats,
+                       mem=torch.cuda.max_memory_allocated())
+            engine_line(f"engine, {label}, {mode:6s}", eng.stats, run["mem"])
+            log(f"  launches ({mode}): {run['counts']}")
+            if prof:
+                profile_window(eng, f"{label}, {mode}")
+            run["sampled"] = eng.run(sampled())
+            run["engine"] = eng if mode == "device" else None
+            del eng
+            out[mode] = run
+        dev, host = out["device"], out["host"]
+        if dev["engine"]._graph is None:
+            raise AssertionError(f"{label}: no captured decode block")
+        for kind in ("reqs", "sampled"):
+            for h, d in zip(host[kind], dev[kind]):
+                if h.output.tolist() != d.output.tolist():
+                    raise AssertionError(f"{label}: device-resident tokens "
+                                         f"({kind}) {d.output.tolist()} != "
+                                         f"host-driven {h.output.tolist()}")
+        if (dev["stats"]["steady_state_syncs_per_block"] != 0.0
+                or host["stats"]["host_syncs_per_block"] != 1.0):
+            raise AssertionError(f"{label}: gating syncs a block, device "
+                                 f"{dev['stats']}, host {host['stats']}")
+        log(f"  {label}: device-resident tokens == host-driven tokens, "
+            f"greedy and sampled (distinct tokens: greedy "
+            f"{len(set(np.concatenate([r.output for r in dev['reqs']])))}, "
+            f"sampled "
+            f"{len(set(np.concatenate([r.output for r in dev['sampled']])))}"
+            f"); graph launches a replay {dev['engine']._graph.launches}")
+        return out
+
+    def pool_ok(label, runs):
+        """The 25-page pool in both modes: admission deferred, the peak
+        within the pool, every page returned after the drain."""
+        for mode in ("host", "device"):
+            s = runs[mode]["stats"]
+            if not (s["admissions_deferred_pages"] > 0
+                    and 0 < s["kv_pages_peak"] <= 25
+                    and s["kv_pages_in_use"] == 0):
+                raise AssertionError(f"{label}, {mode}: pool accounting {s}")
+
+    res = serve("contiguous bf16")
+    engine, reqs = res["device"]["engine"], res["device"]["reqs"]
+    sampled_reqs = res["device"]["sampled"]
+    eng_counts, mem_contiguous = res["device"]["counts"], res["device"]["mem"]
+    st = res["device"]["stats"]   # the 8 requests' window
+    log(f"engine: bitnet-0.73b L={cfg.n_layers} d={cfg.d_model} slots=4 "
+        f"max_seq={max_seq} chunk=32 block=8; {len(reqs)} requests, prompts "
+        f"{[len(r.prompt) for r in reqs]}, max_new "
+        f"{[r.max_new_tokens for r in reqs]}; admissions {st['admissions']} "
+        f"(mid-flight {st['mid_flight_admissions']})")
+    for r in reqs:
+        if not (r.done and len(r.output) == r.max_new_tokens
+                and ((r.output >= 0) & (r.output < cfg.vocab_size)).all()):
+            raise AssertionError(f"engine output wrong: {r.output}")
+    for counts in (res["host"]["counts"], eng_counts):
+        for name in ("flash_chunk_prefill", "decode_attention"):
+            if counts[name] <= 0:
+                raise AssertionError(f"engine path did not launch {name}")
 
     # the engine again with an f32 cache (not counted: a check, not the path)
     reqs32 = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
@@ -922,40 +1056,19 @@ def main() -> int:
     log(f"engine tokens, f32 cache:  {[r.output.tolist() for r in reqs32]}")
     log(f"distinct tokens: bf16 {len(set(np.concatenate([r.output for r in reqs])))}"
         f", f32 {len(set(np.concatenate([r.output for r in reqs32])))}")
-    del engine   # the paged run's memory peak then holds one engine too
+    del engine, res   # the paged run's memory peak then holds one engine
     torch.cuda.empty_cache()
 
+    log(f"-- phase 4b at {time.perf_counter() - t_main:.1f} s")
     # -- 4b. the paged engine: 25 usable pages of 16 tokens, 400 rows against
     # the contiguous cache's 4 x 256 = 1024.  Each request's worst case is at
     # most 10 pages, so none is refused, and 4 slots cannot all hold theirs:
     # admission must defer.
-    def kv_mib(rows):   # bf16 K and V over every layer
-        return rows * cfg.n_layers * cfg.kv_dim * 2 * 2 / 2**20
-
-    def paged_engine(**kw):
-        return ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
-                             prefill_chunk=32, decode_block=8, paged=True,
-                             page_size=16, kv_pages=26, **kw)
-
-    def engine_line(name, s, mem=None):
-        extra = "" if mem is None else (f"; max_memory_allocated "
-                                        f"{mem / 2**30:.3f} GiB")
-        log(f"{name}: {s['total_new_tokens']} tokens in {s['wall_s']:.3f} s "
-            f"= {s['tokens_per_s']:.1f} tok/s; decode {s['decode_tok_s']:.1f} "
-            f"tok/s; TTFT p50 {s['ttft_p50_s']:.4f} s p95 "
-            f"{s['ttft_p95_s']:.4f} s; waves {s['prefill_chunks']}, blocks "
-            f"{s['decode_blocks']}" + extra)
-
-    pengine = paged_engine()
-    pengine.run(requests()[:2])                # warm-up, as the contiguous run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    preqs = pengine.run(requests())
-    torch.cuda.synchronize()
-    paged_counts = kernels.launch_counts()
-    mem_paged = torch.cuda.max_memory_allocated()
-    pst = pengine.stats
+    pres = serve("paged bf16, 25 pages", paged=True, page_size=16,
+                 kv_pages=26)
+    pengine, preqs = pres["device"]["engine"], pres["device"]["reqs"]
+    paged_counts, mem_paged = pres["device"]["counts"], pres["device"]["mem"]
+    pst = pres["device"]["stats"]
     engine_line("engine, contiguous bf16", st, mem_contiguous)
     engine_line("engine, paged bf16     ", pst, mem_paged)
     log(f"paged: page size {pst['kv_page_size']}, pool {pst['kv_pool_pages']} "
@@ -967,51 +1080,98 @@ def main() -> int:
         f"{pst['admissions_deferred_pages']}, in use after drain "
         f"{pst['kv_pages_in_use']}; worst cases "
         f"{[pengine.worst_case_pages(r) for r in preqs]}")
-    log(f"paged engine launches: {paged_counts}")
-    if not (pst["admissions_deferred_pages"] > 0
-            and 0 < pst["kv_pages_peak"] <= 25
-            and pst["kv_pages_in_use"] == 0):
-        raise AssertionError(f"paged engine pool accounting: {pst}")
-    for r, c in zip(preqs, reqs):
+    pool_ok("paged bf16", pres)
+    for r, c in zip(preqs + pres["device"]["sampled"], reqs + sampled_reqs):
         if r.output.tolist() != c.output.tolist():
             raise AssertionError(f"paged tokens {r.output.tolist()} != "
                                  f"contiguous {c.output.tolist()}")
-    for name in ("flash_chunk_prefill_paged", "decode_attention_paged"):
-        if paged_counts[name] <= 0:
-            raise AssertionError(f"paged engine did not launch {name}")
-    profile_window(pengine, "paged bf16, 25 pages")
-    del pengine
+    for counts in (pres["host"]["counts"], paged_counts):
+        for name in ("flash_chunk_prefill_paged", "decode_attention_paged"):
+            if counts[name] <= 0:
+                raise AssertionError(f"paged engine did not launch {name}")
+    del pengine, pres
 
+    log(f"-- phase 4c at {time.perf_counter() - t_main:.1f} s")
     # -- 4c. int8 KV, contiguous and paged (same pool), token for token ------
-    kv8_contiguous = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
-                                   prefill_chunk=32, decode_block=8,
-                                   kv_quant=True)
-    kv8_paged = paged_engine(kv_quant=True)
-    for eng in (kv8_contiguous, kv8_paged):
-        eng.run(requests()[:2])                # warm-up, as the bf16 runs
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    reqs8 = kv8_contiguous.run(requests())
-    preqs8 = kv8_paged.run(requests())
-    torch.cuda.synchronize()
-    kv8_counts = kernels.launch_counts()
-    engine_line("engine, contiguous int8 KV", kv8_contiguous.stats)
-    engine_line("engine, paged int8 KV     ", kv8_paged.stats)
-    log(f"int8 KV engine launches: {kv8_counts}")
+    res8 = serve("contiguous int8 KV", kv_quant=True)
+    pres8 = serve("paged int8 KV, 25 pages", prof=False, paged=True,
+                  page_size=16, kv_pages=26, kv_quant=True)
+    reqs8, preqs8 = res8["device"]["reqs"], pres8["device"]["reqs"]
+
+    def kv8_sum(mode):
+        return {k: res8[mode]["counts"][k] + pres8[mode]["counts"][k]
+                for k in eng_counts}
+
+    kv8_counts = kv8_sum("device")
     log(f"engine tokens, int8 KV: {[r.output.tolist() for r in reqs8]}")
-    for r, c in zip(preqs8, reqs8):
+    for r, c in zip(preqs8 + pres8["device"]["sampled"],
+                    reqs8 + res8["device"]["sampled"]):
         if r.output.tolist() != c.output.tolist():
             raise AssertionError(f"paged int8 tokens {r.output.tolist()} != "
                                  f"contiguous int8 {c.output.tolist()}")
-    if kv8_paged.stats["admissions_deferred_pages"] <= 0:
-        raise AssertionError("paged int8 engine did not defer admission")
-    for name in ("decode_attention_paged_quant", "flash_chunk_prefill",
-                 "decode_attention"):
-        if kv8_counts[name] <= 0:
-            raise AssertionError(f"int8 KV engines did not launch {name}")
-    profile_window(kv8_contiguous, "contiguous int8 KV")
-    del kv8_contiguous, kv8_paged
+    pool_ok("paged int8", pres8)
+    for counts in (kv8_sum("host"), kv8_counts):
+        for name in ("decode_attention_paged_quant", "flash_chunk_prefill",
+                     "decode_attention"):
+            if counts[name] <= 0:
+                raise AssertionError(f"int8 KV engines did not launch {name}")
+    del res8, pres8
+    torch.cuda.empty_cache()
 
+    log(f"-- phase 4d at {time.perf_counter() - t_main:.1f} s")
+    # -- 4d. paged prefix sharing: 8 requests on one 64-token template with
+    # 16-64-token tails, 16-token pages, against plain paged on the same
+    # requests.  The template's pages are registered by the first admission
+    # and granted to the next ones, whose prefill starts at token 64.
+    def templated():
+        r = np.random.default_rng(5)
+        tpl = r.integers(0, cfg.vocab_size, size=64)
+        return [Request(prompt=np.concatenate(
+                    [tpl, r.integers(0, cfg.vocab_size,
+                                     size=int(r.integers(16, 65)))]),
+                        max_new_tokens=16 + 2 * i) for i in range(8)]
+
+    shared_runs = {}
+    for sharing in (False, True):
+        eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                            prefill_chunk=32, decode_block=8, paged=True,
+                            page_size=16, enable_prefix_sharing=sharing)
+        eng.run(requests()[:2])                # warm-up, no template
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        sreqs = eng.run(templated())
+        torch.cuda.synchronize()
+        shared_runs[sharing] = (eng.stats, sreqs, kernels.launch_counts())
+        engine_line(f"engine, paged bf16, templated, prefix sharing "
+                    f"{'on ' if sharing else 'off'}", eng.stats)
+        del eng
+    (plain_st, plain_reqs, _), (sh_st, sh_reqs, shared_counts) = (
+        shared_runs[False], shared_runs[True])
+    log(f"prefix sharing: hits {sh_st['prefix_hits']} of "
+        f"{sh_st['admissions']} admissions, prefill tokens skipped "
+        f"{sh_st['prefill_tokens_skipped']}, per-request prefill chunks "
+        f"{sh_st['prefill_chunk_rows']} (plain {plain_st['prefill_chunk_rows']})"
+        f", waves {sh_st['prefill_chunks']} (plain "
+        f"{plain_st['prefill_chunks']}), held for a pending prefix "
+        f"{sh_st['admissions_held_for_prefix']}, CoW splits "
+        f"{sh_st['kv_cow_splits']}, pages peak {sh_st['kv_pages_peak']} "
+        f"(plain {plain_st['kv_pages_peak']}), cached after drain "
+        f"{sh_st['kv_prefix_cached_pages']}")
+    if not (sh_st["prefix_hits"] > 0 and sh_st["prefill_chunk_rows"]
+            < plain_st["prefill_chunk_rows"]
+            and sh_st["kv_pages_in_use"] == sh_st["kv_prefix_cached_pages"]):
+        raise AssertionError(f"prefix sharing did not share: {sh_st}")
+    for s, p in zip(sh_reqs, plain_reqs):
+        if s.output.tolist() != p.output.tolist():
+            raise AssertionError(f"shared-prefix tokens {s.output.tolist()} "
+                                 f"!= plain paged {p.output.tolist()}")
+    for name in ("flash_chunk_prefill_paged", "decode_attention_paged"):
+        if shared_counts[name] <= 0:
+            raise AssertionError(f"prefix-sharing engine did not launch "
+                                 f"{name}")
+    torch.cuda.empty_cache()
+
+    log(f"-- phase 5 at {time.perf_counter() - t_main:.1f} s")
     # -- 5. the model against its packed-weight oracle ------------------------
     ctx = Ctx()
     failures = []
@@ -1087,6 +1247,7 @@ def main() -> int:
         if ora_counts[name] <= 0:
             raise AssertionError(f"oracle path did not launch {name}")
 
+    log(f"-- phase 6 at {time.perf_counter() - t_main:.1f} s")
     # -- 6. the fused FFN (paper Fig. 4a) at full width ------------------------
     # every layer's packed MLP and ln2 on a decode tick's rows (m = 4) and an
     # admission chunk's (m = 128): five kernels, int8/int32 between them
@@ -1133,6 +1294,7 @@ def main() -> int:
         failures.append(f"fused FFN off the unfused path ({worst_unfused} of "
                         f"the tolerance)")
 
+    log(f"-- phase 7 at {time.perf_counter() - t_main:.1f} s")
     # -- 7. the LUT oracle: every ternary linear on tlmm_lut ------------------
     # two requests at full depth with an f32 cache; the int32 sums are exact
     # either way, so logits and tokens equal the tlmm oracle's
@@ -1158,6 +1320,7 @@ def main() -> int:
         failures.append("LUT oracle logits or tokens differ from the tlmm "
                         "oracle's")
 
+    log(f"-- phase 8 at {time.perf_counter() - t_main:.1f} s")
     # -- 8. bf16 activations: the oracle at Ctx(act_dtype=bfloat16) ---------
     # two requests at full depth with a bf16 cache: every kernel launches on
     # bf16 queries, the logits are finite and the tokens in the vocabulary;
@@ -1191,9 +1354,10 @@ def main() -> int:
 
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c[row["name"]] for c in (
-            eng_counts, paged_counts, kv8_counts, ora_counts, ffn_counts,
-            lut_counts, bf16_counts))
+            eng_counts, paged_counts, kv8_counts, shared_counts, ora_counts,
+            ffn_counts, lut_counts, bf16_counts))
 
+    log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -60,3 +60,24 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def take_captured_launches(before: dict) -> dict:
+    """name -> the launches the wrappers counted since ``before`` (a
+    :func:`launch_counts` snapshot) while a CUDA stream capture recorded
+    them.  A capture runs nothing, so they are taken back off the counters;
+    each replay of the graph adds them (:func:`add_launches`)."""
+    counters = launch_counters()
+    out = {}
+    for name, fn in counters.items():
+        if fn.launches != before[name]:
+            out[name] = fn.launches - before[name]
+            fn.launches = before[name]
+    return out
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    counters = launch_counters()
+    for name, n in counts.items():
+        counters[name].launches += n

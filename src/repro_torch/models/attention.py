@@ -6,7 +6,8 @@ Counterpart of the cache half of ``repro/models/attention.py``:
   admission wave's masked ``write_rows``, in place;
 * the paged cache — a global pool of fixed-size pages addressed through
   per-slot block tables: ``paged_update_kv_cache`` / ``paged_update_kv_scales``
-  (in place), and ``paged_chunk_prefill_attention_quant``, the int8 pool's
+  (in place), ``copy_kv_page`` (the prefix-sharing copy-on-write split, in
+  place), and ``paged_chunk_prefill_attention_quant``, the int8 pool's
   chunk read (gather, dequantize, then the contiguous chunk kernel).
 
 The attention itself is the kernel wrappers' (``kernels/flash_prefill/ops.py``
@@ -91,6 +92,17 @@ def gather_kv_pages_dequant(pool: torch.Tensor, scale_pool: torch.Tensor,
     vals = gather_pages_ref(pool, block_table)
     scales = gather_scale_pages_ref(scale_pool, block_table)
     return vals.to(dtype) * scales[..., None].to(dtype)
+
+
+def copy_kv_page(pool: torch.Tensor, src: int, dst: int, *,
+                 page_axis: int = 0) -> torch.Tensor:
+    """Copy page ``src`` onto page ``dst`` of a paged KV plane, in place —
+    the device half of the serving engine's copy-on-write split: a slot
+    granted a partly shared boundary page writes into a private copy, so
+    the donor's readers never see its writes.  Every other page is
+    untouched.  Returns ``pool``."""
+    pool.select(page_axis, dst).copy_(pool.select(page_axis, src))
+    return pool
 
 
 def _paged_write_targets(block_table: torch.Tensor, pos, b: int, t: int,

@@ -170,6 +170,16 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                       cfg.hd, dtype, kv_quant, device)
 
 
+def copy_paged_page(cache: dict, src: int, dst: int) -> dict:
+    """Copy pool page ``src`` onto ``dst`` in every layer and plane of a
+    paged cache (``attention.copy_kv_page``; the page axis is 1, after the
+    layer axis), in place — the serving engine's copy-on-write split of a
+    partly shared prefix page.  Returns ``cache``."""
+    for pool in cache.values():
+        attention.copy_kv_page(pool, src, dst, page_axis=1)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Attention sub-layer and block
 # ---------------------------------------------------------------------------

@@ -1,0 +1,46 @@
+"""The device-resident decode block as one captured CUDA graph.
+
+Counterpart of the JAX engine's jit of its fused decode block
+(``repro/serving/engine.py`` ``_decode_block_dev``: one ``jax.jit`` over a
+``lax.scan`` of ``decode_block`` ticks).  PyTorch runs eagerly, so a block
+of ticks costs the host one launch per op; here the block is recorded once
+into a ``torch.cuda.CUDAGraph`` and every later block is one replay.
+
+What the recorded function may touch is fixed: it reads and writes tensors
+that live as long as the engine (the scheduler state, the KV cache, the
+device block table, the pre-decoded weights), in place, and returns its
+outputs, which the graph's memory pool keeps at fixed addresses — each
+replay overwrites them.  Nothing in it reads a host value.
+
+A capture records launches and runs none, so what the kernel wrappers'
+launch counters count during it is taken back
+(``kernels.take_captured_launches``); each replay adds the launches the
+graph holds (``kernels.add_launches``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+
+
+class CapturedBlock:
+    """``fn()`` captured into one CUDA graph on ``stream``.  The caller has
+    run ``fn`` eagerly on the same stream first: that run warms cuBLAS on
+    the stream and sets the kernels' one-time attributes, which a capture
+    must not be the first to do.  A failed capture raises."""
+
+    def __init__(self, fn, stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.outputs = fn()
+        self.launches = kernels.take_captured_launches(before)
+
+    def replay(self):
+        """Launch the graph on the current stream and return its outputs
+        (valid until the next replay)."""
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.outputs

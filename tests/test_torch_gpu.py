@@ -12,13 +12,19 @@ within 2e-5 absolute and relative — they sum in another order than the plain v
 of values of order one.  The
 paged kernels walk keys in the contiguous kernels' order, so against those
 on the same rows they are compared with ``torch.equal``.
+
+The serving engine's device-resident decode block runs as a captured CUDA
+graph on the card; its tokens are compared with the host-driven engine's
+for equality (the same kernels on the same rows, replayed).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import bitlinear, fused_block, ternary
-from repro_torch.kernels import build, launch_counts
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_prefill import ops as fp_ops
@@ -35,6 +41,9 @@ from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm import ref as tlmm_ref
 from repro_torch.kernels.tlmm_lut import ops as lut_ops
 from repro_torch.kernels.tlmm_lut import ref as lut_ref
+from repro_torch.models import transformer
+from repro_torch.models.layers import Ctx
+from repro_torch.serving import Request, ServingEngine
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 PAGE_SIZES = (4, 5, 16)
@@ -887,3 +896,92 @@ def test_fused_ffn_on_the_card(cuda, dtype):
         ref = fused_block.unfused_reference(mlp.to(cuda), norm_w, x)
         torch.testing.assert_close(got, ref, rtol=0.1,
                                    atol=0.05 * ref.std().item() + 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's captured decode block
+# ---------------------------------------------------------------------------
+
+def _served_on_card(cuda):
+    """The reduced qwen1.5-0.5b (2 layers, 2 heads of 32) with random
+    packed weights on the card."""
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return cfg, transformer.pack_params(cfg, transformer.init_params(cfg, gen))
+
+
+def _card_requests(cfg, temperature, template=None):
+    rng = np.random.default_rng(4)
+    reqs = []
+    for i in range(7):
+        tail = rng.integers(1, cfg.vocab_size, size=int(rng.integers(2, 14)))
+        prompt = tail if template is None else np.concatenate(
+            [template[:int(rng.integers(4, len(template) + 1))], tail])
+        reqs.append(Request(prompt=prompt,
+                            max_new_tokens=int(rng.integers(2, 12)),
+                            temperature=temperature, seed=100 + i))
+    return reqs
+
+
+ENGINE_MODES = {
+    "contiguous": ({}, "decode_attention"),
+    "paged": (dict(paged=True, page_size=5, kv_pages=8),
+              "decode_attention_paged"),
+    "int8": (dict(kv_quant=True), "decode_attention"),
+    "paged_int8": (dict(paged=True, page_size=5, kv_pages=8, kv_quant=True),
+                   "decode_attention_paged_quant"),
+    "bf16": (dict(ctx=Ctx(act_dtype=torch.bfloat16)), "decode_attention"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("mode", list(ENGINE_MODES))
+def test_captured_engine_equals_host_driven(cuda, mode, temperature):
+    """The device-resident engine (its decode block one captured CUDA graph,
+    replayed) emits the host-driven engine's tokens bit for bit, greedy and
+    sampled; every block's decode launches are counted, replays included,
+    and no steady block waited on the host."""
+    cfg, packed = _served_on_card(cuda)
+    extra, decode_kernel = ENGINE_MODES[mode]
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda", **extra)
+    host = _card_requests(cfg, temperature)
+    ServingEngine(cfg, packed, device_sched=False, **kw).run(host)
+    eng = ServingEngine(cfg, packed, **kw)
+    reset_launch_counts()
+    dev = eng.run(_card_requests(cfg, temperature))
+    torch.cuda.synchronize()
+    for h, d in zip(host, dev):
+        assert d.done and d.output.tolist() == h.output.tolist()
+    st = eng.stats
+    assert eng._graph is not None and st["decode_blocks"] >= 3
+    assert launch_counts()[decode_kernel] == (
+        st["decode_blocks"] * eng.decode_block * cfg.n_layers)
+    assert st["steady_state_syncs_per_block"] == 0.0
+    if "paged" in extra:
+        assert st["admissions_deferred_pages"] > 0
+        assert st["kv_pages_in_use"] == 0
+
+
+@pytest.mark.gpu
+def test_captured_engine_prefix_sharing_equals_plain_paged(cuda):
+    """Prefix sharing on the card (5-token pages, 4-token chunks: bases
+    inside a page copy it first): the plain paged engine's tokens, and both
+    equal the contiguous engine's."""
+    cfg, packed = _served_on_card(cuda)
+    template = np.arange(3, 19)
+    kw = dict(max_seq=40, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda")
+    contiguous = ServingEngine(cfg, packed, **kw).run(
+        _card_requests(cfg, 0.0, template))
+    plain = ServingEngine(cfg, packed, paged=True, page_size=5, **kw).run(
+        _card_requests(cfg, 0.0, template))
+    eng = ServingEngine(cfg, packed, paged=True, page_size=5,
+                        enable_prefix_sharing=True, **kw)
+    shared = eng.run(_card_requests(cfg, 0.0, template))
+    for c, p, s in zip(contiguous, plain, shared):
+        assert s.output.tolist() == p.output.tolist() == c.output.tolist()
+    st = eng.stats
+    assert st["prefix_hits"] > 0 and st["kv_cow_splits"] > 0
+    assert st["kv_pages_in_use"] == st["kv_prefix_cached_pages"]
