@@ -18,7 +18,14 @@ tokens; a profiled window of each mode counts ``cudaLaunchKernel`` and
 ``cudaGraphLaunch`` calls and fails on a kernel launch call inside a
 replayed block.  A templated mix (one 64-token template, 16-64-token tails)
 is then served with paged prefix sharing against plain paged: the same
-tokens from fewer prefill chunks.  Around each engine path it counts the
+tokens from fewer prefill chunks.  Phase 4e serves the device-resident
+engines under injected faults (a NaN lane and a corrupt readback, a
+cancellation, a queued deadline, an invalid request; a dispatch outage that
+degrades the engine to host-driven blocks until a canary promotes it back to
+replays of the same graph, profiled; on the templated mix with sharing a
+failed page allocation and a retried NaN lane, audited after every
+retirement): every surviving or retried request emits the fault-free
+tokens.  Around each engine path it counts the
 kernel launches, a graph replay adding the launches it holds, and checks
 that every kernel of that path launched.  It
 then holds the model to its packed-weight oracle (``prefill_step`` +
@@ -50,6 +57,7 @@ when there is no CUDA device or any phase fails.  Never imports JAX.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import re
@@ -117,6 +125,27 @@ def kernel_us(e) -> float:
         return 0.0
     return (getattr(e, "self_device_time_total", None)
             or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+
+
+def loaded_library(part: str) -> ctypes.CDLL:
+    """The copy of a shared library this process has loaded."""
+    with open("/proc/self/maps") as f:
+        for line in f:
+            path = line.split()[-1]
+            if part in os.path.basename(path):
+                return ctypes.CDLL(path)
+    raise RuntimeError(f"{part} is not loaded")
+
+
+def cupti_dropped() -> int:
+    """Activity records the profiler's CUPTI dropped for the current
+    context since the last call (CUPTI is loaded once a profile ran)."""
+    ctx, n = ctypes.c_void_p(), ctypes.c_size_t(0)
+    if (loaded_library("libcuda.so").cuCtxGetCurrent(ctypes.byref(ctx))
+            or loaded_library("libcupti").cuptiActivityGetNumDroppedRecords(
+                ctx, 0, ctypes.byref(n))):
+        raise RuntimeError("could not read CUPTI's dropped records")
+    return n.value
 
 
 HOLD_CYCLES = 100_000_000   # a spin of some 50 ms at the H100's clock
@@ -244,7 +273,8 @@ def main() -> int:
     from repro_torch.kernels.tlmm_lut import ref as lut_ref
     from repro_torch.models import transformer
     from repro_torch.models.layers import Ctx
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import (FaultInjector, Request, RequestStatus,
+                                     ServingEngine)
     from repro_torch.serving.engine import reference_decode
 
     dev = torch.device("cuda")
@@ -916,6 +946,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counted = decode_launches() - before
+        dropped = cupti_dropped()
         ev = prof.key_averages()
         # the decode kernels the profiler saw on the device, replays included
         traced = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
@@ -939,7 +970,8 @@ def main() -> int:
             f"{1 - busy / wall:.3f}; cudaLaunchKernel {calls['cudaLaunchKernel']}"
             f", cudaGraphLaunch {calls['cudaGraphLaunch']}, replayed blocks "
             f"{replays}, launch calls inside them {inside}; decode kernels "
-            f"traced {traced}, counted {counted}")
+            f"traced {traced}, counted {counted}; CUPTI dropped records "
+            f"{dropped}")
         for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
             log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
                 f"{e.self_cpu_time_total / 1e3:9.1f} ms")
@@ -952,7 +984,8 @@ def main() -> int:
         if traced != counted or counted <= 0:
             raise AssertionError(f"{label}: the profiler traced {traced} "
                                  f"decode attention kernels, the launch "
-                                 f"counters say {counted}")
+                                 f"counters say {counted} (CUPTI dropped "
+                                 f"{dropped} records)")
         if eng.device_sched and not (
                 replays > 0 and calls["cudaGraphLaunch"] >= replays):
             raise AssertionError(f"{label}: no decode block replayed as a "
@@ -1171,6 +1204,187 @@ def main() -> int:
                                  f"{name}")
     torch.cuda.empty_cache()
 
+    log(f"-- phase 4e at {time.perf_counter() - t_main:.1f} s")
+    t_4e = time.perf_counter()
+    # -- 4e. robustness on the card: the device-resident engines with their
+    # captured block under injected faults, held to the fault-free tokens
+    # of phases 4 (contiguous) and 4d (paged with sharing).  Which lane is
+    # live at which block depends only on the lengths, so the schedule is
+    # the same on any weights.
+    robust_counts = dict.fromkeys(eng_counts, 0)
+
+    def count_robust():
+        torch.cuda.synchronize()
+        for k, v in kernels.launch_counts().items():
+            robust_counts[k] += v
+
+    def scenario(label, eng, rs, wall):
+        s = eng.stats
+        log(f"robustness {label}: {wall:.3f} s; statuses "
+            f"{[r.status.value for r in rs]}; " + ", ".join(
+                f"{k} {s[k]}" for k in (
+                    "integrity_faults", "faults_injected", "sched_fallbacks",
+                    "repromotions", "canary_probes", "degraded_blocks",
+                    "watchdog_trips", "requests_retried", "retries_total",
+                    "decode_blocks", "steady_state_blocks",
+                    "steady_state_syncs_per_block"))
+            + f"; graph captures in the engine's life "
+              f"{eng.lifetime['graph_captures']}")
+
+    def held_to(label, rs, fault_free, cut_short=()):
+        """OK and DEGRADED requests emit the fault-free tokens; a request
+        with a status in ``cut_short`` keeps a prefix of them."""
+        for r, f in zip(rs, fault_free):
+            got, want = r.output.tolist(), f.output.tolist()
+            if r.status in (RequestStatus.OK, RequestStatus.DEGRADED):
+                ok = got == want
+            else:
+                ok = r.status in cut_short and got == want[:len(got)]
+            if not ok:
+                raise AssertionError(f"{label}: {r.status} request "
+                                     f"{got} against fault-free {want}")
+
+    # (a) contiguous bf16: a corrupt readback of block 2 (lane 1), cancel()
+    # from on_block at block 4, a NaN lane 0 at block 7 (a replay), the
+    # last request's deadline 0 while it is queued, an invalid request
+    fi = FaultInjector().corrupt_readback(2, lane=1).inject_nan(lane=0,
+                                                                block=7)
+    eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                        prefill_chunk=32, decode_block=8, fault_injector=fi)
+    fi.armed = False
+    eng.run(requests()[:2])   # warm-up: its first block is captured
+    fi.armed = True
+    ra = requests()
+    ra[7].deadline_s = 0.0
+    invalid = Request(prompt=np.array([cfg.vocab_size]), max_new_tokens=4)
+
+    def cancel_at_4(engine, block):
+        if block == 4:   # the last live request
+            engine.cancel([r for r in ra
+                           if r.ttft_s is not None and not r.done][-1])
+
+    eng.on_block = cancel_at_4
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(ra + [invalid])
+    wall = time.perf_counter() - t0
+    count_robust()
+    scenario("(a) contiguous bf16", eng, ra + [invalid], wall)
+    want = {"ok": 4, "failed": 2, "cancelled": 1, "timeout": 1}
+    got = {k: [r.status.value for r in ra].count(k) for k in want}
+    if (got != want or invalid.status is not RequestStatus.REJECTED
+            or ra[7].status is not RequestStatus.TIMEOUT
+            or eng.stats["integrity_faults"] != 2
+            or eng.stats["faults_injected"] != 2
+            or eng.lifetime["graph_captures"] != 1):
+        raise AssertionError(f"robustness (a): statuses {got}, "
+                             f"{eng.stats}")
+    held_to("robustness (a)", ra, reqs,
+            (RequestStatus.FAILED, RequestStatus.CANCELLED,
+             RequestStatus.TIMEOUT))
+
+    # (b) the same engine: a dispatch outage past dispatch_retries at block
+    # 2 degrades it; host-driven blocks, then the canary, then promotion
+    # back to replays of the same graph, under the profiler
+    class Readbacks(FaultInjector):
+        """Counts the blocks read back: each launched its decode kernels,
+        and a block whose dispatch failed after its retries is never read
+        back (a degrade may also come from the watchdog, after a launch)."""
+        n = 0
+
+        def on_readback(self, blk, mask, bad_token):
+            self.n += 1
+            return super().on_readback(blk, mask, bad_token)
+
+    eng.fault_injector = fi = Readbacks().dispatch_outage(
+        2, eng.dispatch_retries + 1)
+    trace = []   # (sched_fallbacks, repromotions) after each block
+    eng.on_block = lambda e, b: trace.append(
+        (e.stats["sched_fallbacks"], e.stats["repromotions"]))
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rb = eng.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    count_robust()
+    scenario("(b) contiguous bf16, outage", eng, rb, wall)
+    replays = inside = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == REPLAY:
+            replays += 1
+        elif is_launch(e.name):
+            p = e.cpu_parent
+            while p is not None and p.name != REPLAY:
+                p = p.cpu_parent
+            inside += p is not None
+    before = sum(1 for f, _ in trace if f == 0)
+    after = sum(1 for _, p in trace if p == 1)
+    s = eng.stats
+    log(f"  replayed blocks {replays} ({before} before the outage, {after} "
+        f"after the promotion), launch calls inside them {inside}; decode "
+        f"launches counted {decode_launches()}, blocks read back {fi.n} of "
+        f"{s['decode_blocks']}")
+    if (s["sched_fallbacks"] != 1 or s["repromotions"] != 1
+            or s["degraded_blocks"] < 1 or eng.lifetime["graph_captures"] != 1
+            or s["steady_state_syncs_per_block"] != 0.0
+            or s["steady_state_blocks"] < 1 or after < 1 or inside
+            or replays != before + after
+            or fi.n >= s["decode_blocks"]
+            or decode_launches() != fi.n * eng.decode_block * cfg.n_layers):
+        raise AssertionError(f"robustness (b): replays {replays}, inside "
+                             f"{inside}, trace {trace}, {s}")
+    held_to("robustness (b)", rb, reqs)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) paged bf16 with prefix sharing on phase 4d's templated mix: the
+    # first admission's page allocation fails (no retry for it), a NaN
+    # lane 3 at block 3 retries once; audit() after every retirement
+    fi = FaultInjector().fail_alloc(0).inject_nan(lane=3, block=3)
+    eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                        prefill_chunk=32, decode_block=8, paged=True,
+                        page_size=16, enable_prefix_sharing=True,
+                        max_retries=1, retry_backoff_s=0.0,
+                        audit_on_retire=True, fault_injector=fi)
+    fi.armed = False
+    eng.run(requests()[:2])   # warm-up, as in phase 4d
+    fi.armed = True
+    rc = templated()
+    rc[0].max_retries = 0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(rc)
+    wall = time.perf_counter() - t0
+    count_robust()
+    scenario("(c) paged bf16, prefix sharing", eng, rc, wall)
+    s, audit = eng.stats, eng.audit()
+    log(f"  audit after the drain {audit}; pages in use "
+        f"{s['kv_pages_in_use']}, cached {s['kv_prefix_cached_pages']}, "
+        f"prefix hits {s['prefix_hits']}")
+    if (rc[0].status is not RequestStatus.FAILED or len(rc[0].output)
+            or "allocation failed" not in rc[0].error
+            or [r.retries for r in rc].count(1) != 1
+            or any(r.status is not RequestStatus.OK for r in rc[1:])
+            or s["integrity_faults"] != 1 or s["faults_injected"] != 2
+            or s["retries_total"] != 1
+            or audit["used_pages"] != audit["index_pages"]
+            or s["kv_pages_in_use"] != s["kv_prefix_cached_pages"]):
+        raise AssertionError(f"robustness (c): {[r.status for r in rc]}, "
+                             f"{s}, {audit}")
+    held_to("robustness (c)", rc, sh_reqs, (RequestStatus.FAILED,))
+    del eng
+    torch.cuda.empty_cache()
+    log(f"robustness phase: {time.perf_counter() - t_4e:.1f} s; launches "
+        f"{robust_counts}")
+    for name in ("flash_chunk_prefill", "flash_chunk_prefill_paged",
+                 "decode_attention", "decode_attention_paged"):
+        if robust_counts[name] <= 0:
+            raise AssertionError(f"robustness phase did not launch {name}")
+
     log(f"-- phase 5 at {time.perf_counter() - t_main:.1f} s")
     # -- 5. the model against its packed-weight oracle ------------------------
     ctx = Ctx()
@@ -1354,8 +1568,8 @@ def main() -> int:
 
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c[row["name"]] for c in (
-            eng_counts, paged_counts, kv8_counts, shared_counts, ora_counts,
-            ffn_counts, lut_counts, bf16_counts))
+            eng_counts, paged_counts, kv8_counts, shared_counts,
+            robust_counts, ora_counts, ffn_counts, lut_counts, bf16_counts))
 
     log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -1,1 +1,5 @@
-from repro_torch.serving.engine import Request, ServingEngine  # noqa: F401
+from repro_torch.serving.engine import (AuditError, Request,  # noqa: F401
+                                        RequestStatus, ServingEngine,
+                                        StepOutcome)
+from repro_torch.serving.faultinject import (FaultInjector,  # noqa: F401
+                                             InjectedFault)

@@ -1,8 +1,9 @@
 """Continuous-batching serving engine: chunked in-place admission waves
 interleaved with multi-tick decode blocks, on a contiguous or a paged KV
-cache, in bf16/f32 or int8, scheduled on the device or by the host.
+cache, in bf16/f32 or int8, scheduled on the device or by the host, with
+the JAX engine's robustness layers.
 
-Counterpart of the core of ``repro/serving/engine.py``:
+Counterpart of ``repro/serving/engine.py`` (one device, no mesh):
 
   * **chunked admission waves** — every pending admission advances by one
     ``prefill_chunk``-token chunk per wave, all rows in one
@@ -63,9 +64,9 @@ Counterpart of the core of ``repro/serving/engine.py``:
     chunk's span, then each decode block's appends).  Retirement drops the
     lane's page references and zeroes its table row.  The block table lives
     on the device as one (slots, pages_per_slot) int32 tensor, updated row
-    by row on the engine's stream.  Paged serving emits the contiguous
-    engine's tokens exactly: its kernels walk keys in the contiguous
-    kernels' order.
+    by row on the engine's stream in both modes.  Paged serving emits the
+    contiguous engine's tokens exactly: its kernels walk keys in the
+    contiguous kernels' order.
   * **paged prefix sharing** (``enable_prefix_sharing=True``) — a radix
     trie over fully written prompt pages (``_PrefixIndex``) maps an
     admitted prompt to its longest cached prefix; the slot's block table
@@ -83,6 +84,42 @@ Counterpart of the core of ``repro/serving/engine.py``:
     int8 with per-(token, head) absmax scales; chunk attention reads them as
     f32(int8) * f32(scale), decode through bf16, as the JAX model does.
 
+**Robustness** (the JAX engine's, JAX PRs 7-9).  Every request ends with a
+``RequestStatus``: an invalid one is REJECTED at ``submit()``; ``cancel()``
+and ``deadline_s`` retire a queued, pending or live request CANCELLED or
+TIMEOUT at the next beat; a fault retires only its own lane FAILED (the
+pages roll back refcount-exact, a faulted lane's prefix registrations are
+withdrawn).  The integrity guards are the block's non-finite latch (an
+active lane whose logits are not finite on any tick, read back with the
+block's tokens) and a host check of the token range.  A
+``FaultInjector`` (``serving/faultinject.py``) schedules faults at four
+seams: page allocation, dispatch (before anything is launched or
+replayed, so ``with_retries`` may re-issue it), a NaN lane mask that the
+block reads from a persistent device buffer, and the readback.  A
+device-resident dispatch that still fails after ``dispatch_retries``, or a
+block past ``block_deadline_s``, degrades the engine: the in-flight blocks
+are drained (the host mirror is then exact) and it serves host-driven,
+completions DEGRADED; with ``repromote`` a tick-paced circuit breaker
+sends a canary (a small op on the engine's stream, never the captured
+block) and, when it passes, writes the host mirror into the same state
+tensors the captured graph reads and replays it again.  With
+``max_retries`` a FAILED (or, with ``retry_timeouts``, TIMEOUT) request
+re-queues after a seeded backoff and prefills its prompt plus the tokens
+it already emitted, so it continues token for token; a second breaker
+stops retry storms.  ``submit()``/``step()``/``drain()``/``close()`` are
+the resident lifecycle (``run()`` = a fresh stats window, submit all,
+drain); ``on_token`` streams each committed token once, after the guards;
+``on_block`` runs after every block; ``stats`` is a window, ``lifetime``
+sums windows; ``audit()`` re-derives the pool's refcounts from the block
+tables and the trie.
+
+The host retires a lane one block behind the device, so when it
+force-retires one (a guard, a cancellation, a deadline) the next block,
+already dispatched, still ran that lane.  Its tokens there belong to the
+retired request: a block's readback keeps each lane's occupancy count at
+dispatch (``_Slot.gen``) and drops lanes whose occupant changed since.
+(The JAX engine has no such guard; see ROADMAP section C.)
+
 The JAX engine unpacks the base-3 codes again at every dispatch.  Weights
 are immutable while serving, so this engine pre-decodes them ONCE when it is
 built (``transformer.predecode_packed``); every GEMM then computes exactly
@@ -94,21 +131,18 @@ With a temperature the draw is a function of (request seed, emit index,
 logits) alone — Gumbel-max noise from a counter-based hash of (seed, emit
 index, vocabulary index), computed by tensor ops on the device — so a
 request samples the same tokens whatever slot, schedule or scheduling mode
-it gets.  It does not reproduce JAX's threefry draws.
-
-Left out of this engine: fault handling and retries, deadlines and
-cancellation, streaming callbacks, and the mesh.  An invalid request — one
-whose worst-case KV pages exceed the pool among them — raises
-``ValueError`` at ``submit()`` (the JAX engine stamps it REJECTED).
+it gets, and a retry continues its draws.  It does not reproduce JAX's
+threefry draws.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import enum
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -117,46 +151,111 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import Ctx
+from repro_torch.runtime.fault import (CircuitBreaker, Watchdog,
+                                       backoff_delay, with_retries)
 from repro_torch.serving import graphs
+from repro_torch.serving.faultinject import FaultInjector, InjectedFault
 
 _SEED_MOD = 2 ** 31 - 1
 
 
-@dataclasses.dataclass(eq=False)
-class Request:
+class RequestStatus(enum.Enum):
+    """Terminal disposition of a served request, set once, when ``done``
+    turns True.  Anything short of OK names the containment path that
+    retired the lane; none of them touches another lane."""
+
+    OK = "ok"                # completed normally
+    REJECTED = "rejected"    # failed validation at submit(); never ran
+    TIMEOUT = "timeout"      # deadline_s expired (queued or in flight)
+    CANCELLED = "cancelled"  # cancel(request), observed at a beat
+    FAILED = "failed"        # a fault confined to this lane (non-finite
+    #                          logits, corrupt readback, page allocation)
+    DEGRADED = "degraded"    # correct tokens, finished after the engine
+    #                          fell back to host-driven scheduling
+
+
+class AuditError(RuntimeError):
+    """A page-pool / prefix-trie / block-table invariant is violated
+    (``ServingEngine.audit``)."""
+
+
+# the stats key charged per terminal status; all six are always present,
+# and recounted from the window's requests at finalize
+_STATUS_COUNTERS = {
+    RequestStatus.OK: "requests_completed",
+    RequestStatus.REJECTED: "requests_rejected",
+    RequestStatus.TIMEOUT: "requests_timed_out",
+    RequestStatus.CANCELLED: "requests_cancelled",
+    RequestStatus.FAILED: "requests_failed",
+    RequestStatus.DEGRADED: "requests_degraded",
+}
+
+
+@dataclasses.dataclass
+class StepOutcome:
+    """What one beat (``ServingEngine.step``) did.  ``worked`` is False
+    only when the engine had nothing to do; ``remaining`` counts requests
+    still owed a terminal status (queued, pending, live, waiting to retry);
+    ``idle_until`` (a ``time.perf_counter()`` time), when set, says that no
+    beat can progress before then: only retry backoff is left, so the
+    caller should sleep."""
+
+    worked: bool
+    remaining: int
+    idle_until: Optional[float] = None
+
+
+@dataclasses.dataclass(eq=False)   # identity: queue removal must find THIS
+class Request:                     # object, and a prompt array has no ==
     prompt: np.ndarray              # (prompt_len,) int32 token ids
     max_new_tokens: int = 16
     temperature: float = 0.0        # 0 = greedy
     seed: Optional[int] = None      # sampling seed; the engine assigns one
+    deadline_s: Optional[float] = None   # wall-clock budget from submit();
+    #                                      a retry's restarts at its requeue
+    max_retries: Optional[int] = None    # overrides the engine's budget
     # filled by the engine:
     output: Optional[np.ndarray] = None
     ttft_s: Optional[float] = None  # submit() to first token
     done: bool = False
+    status: Optional[RequestStatus] = None
+    error: Optional[str] = None     # the cause of a status other than OK
+    cancelled: bool = False         # set by ServingEngine.cancel()
+    attempts: int = 0               # admissions started (1 = no retry)
+    retries: int = 0                # requeues granted
+    retry_errors: List[str] = dataclasses.field(default_factory=list)
+    #                                 errors of the withdrawn attempts
 
 
 class _Slot:
     """Host-side state of one decode lane of the shared cache."""
 
-    __slots__ = ("request", "tokens", "cache_len", "last_token")
+    __slots__ = ("request", "tokens", "cache_len", "last_token", "gen")
 
     def __init__(self):
         self.request: Optional[Request] = None
         self.tokens: List[int] = []
         self.cache_len = 0
         self.last_token = 0
+        self.gen = 0   # retirements so far: tells occupants apart
 
     @property
     def active(self) -> bool:
         return self.request is not None
 
-    def free(self) -> None:
+    def free(self, status: RequestStatus = RequestStatus.OK,
+             error: Optional[str] = None) -> None:
         r = self.request
         r.output = np.asarray(self.tokens, np.int32)
         r.done = True
+        r.status = status
+        if error is not None:
+            r.error = error
         self.request = None
         self.tokens = []
         self.cache_len = 0
         self.last_token = 0
+        self.gen += 1
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +553,19 @@ class ServingEngine:
     keeps KV in a pool of ``kv_pages`` pages of ``page_size`` tokens
     (default: every slot can reach ``max_seq``, plus the null page), with
     prefix sharing under ``enable_prefix_sharing``; ``kv_quant=True``
-    stores int8 KV with f32 scales."""
+    stores int8 KV with f32 scales.
+
+    Robustness keywords, with the JAX engine's defaults:
+    ``block_deadline_s`` bounds one block's dispatch and the readback it
+    waits on (a watchdog that only records); ``dispatch_retries`` and
+    ``dispatch_backoff_s`` re-issue a failed dispatch; ``max_retries``,
+    ``retry_timeouts`` and ``retry_backoff_s`` set the request retry
+    budget; ``repromote`` and ``probe_cooldown_blocks`` pace the return to
+    device-resident scheduling after a degrade; ``retry_breaker_*`` the
+    breaker over retries; ``fault_injector`` schedules faults;
+    ``audit_on_retire`` runs ``audit()`` after every fault-path retirement
+    and promotion; ``on_block(engine, block)`` runs after every decode
+    block and ``on_token(request, token)`` once per committed token."""
 
     def __init__(self, cfg: ModelConfig, params: nn.ModuleDict, *,
                  max_seq: int, batch_slots: int = 4,
@@ -465,6 +576,19 @@ class ServingEngine:
                  kv_pages: Optional[int] = None,
                  enable_prefix_sharing: bool = False,
                  device_sched: bool = True, kv_quant: bool = False,
+                 block_deadline_s: Optional[float] = None,
+                 dispatch_retries: int = 2,
+                 dispatch_backoff_s: float = 0.0,
+                 max_retries: int = 0, retry_timeouts: bool = False,
+                 retry_backoff_s: float = 0.02, repromote: bool = True,
+                 probe_cooldown_blocks: int = 2,
+                 retry_breaker_threshold: int = 4,
+                 retry_breaker_window: int = 16,
+                 retry_breaker_cooldown: int = 8,
+                 fault_injector: Optional[FaultInjector] = None,
+                 audit_on_retire: bool = False,
+                 on_block: Optional[Callable] = None,
+                 on_token: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
         transformer.require_attn(cfg)
         dev = torch.device(device)
@@ -491,55 +615,124 @@ class ServingEngine:
         self.device_sched = bool(device_sched)
         self.paged = bool(paged)
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
-        self._prefix = None
         if self.paged:
             self.page_size = max(1, min(int(page_size), max_seq))
             self.pages_per_slot = -(-max_seq // self.page_size)
             self.kv_pages = (int(kv_pages) if kv_pages is not None
                              else batch_slots * self.pages_per_slot + 1)
+        self.ctx = ctx or Ctx()
+        self.seed = seed
+        self.block_deadline_s = block_deadline_s
+        self.dispatch_retries = max(0, int(dispatch_retries))
+        self.dispatch_backoff_s = float(dispatch_backoff_s)
+        self.max_retries = max(0, int(max_retries))
+        self.retry_timeouts = bool(retry_timeouts)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.repromote = bool(repromote)
+        self.probe_cooldown_blocks = max(1, int(probe_cooldown_blocks))
+        self.retry_breaker_threshold = max(1, int(retry_breaker_threshold))
+        self.retry_breaker_window = max(1, int(retry_breaker_window))
+        self.retry_breaker_cooldown = max(1, int(retry_breaker_cooldown))
+        self.fault_injector = fault_injector
+        self.audit_on_retire = bool(audit_on_retire)
+        self.on_block = on_block
+        self.on_token = on_token
+        # the engine's own stream on the card: waves, table copies, block
+        # replays and readbacks keep one order on it
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # engine-lifetime counters: summed over windows, never reset
+        self.lifetime = {"arrivals": 0, "windows": 0, "faults_injected": 0,
+                         "admissions": 0, "decode_blocks": 0,
+                         "decode_tokens": 0, "total_new_tokens": 0,
+                         "requests_retried": 0, "retries_total": 0,
+                         "graph_captures": 0}
+        self.lifetime.update({k: 0 for k in _STATUS_COUNTERS.values()})
+        self._closed = False
+        self._reset_engine_state()
+        self.reset_stats()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _reset_engine_state(self) -> None:
+        """(Re)build the engine-lifetime serving state: lanes, the request
+        pools, the page pool, block table and prefix trie, the breakers and
+        the arrival counter.  The cache, the device state and the captured
+        block are rebuilt at the next beat (a graph holds the addresses of
+        the tensors it was captured on).  Called from ``__init__``; calling
+        it again abandons every request in flight."""
+        self._sched_epoch = 0   # bumps on every wave and retirement
+        self._inflight: deque = deque()   # dispatched, not yet read back
+        # the live scheduling mode: False after a degrade (device_sched is
+        # the configured mode and never changes); _degraded stamps later
+        # completions DEGRADED
+        self._dev_active = self.device_sched
+        self._degraded = False
+        # the device breaker trips at the first degrade and paces canary
+        # probes; the retry breaker turns a burst of retryable failures
+        # into fail-fast statuses.  Both tick once a beat.
+        self._retryq: List[dict] = []
+        self._dev_breaker = CircuitBreaker(
+            threshold=1, window=1, cooldown=self.probe_cooldown_blocks)
+        self._retry_breaker = CircuitBreaker(
+            threshold=self.retry_breaker_threshold,
+            window=self.retry_breaker_window,
+            cooldown=self.retry_breaker_cooldown)
+        self._prefix = None
+        if self.paged:
             self._pool = _PagePool(self.kv_pages)
             if self.enable_prefix_sharing:
                 self._prefix = _PrefixIndex(self.page_size)
             # host block table (its device copy is built with the cache);
             # dead entries: page 0
-            self._bt = np.zeros((batch_slots, self.pages_per_slot), np.int32)
+            self._bt = np.zeros((self.slots, self.pages_per_slot), np.int32)
             self._bt_dev = None
-            self._slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
-            self._slot_shared_n = [0] * batch_slots   # aliased leading pages
+            self._slot_pages: List[List[int]] = [[] for _ in range(self.slots)]
+            self._slot_shared_n = [0] * self.slots   # aliased leading pages
             self._page_slot_refs: dict = {}   # page -> live slot references
             self._backed: set = set()   # pages inside an active reservation
-            self._slot_reserved = [0] * batch_slots
+            self._slot_reserved = [0] * self.slots
             self._reserved_total = 0
-        self.ctx = ctx or Ctx()
-        self.seed = seed
-        # the engine's own stream on the card: waves, table copies, block
-        # replays and readbacks keep one order on it
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        self._lanes = [_Slot() for _ in range(batch_slots)]
+        # trie nodes each slot's current occupant registered (withdrawn if
+        # that occupant faults)
+        self._slot_reg_nodes: List[list] = [[] for _ in range(self.slots)]
+        self._lanes = [_Slot() for _ in range(self.slots)]
         self._queue: deque = deque()
         self._pending: dict = {}     # slot -> in-progress admission
         self._cache = None           # built at the first beat
         self._state = None           # device scheduler state (device_sched)
+        self._nan_dev = None         # the NaN-lane fault seam, (slots,) bool
         self._graph = None           # the captured decode block (CUDA)
-        self._inflight: deque = deque()   # dispatched, not yet read back
-        self._sched_epoch = 0   # bumps on every wave and retirement
         self._arrivals = 0
         self._chunks_since_block = 0
         self._deferred_head = None   # queue head counted as deferred
         self._held_head = None       # queue head counted as held
-        self.reset_stats()
-
-    # -- lifecycle ---------------------------------------------------------
 
     def reset_stats(self) -> None:
-        """Open a fresh stats window (``run()`` opens one per batch)."""
+        """Open a fresh stats window (``run()`` opens one per batch);
+        ``lifetime`` and the serving state are untouched."""
         self.stats = {"admissions": 0, "mid_flight_admissions": 0,
                       "prefill_chunks": 0, "prefill_chunk_rows": 0,
                       "decode_steps": 0, "decode_blocks": 0,
                       "decode_tokens": 0, "decode_wall_s": 0.0,
                       "max_chunks_between_decode_blocks": 0,
-                      "host_block_syncs": 0, "steady_state_blocks": 0}
+                      "host_block_syncs": 0, "steady_state_blocks": 0,
+                      "graph_captures": 0,
+                      "scheduler_beats": 0, "idle_sleeps": 0,
+                      "idle_wait_s": 0.0,
+                      # robustness gauges, every mode
+                      "requests_completed": 0, "requests_rejected": 0,
+                      "requests_failed": 0, "requests_timed_out": 0,
+                      "requests_cancelled": 0, "requests_degraded": 0,
+                      "degraded_blocks": 0, "faults_injected": 0,
+                      "watchdog_trips": 0, "sched_fallbacks": 0,
+                      "integrity_faults": 0,
+                      # recovery gauges, every mode
+                      "requests_retried": 0, "retries_total": 0,
+                      "retry_backoff_s": 0.0, "retries_denied_breaker": 0,
+                      "repromotions": 0, "canary_probes": 0,
+                      "breaker_state": self._dev_breaker.state,
+                      "retry_breaker_state": self._retry_breaker.state}
         if self.paged:
             self.stats.update({"kv_pages_peak": 0, "kv_live_tokens_peak": 0,
                                "kv_reserved_pages_peak": 0,
@@ -556,66 +749,83 @@ class ServingEngine:
         self._steady_syncs = 0
         self._window_requests: List[Request] = []
         self._window_t0 = time.perf_counter()
-
-    def _validate(self, req: Request) -> Optional[str]:
-        p = np.asarray(req.prompt)
-        if p.ndim != 1 or len(p) < 1:
-            return "prompt must be a non-empty 1-D token array"
-        if len(p) > self.max_seq:
-            return f"prompt length {len(p)} > max_seq {self.max_seq}"
-        if req.max_new_tokens < 1:
-            return "max_new_tokens must be >= 1"
-        if int(p.min()) < 0 or int(p.max()) >= self.cfg.vocab_size:
-            return f"prompt token ids must be in [0, {self.cfg.vocab_size})"
-        if self.paged and self.worst_case_pages(req) > self._pool.usable:
-            return (f"request needs {self.worst_case_pages(req)} KV pages "
-                    f"worst-case but the pool only has {self._pool.usable}; "
-                    "raise kv_pages or shrink the request")
-        return None
+        self._window_contrib: Optional[dict] = None
+        fi = self.fault_injector
+        self._fi_events0 = len(fi.events) if fi is not None else 0
 
     def submit(self, req: Request) -> Request:
-        """Queue one request (validated here; the seed defaults to a function
-        of the engine seed and the arrival count; TTFT counts from here)."""
-        err = self._validate(req)
-        if err is not None:
-            raise ValueError(err)
+        """Queue one request, at any time.  Here the request is validated
+        (an invalid one is REJECTED and never queued), its seed defaults to
+        a function of the engine seed and the engine-lifetime arrival count,
+        and its TTFT and deadline clocks start.  Returns the request."""
+        if self._closed:
+            raise RuntimeError("submit() on a closed ServingEngine")
+        now = time.perf_counter()
         req.seed = ((self.seed * 1000003 + self._arrivals)
                     if req.seed is None else int(req.seed)) % _SEED_MOD
         self._arrivals += 1
-        req._arrival_t = time.perf_counter()
+        self.lifetime["arrivals"] += 1
+        req._arrival_t = now
+        req._deadline_t0 = now
         self._window_requests.append(req)
+        err = self._validate(req)
+        if err is not None:
+            self._end_unstarted(req, RequestStatus.REJECTED, err)
+            return req
         self._queue.append(req)
         return req
+
+    def cancel(self, req: Request) -> None:
+        """Cancel a request at the next beat: queued or waiting to retry, it
+        never runs (again); pending, its admission aborts; live, it keeps
+        its tokens so far.  Status CANCELLED."""
+        req.cancelled = True
 
     @property
     def has_work(self) -> bool:
         return bool(self._queue or self._pending or self._inflight
-                    or any(s.active for s in self._lanes))
+                    or self._retryq or any(s.active for s in self._lanes))
 
-    def step(self) -> bool:
-        """One scheduler beat: assign free slots to queued requests, run one
-        admission wave, then one decode block (device-resident: dispatch it,
-        then read back the block before it).  Returns whether there was
-        work."""
+    def step(self) -> StepOutcome:
+        """One scheduler beat: police (cancellations, deadlines) -> breaker
+        ticks -> retry pump -> promotion probe -> admission wave -> decode
+        block (device-resident: dispatch it, then read back the block
+        before it)."""
         if not self.has_work:
-            return False
+            return StepOutcome(worked=False, remaining=0)
         with self._on_stream():
-            self._beat()
-        return True
+            return self._beat()
 
     def drain(self) -> dict:
-        """Step until every submitted request is done; returns the stats of
-        the window.  The caller's stream then waits for the engine's."""
-        while self.step():
-            pass
+        """Step until every submitted request is terminal, sleeping through
+        pure retry backoff; returns the stats of the window.  The caller's
+        stream then waits for the engine's."""
+        while self.has_work:
+            out = self.step()
+            if out.idle_until is not None:
+                wait = out.idle_until - time.perf_counter()
+                if wait > 0:
+                    self.stats["idle_sleeps"] += 1
+                    self.stats["idle_wait_s"] += wait
+                    time.sleep(wait)
         if self._stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(self._stream)
         self._finalize_window()
         return self.stats
 
+    def close(self) -> None:
+        """Drain, then refuse further ``submit()`` calls."""
+        self.drain()
+        self._closed = True
+
     def run(self, requests: List[Request]) -> List[Request]:
-        """Serve a batch: a fresh stats window, submit all, drain."""
+        """Serve a batch: a fresh stats window, submit all, drain.  A window
+        that ended degraded starts the next one device-resident again."""
         self.reset_stats()
+        self._restore_device_residency()
+        fi = self.fault_injector
+        if fi is not None:
+            fi.reset_run()   # ordinals count from 0 in every run
         for r in requests:
             self.submit(r)
         self.drain()
@@ -640,19 +850,110 @@ class ServingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _beat(self) -> None:
+    def _beat(self) -> StepOutcome:
         slots, pending, queue = self._lanes, self._pending, self._queue
         self._ensure_cache()
+        self.stats["scheduler_beats"] += 1
+        self._police(slots, pending, queue)
+        self._dev_breaker.tick()
+        self._retry_breaker.tick()
+        self._pump_retries(queue)
+        if (self.device_sched and self.repromote and not self._dev_active
+                and (queue or pending or any(s.active for s in slots))):
+            self._try_promote(slots)
+        self._admit(slots, pending, queue)
+        if pending:
+            others_active = any(s.active for s in slots)
+            self._prefill_wave(pending, slots)
+            if others_active:
+                self._chunks_since_block += 1
+                self.stats["max_chunks_between_decode_blocks"] = max(
+                    self.stats["max_chunks_between_decode_blocks"],
+                    self._chunks_since_block)
+        if any(s.active for s in slots):
+            # device-resident: a lane the host still sees active may have
+            # finished on the device; its extra block ticks fully masked
+            self._decode_block(slots)
+            self._chunks_since_block = 0
+            if self.on_block is not None:
+                self.on_block(self, self.stats["decode_blocks"])
+        elif self._inflight:
+            self._drain_blocks(slots, depth=0)
+        idle_until = None
+        if (self._retryq and not queue and not pending and not self._inflight
+                and not any(s.active for s in slots)):
+            idle_until = min(e["not_before"] for e in self._retryq)
+        remaining = (len(queue) + len(pending) + len(self._retryq)
+                     + sum(1 for s in slots if s.active))
+        return StepOutcome(worked=True, remaining=remaining,
+                           idle_until=idle_until)
+
+    def _ensure_cache(self) -> None:
+        if self._cache is not None:
+            return
+        if self.paged:
+            self._cache = transformer.init_paged_cache(
+                self.cfg, self.kv_pages, self.page_size, self.cache_dtype,
+                self.device, kv_quant=self.kv_quant)
+            self._bt_dev = self._upload(self._bt.copy())
+        else:
+            self._cache = transformer.init_cache(
+                self.cfg, self.slots, self.max_seq, self.cache_dtype,
+                self.device, kv_quant=self.kv_quant)
+
+        def z(dtype):
+            return torch.zeros((self.slots,), dtype=dtype, device=self.device)
+        self._nan_dev = z(torch.bool)
+        if self.device_sched:
+            self._state = {"last_token": z(torch.int64),
+                           "cache_len": z(torch.int32),
+                           "emitted": z(torch.int32), "active": z(torch.bool),
+                           "max_new": z(torch.int32),
+                           "temps": z(torch.float32), "seeds": z(torch.int64)}
+
+    # -- admission ---------------------------------------------------------
+
+    def _validate(self, req: Request) -> Optional[str]:
+        """The reason to reject ``req``, or None.  Checks the effective
+        prompt (prompt plus carried tokens for a retry), shape first."""
+        p = np.asarray(self._eff_prompt(req))
+        if p.ndim != 1 or len(p) < 1:
+            return "prompt must have at least one token (a 1-D token array)"
+        if len(p) > self.max_seq:
+            return f"prompt length {len(p)} > max_seq {self.max_seq}"
+        if req.max_new_tokens < 1:
+            return "max_new_tokens must be >= 1"
+        if self.cfg.frontend == "token" and (
+                int(p.min()) < 0 or int(p.max()) >= self.cfg.vocab_size):
+            return f"prompt token ids must be in [0, {self.cfg.vocab_size})"
+        if self.paged and self.worst_case_pages(req) > self._pool.usable:
+            return (f"request needs {self.worst_case_pages(req)} KV pages "
+                    f"worst-case but the pool only has {self._pool.usable}; "
+                    "raise kv_pages or shrink the request")
+        return None
+
+    def _admit(self, slots, pending: dict, queue) -> None:
+        """Assign free slots to queued requests, FIFO; paged admission is
+        gated by each request's worst-case reservation."""
         for i, s in enumerate(slots):
             if not queue:
                 break
             if s.active or i in pending:
                 continue
+            # anything requeued internally is validated again here
+            while queue:
+                err = self._validate(queue[0])
+                if err is None:
+                    break
+                self._end_unstarted(queue.popleft(),
+                                    RequestStatus.REJECTED, err)
+            if not queue:
+                break
             head = queue[0]
             grant = None
             if self.paged:
                 if self._prefix is not None:
-                    grant = self._prefix_lookup(head.prompt)
+                    grant = self._prefix_lookup(self._eff_prompt(head))
                 if self._held_for_pending_prefix(
                         head, pending, grant["base"] if grant else 0):
                     # a pending admission is prefilling this head's prefix:
@@ -682,71 +983,49 @@ class ServingEngine:
                     self.stats["kv_reserved_pages_peak"],
                     self._reserved_total)
                 if grant is not None and grant["base"]:
-                    self._grant_prefix(i, grant)
+                    try:
+                        self._grant_prefix(i, grant)
+                    except InjectedFault as e:
+                        self._reject_started_head(
+                            queue, i, "KV page allocation failed during "
+                            f"prefix grant: {e}")
+                        continue
             req = queue.popleft()
             pending[i] = self._start_admission(
                 i, req, grant["base"] if grant else 0)
-            if self.paged and self.device_sched:
+            if self.paged and self._dev_active:
                 # the whole reservation now: decode never allocates, so
                 # block N+1 needs nothing from the host allocator
-                self._grow_pages(i, min(len(req.prompt)
-                                        + req.max_new_tokens - 1,
-                                        self.max_seq))
+                try:
+                    self._grow_pages(i, min(len(req.prompt)
+                                            + req.max_new_tokens - 1,
+                                            self.max_seq))
+                except InjectedFault as e:
+                    self._abort_admission(
+                        pending, i, RequestStatus.FAILED,
+                        f"KV page allocation failed at admission pre-grant: "
+                        f"{e}")
+                    continue
             if any(o.active for o in slots):
                 self.stats["mid_flight_admissions"] += 1
-        if pending:
-            others_active = any(s.active for s in slots)
-            self._prefill_wave(pending, slots)
-            if others_active:
-                self._chunks_since_block += 1
-                self.stats["max_chunks_between_decode_blocks"] = max(
-                    self.stats["max_chunks_between_decode_blocks"],
-                    self._chunks_since_block)
-        if any(s.active for s in slots):
-            # device-resident: a lane the host still sees active may have
-            # finished on the device; its extra block ticks fully masked
-            self._decode_block(slots)
-            self._chunks_since_block = 0
-        elif self._inflight:
-            self._drain_blocks(slots, depth=0)
-
-    def _ensure_cache(self) -> None:
-        if self._cache is not None:
-            return
-        if self.paged:
-            self._cache = transformer.init_paged_cache(
-                self.cfg, self.kv_pages, self.page_size, self.cache_dtype,
-                self.device, kv_quant=self.kv_quant)
-            self._bt_dev = self._upload(self._bt.copy())
-        else:
-            self._cache = transformer.init_cache(
-                self.cfg, self.slots, self.max_seq, self.cache_dtype,
-                self.device, kv_quant=self.kv_quant)
-        if self.device_sched:
-            def z(dtype):
-                return torch.zeros((self.slots,), dtype=dtype,
-                                   device=self.device)
-            self._state = {"last_token": z(torch.int64),
-                           "cache_len": z(torch.int32),
-                           "emitted": z(torch.int32), "active": z(torch.bool),
-                           "max_new": z(torch.int32),
-                           "temps": z(torch.float32), "seeds": z(torch.int64)}
-
-    # -- admission ---------------------------------------------------------
 
     def _start_admission(self, i: int, req: Request, base: int = 0) -> dict:
-        """Prefill covers [base, plen): a shared prefix [0, base) is already
-        in granted pages."""
-        plen = len(req.prompt)
+        """Prefill covers [base, plen) of the effective prompt: a shared
+        prefix [0, base) is already in granted pages."""
+        prompt = np.asarray(self._eff_prompt(req))
+        plen = len(prompt)
+        req.attempts += 1
         n_chunks = -(-(plen - base) // self.prefill_chunk)
         self.stats["prefill_chunk_rows"] += n_chunks
-        return {"slot": i, "req": req, "prompt": np.asarray(req.prompt),
-                "plen": plen, "next": 0, "n_chunks": n_chunks, "base": base}
+        return {"slot": i, "req": req, "prompt": prompt,
+                "carried": self._carried(req), "plen": plen, "next": 0,
+                "n_chunks": n_chunks, "base": base}
 
     def _prefill_wave(self, pending: dict, slots) -> None:
         """Advance every pending admission by one chunk in one batched
         ``prefill_chunk`` call; rows whose prompt ends in this chunk sample
-        their first token on the device."""
+        their first token on the device, at emit index = the tokens a
+        retry carries (0 for a fresh request)."""
         self.stats["prefill_chunks"] += 1
         self._sched_epoch += 1
         n, c = self.slots, self.prefill_chunk
@@ -756,16 +1035,26 @@ class ServingEngine:
         last = np.zeros((n,), np.int64)
         seeds = np.zeros((n,), np.int64)
         temps = np.zeros((n,), np.float32)
+        emit0 = np.zeros((n,), np.int64)
         completing = []
-        for i, adm in pending.items():
+        for i in list(pending):
+            adm = pending[i]
             plen, req = adm["plen"], adm["req"]
             # a shifted final chunk never crosses below the share base
             # (base <= max_seq - c), so shared pages are never rewritten
             lo = min(adm["base"] + adm["next"] * c, self.max_seq - c)
             if self.paged:
                 # cover the chunk's prompt span; its slack past the prompt
-                # lands in the owned final page's tail or the null page
-                self._grow_pages(i, min(lo + c, plen))
+                # lands in the owned final page's tail or the null page.
+                # A fault here aborts this admission only: its row stays
+                # out of the wave.
+                try:
+                    self._grow_pages(i, min(lo + c, plen))
+                except InjectedFault as e:
+                    self._abort_admission(
+                        pending, i, RequestStatus.FAILED,
+                        f"KV page allocation failed during admission: {e}")
+                    continue
             seg = adm["prompt"][lo:lo + c]
             toks[i, :len(seg)] = seg
             offs[i] = lo
@@ -773,9 +1062,12 @@ class ServingEngine:
             last[i] = max(0, min(plen - 1 - lo, c - 1))
             seeds[i] = req.seed
             temps[i] = req.temperature
+            emit0[i] = len(adm["carried"])
             adm["next"] += 1
             if adm["next"] >= adm["n_chunks"]:
                 completing.append(i)
+        if not mask.any():
+            return   # every admission of this wave aborted
         up = self._upload
         logits, _ = transformer.prefill_chunk(
             self.cfg, self.params, up(toks), self.ctx, self._cache,
@@ -784,8 +1076,8 @@ class ServingEngine:
         if not completing:
             return
         seeds_d, temps_d = up(seeds), up(temps)
-        first = sample(logits, seeds_d, torch.zeros_like(seeds_d), temps_d)
-        if self.device_sched:
+        first = sample(logits, seeds_d, up(emit0), temps_d)
+        if self._dev_active:
             # the first tokens go into the device state before the host
             # reads them: the read below is bookkeeping only
             self._merge_admissions([pending[i] for i in completing], first,
@@ -796,60 +1088,76 @@ class ServingEngine:
 
     def _merge_admissions(self, admits, first, seeds, temps) -> None:
         """Fold completed admissions into the device state in place.  A
-        lane whose request finished at prefill (max_new == 1 or a full row)
-        is merged inactive: a tick emits before it checks done."""
+        lane whose request finished at prefill (its budget reached or a
+        full row) is merged inactive: a tick emits before it checks done.
+        A retry resumes at emit index carried + 1."""
         n = self.slots
         upd = np.zeros((n,), bool)
         activate = np.zeros((n,), bool)
         clens = np.zeros((n,), np.int32)
+        emit0 = np.zeros((n,), np.int32)
         mnew = np.zeros((n,), np.int32)
         for adm in admits:
             i, req, plen = adm["slot"], adm["req"], adm["plen"]
+            k = len(adm["carried"])
             upd[i] = True
             clens[i] = plen
+            emit0[i] = k + 1
             mnew[i] = req.max_new_tokens
-            activate[i] = not (req.max_new_tokens <= 1
+            activate[i] = not (req.max_new_tokens <= k + 1
                                or plen >= self.max_seq)
         u = self._upload(upd)
         st = self._state
-        for name, new in (("last_token", first), ("cache_len", self._upload(
-                clens)), ("emitted", torch.ones_like(st["emitted"])),
-                ("active", self._upload(activate)),
-                ("max_new", self._upload(mnew)), ("temps", temps),
-                ("seeds", seeds)):
+        for name, new in (("last_token", first),
+                          ("cache_len", self._upload(clens)),
+                          ("emitted", self._upload(emit0)),
+                          ("active", self._upload(activate)),
+                          ("max_new", self._upload(mnew)), ("temps", temps),
+                          ("seeds", seeds)):
             st[name].copy_(torch.where(u, new.to(st[name].dtype), st[name]))
 
     def _finish_admission(self, slots, adm: dict, tok: int) -> None:
         req, i = adm["req"], adm["slot"]
-        req.ttft_s = time.perf_counter() - req._arrival_t
+        if req.ttft_s is None:   # a retry keeps its first attempt's TTFT
+            req.ttft_s = time.perf_counter() - req._arrival_t
         s = slots[i]
         s.request = req
-        s.tokens = [tok]
+        # a retry resumes mid-output: its carried tokens are committed
+        s.tokens = list(adm["carried"]) + [tok]
         s.cache_len = adm["plen"]
         s.last_token = tok
+        if self.on_token is not None:
+            self.on_token(req, tok)   # the new token only
         self.stats["admissions"] += 1
         if self._prefix is not None:
             # the prompt's full pages are written: make them reusable
             # (before a retirement at prefill, so such a request seeds too)
             self._register_prefix(i, adm["prompt"], adm["plen"])
         if len(s.tokens) >= req.max_new_tokens or s.cache_len >= self.max_seq:
-            self._retire(i)   # finished at prefill (budget or row exhausted)
+            self._free_slot(slots, i)   # finished at prefill
 
     # -- decode ------------------------------------------------------------
 
     def _ticks(self, tokens, cache_len, emitted, active, max_new, temps,
-               seeds):
+               seeds, nan_mask):
         """``decode_block`` ticks of decode_step + sample + bookkeeping over
-        (slots,) tensors -> their values after the block and the block's
-        (slots, decode_block) tokens and emit masks.  Reads no host value:
-        the device-resident block runs it inside a CUDA graph."""
+        (slots,) tensors -> their values after the block, the block's
+        (slots, decode_block) tokens and emit masks, and its (slots,)
+        non-finite latch.  Reads no host value: the device-resident block
+        runs it inside a CUDA graph."""
         outs, masks = [], []
+        bad = torch.zeros_like(active)
         for _ in range(self.decode_block):
             # park inactive lanes' write at max_seq (clamped to the row tail)
             step_len = torch.where(active, cache_len, self.max_seq)
             logits, _ = transformer.decode_step(
                 self.cfg, self.params, tokens[:, None], self.ctx, self._cache,
                 step_len, page_table=self._page_table())
+            # the fault seam: all-False in service, an exact identity then
+            logits = torch.where(nan_mask[:, None], float("nan"), logits)
+            # the integrity latch: an active lane whose logits are not
+            # finite on any tick of the block
+            bad = bad | (active & ~torch.isfinite(logits).all(-1))
             nxt = sample(logits, seeds, emitted, temps)
             outs.append(torch.where(active, nxt, 0))
             masks.append(active)
@@ -859,19 +1167,19 @@ class ServingEngine:
             done = (emitted >= max_new) | (cache_len >= self.max_seq)
             active = active & ~done
         return (tokens, cache_len, emitted, active, torch.stack(outs, 1),
-                torch.stack(masks, 1))
+                torch.stack(masks, 1), bad)
 
     def _device_block(self):
         """One block from the device state, which it advances in place;
-        returns (tokens, masks)."""
+        returns (tokens, masks, bad)."""
         st = self._state
-        *new, blk, mask = self._ticks(
+        *new, blk, mask, bad = self._ticks(
             st["last_token"], st["cache_len"], st["emitted"], st["active"],
-            st["max_new"], st["temps"], st["seeds"])
+            st["max_new"], st["temps"], st["seeds"], self._nan_dev)
         for name, value in zip(("last_token", "cache_len", "emitted",
                                 "active"), new):
             st[name].copy_(value)
-        return blk, mask
+        return blk, mask, bad
 
     def _note_dispatch(self) -> None:
         """Classify this dispatch for the sync counters: a block dispatched
@@ -885,26 +1193,84 @@ class ServingEngine:
         self._syncs_since_dispatch = 0
         self._last_dispatch_epoch = self._sched_epoch
 
+    def _nan_mask_for_block(self) -> Optional[np.ndarray]:
+        """The injector's NaN lanes for the block about to dispatch (keyed
+        on the window's block ordinal), or None."""
+        fi = self.fault_injector
+        if fi is None:
+            return None
+        return fi.nan_mask(self.stats["decode_blocks"] - 1, self.slots)
+
     def _decode_block(self, slots) -> None:
-        t0 = time.perf_counter()
         st = self.stats
         if self.paged:
-            if not self.device_sched:
+            if not self._dev_active:
                 # cover every append this block can make, bounded by each
                 # lane's remaining budget (so within its reservation);
-                # device-resident lanes hold their reservation already
+                # device-resident lanes hold their reservation already.  A
+                # fault retires the lane that hit it.
                 for i, s in enumerate(slots):
                     if s.active:
                         remaining = s.request.max_new_tokens - len(s.tokens)
-                        self._grow_pages(i, min(s.cache_len + min(
-                            self.decode_block, remaining), self.max_seq))
+                        try:
+                            self._grow_pages(i, min(s.cache_len + min(
+                                self.decode_block, remaining), self.max_seq))
+                        except InjectedFault as e:
+                            self._fault_retire(
+                                slots, i, RequestStatus.FAILED,
+                                f"KV page growth failed mid-decode: {e}")
             self._note_live_tokens(
                 sum(s.cache_len for s in slots if s.active))
+        if not any(s.active for s in slots):
+            return   # growth faults emptied the batch
         self._note_dispatch()
         st["decode_blocks"] += 1
         st["decode_steps"] += self.decode_block
-        if self.device_sched:
-            self._inflight.append(self._dispatch_device_block())
+        if self._degraded:
+            st["degraded_blocks"] += 1
+        nan = self._nan_mask_for_block()
+        wd = (Watchdog(self.block_deadline_s)
+              if self.block_deadline_s is not None else None)
+        try:
+            # the watchdog bounds the dispatch and the readback it waits on;
+            # it only records
+            with wd or contextlib.nullcontext():
+                self._dispatch_block(slots, nan)
+            if wd is not None and wd.fired:
+                st["watchdog_trips"] += 1
+                if self._dev_active:
+                    self._degrade(slots)
+        except InjectedFault as e:
+            # a dispatch that still fails after its retries: the device
+            # scheduler is wedged, so fall back to the host; host-driven
+            # there is no lower level, so the live batch fails
+            if self._dev_active:
+                self._degrade(slots)
+            else:
+                for i, s in enumerate(slots):
+                    if s.active:
+                        self._fault_retire(
+                            slots, i, RequestStatus.FAILED,
+                            f"decode dispatch failed on host path: {e}")
+
+    def _dispatch_block(self, slots, nan) -> None:
+        """Issue one decode block behind the injector's dispatch seam, which
+        fires before anything is launched or replayed, so ``with_retries``
+        may re-issue it."""
+        t0 = time.perf_counter()
+        st, fi = self.stats, self.fault_injector
+        if self._dev_active:
+            gens = tuple(s.gen for s in slots)
+
+            def dispatch():
+                if fi is not None:
+                    fi.on_dispatch(device=True)
+                return self._dispatch_device_block(nan)
+
+            self._inflight.append((*with_retries(
+                dispatch, max_retries=self.dispatch_retries,
+                retry_on=(InjectedFault,), backoff_s=self.dispatch_backoff_s,
+                seed=self.seed)(), gens))
             st["decode_wall_s"] += time.perf_counter() - t0
             # read back one block behind: block N while block N+1 runs
             self._drain_blocks(slots, depth=1)
@@ -914,79 +1280,132 @@ class ServingEngine:
         def col(values, dtype):
             return torch.tensor(values, dtype=dtype, device=dev)
 
-        *_, blk, mask = self._ticks(
-            col([s.last_token for s in slots], torch.int64),
-            col([s.cache_len for s in slots], torch.int32),
-            col([len(s.tokens) for s in slots], torch.int32),
-            col([s.active for s in slots], torch.bool),
-            col([r.max_new_tokens if r else 0 for r in reqs], torch.int32),
-            col([r.temperature if r else 0.0 for r in reqs], torch.float32),
-            col([r.seed if r else 0 for r in reqs], torch.int64))
+        def dispatch():
+            if fi is not None:
+                fi.on_dispatch(device=False)
+            return self._ticks(
+                col([s.last_token for s in slots], torch.int64),
+                col([s.cache_len for s in slots], torch.int32),
+                col([len(s.tokens) for s in slots], torch.int32),
+                col([s.active for s in slots], torch.bool),
+                col([r.max_new_tokens if r else 0 for r in reqs], torch.int32),
+                col([r.temperature if r else 0.0 for r in reqs],
+                    torch.float32),
+                col([r.seed if r else 0 for r in reqs], torch.int64),
+                self._nan_dev if nan is None else self._upload(nan))
+
+        *_, blk, mask, bad = with_retries(
+            dispatch, max_retries=self.dispatch_retries,
+            retry_on=(InjectedFault,), backoff_s=self.dispatch_backoff_s,
+            seed=self.seed)()
         # the block's one sync, which the next dispatch waits on
         self._process_block(slots, blk.cpu().numpy(), mask.cpu().numpy(),
-                            gating=True)
+                            bad.cpu().numpy(), gating=True)
         st["decode_wall_s"] += time.perf_counter() - t0
 
-    def _dispatch_device_block(self):
+    def _dispatch_device_block(self, nan):
         """Queue one device-resident block and its readback; returns what
         ``_drain_blocks`` reads.  On the card the first block runs eagerly
-        and is then captured; every later block is one graph replay."""
+        and is then captured; every later block is one graph replay.  A NaN
+        lane mask goes into the buffer the block reads, before it, and is
+        cleared after it, on the engine's stream."""
+        if nan is not None:
+            src = torch.from_numpy(nan)
+            self._nan_dev.copy_(src.pin_memory() if self._stream is not None
+                                else src, non_blocking=True)
         if self._graph is None:
             out = self._readback(*self._device_block())
             if self._stream is not None:
                 self._graph = graphs.CapturedBlock(self._device_block,
                                                    self._stream)
-            return out
-        with torch.profiler.record_function("ServingEngine.replay_block"):
-            return self._readback(*self._graph.replay())
+                self.stats["graph_captures"] += 1
+        else:
+            with torch.profiler.record_function("ServingEngine.replay_block"):
+                out = self._readback(*self._graph.replay())
+        if nan is not None:
+            self._nan_dev.zero_()
+        return out
 
-    def _readback(self, blk: torch.Tensor, mask: torch.Tensor):
+    def _readback(self, blk: torch.Tensor, mask: torch.Tensor,
+                  bad: torch.Tensor):
         """Copy a block's outputs to the host.  On the card: into fresh
         pinned memory, queued on the engine's stream before the next replay
-        overwrites the graph's outputs, with an event to wait on."""
+        overwrites the graph's outputs, with one event to wait on."""
         if self._stream is None:
-            return blk, mask, None
-        hb = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
-        hm = torch.empty(mask.shape, dtype=mask.dtype, pin_memory=True)
-        hb.copy_(blk, non_blocking=True)
-        hm.copy_(mask, non_blocking=True)
+            return blk, mask, bad, None
+        out = []
+        for t in (blk, mask, bad):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
         ev = torch.cuda.Event()
         ev.record()
-        return hb, hm, ev
+        return (*out, ev)
 
     def _drain_blocks(self, slots, depth: int) -> None:
         """Read back dispatched blocks until ``depth`` remain in flight."""
         t0 = time.perf_counter()
         while len(self._inflight) > depth:
-            blk, mask, ev = self._inflight.popleft()
+            blk, mask, bad, ev, gens = self._inflight.popleft()
             if ev is not None:
                 ev.synchronize()
             self._process_block(slots, blk.numpy(), mask.numpy(),
-                                gating=False)
+                                bad.numpy(), gating=False, gens=gens)
         self.stats["decode_wall_s"] += time.perf_counter() - t0
 
-    def _process_block(self, slots, blk: np.ndarray, mask: np.ndarray, *,
-                       gating: bool) -> None:
-        """Fold one block's readback into the host mirror: extend outputs,
-        advance lengths, retire finished lanes.  ``gating`` marks a readback
-        the next dispatch waits on (every host-driven block); a
-        device-resident readback gates only when it retires a lane."""
+    def _process_block(self, slots, blk: np.ndarray, mask: np.ndarray,
+                       bad: np.ndarray, *, gating: bool, gens=None) -> None:
+        """Fold one block's readback into the host mirror: run the integrity
+        guards, extend outputs, advance lengths, retire finished lanes.
+        ``gating`` marks a readback the next dispatch waits on (every
+        host-driven block); a device-resident readback gates only when it
+        retires a lane.  ``gens`` are the lanes' occupancy counts when the
+        block was dispatched: a lane retired since then is skipped.  A lane
+        that fails a guard retires FAILED with the tokens it had before
+        this block; every other lane is untouched."""
+        fi = self.fault_injector
+        if fi is not None:
+            blk = fi.on_readback(blk, mask, bad_token=self.cfg.vocab_size + 7)
         st = self.stats
-        st["decode_tokens"] += int(mask.sum())
         retired = False
         live_after = 0
         for i, s in enumerate(slots):
-            if not s.active:
+            if not s.active or (gens is not None and gens[i] != s.gen):
                 continue
-            new = blk[i][mask[i]].tolist()
+            if bad[i]:
+                st["integrity_faults"] += 1
+                self._fault_retire(
+                    slots, i, RequestStatus.FAILED,
+                    "non-finite logits in decode block (lane isolated; the "
+                    "block's tokens for this lane are discarded)",
+                    rollback_prefix=True)
+                retired = True
+                continue
+            new = blk[i][mask[i]]
+            if new.size and (int(new.min()) < 0
+                             or int(new.max()) >= self.cfg.vocab_size):
+                st["integrity_faults"] += 1
+                self._fault_retire(
+                    slots, i, RequestStatus.FAILED,
+                    "emitted token id out of range (corrupt readback; lane "
+                    "isolated)", rollback_prefix=True)
+                retired = True
+                continue
+            new = new.tolist()
+            # only the tokens kept count: a stale, NaN or corrupt lane's
+            # discarded ones are left out (JAX counts every masked token)
+            st["decode_tokens"] += len(new)
             s.tokens.extend(new)
             s.cache_len += len(new)
             live_after += s.cache_len
             if new:
                 s.last_token = new[-1]
+                if self.on_token is not None:
+                    for t in new:   # after the guards: never withdrawn
+                        self.on_token(s.request, t)
             if (len(s.tokens) >= s.request.max_new_tokens
                     or s.cache_len >= self.max_seq):
-                self._retire(i)
+                self._free_slot(slots, i)
                 retired = True
         if self.paged:   # the entry sample misses the block's own appends
             self._note_live_tokens(live_after)
@@ -1000,11 +1419,304 @@ class ServingEngine:
             raise RuntimeError("active lane at cache_len >= max_seq: parked "
                                "decode writes could clobber a live token")
 
-    def _retire(self, i: int) -> None:
+    # -- retirement --------------------------------------------------------
+
+    def _free_slot(self, slots, i: int,
+                   status: RequestStatus = RequestStatus.OK,
+                   error: Optional[str] = None) -> None:
+        """Retire slot i with ``status``: output, pages and reservation
+        back.  An OK completion while degraded is stamped DEGRADED."""
+        if status is RequestStatus.OK and self._degraded:
+            status = RequestStatus.DEGRADED
+            self.stats["requests_degraded"] += 1
+        req = slots[i].request
+        self._release_slot_pages(i)
+        slots[i].free(status, error)
+        if req.retries and status in (RequestStatus.OK,
+                                      RequestStatus.DEGRADED):
+            # a retried request completing: transient faults are clearing
+            self._retry_breaker.record_success()
+
+    def _fault_retire(self, slots, i: int, status: RequestStatus,
+                      error: str, rollback_prefix: bool = False) -> None:
+        """Retire live slot i on a containment event: the request keeps its
+        tokens so far; device-resident, the lane is deactivated in the
+        device state on the engine's stream (outside the graph, after the
+        blocks already queued there).  ``rollback_prefix`` withdraws the
+        prefix pages this occupant registered (faulted KV)."""
+        if rollback_prefix:
+            self._unregister_prefix(i)
+        if self._dev_active and self._state is not None:
+            self._state["active"][i] = False
+        req = slots[i].request
+        self._free_slot(slots, i, status, error)
+        self.stats[_STATUS_COUNTERS[status]] += 1
+        self._maybe_retry(req)
+        if self.audit_on_retire:
+            self.audit()
+
+    def _end_unstarted(self, req: Request, status: RequestStatus,
+                       error: str) -> None:
+        """Stamp a request that holds no lane terminal: it keeps only the
+        tokens an earlier attempt carried."""
+        req.output = np.asarray(self._carried(req), np.int32)
+        req.done = True
+        req.status = status
+        req.error = error
+        self.stats[_STATUS_COUNTERS[status]] += 1
+
+    def _abort_admission(self, pending: dict, i: int, status: RequestStatus,
+                         error: str) -> None:
+        """Abort a pending admission: granted and owned pages and the
+        reservation roll back, the slot is free again."""
+        req = pending.pop(i)["req"]
+        self._release_slot_pages(i)
+        self._end_unstarted(req, status, error)
+        self._maybe_retry(req)
+        if self.audit_on_retire:
+            self.audit()
+
+    def _reject_started_head(self, queue, i: int, error: str) -> None:
+        """A fault between reservation and admission (the CoW allocation
+        of a prefix grant): the queue head fails, slot i's grant and
+        reservation roll back."""
+        req = queue.popleft()
+        self._release_slot_pages(i)
+        self._end_unstarted(req, RequestStatus.FAILED, error)
+        self._maybe_retry(req)
+        if self.audit_on_retire:
+            self.audit()
+
+    def _expired(self, req: Request) -> bool:
+        if req.deadline_s is None:
+            return False
+        # measured from submit(), or from a retry's requeue
+        return time.perf_counter() - req._deadline_t0 > req.deadline_s
+
+    def _police(self, slots, pending: dict, queue) -> None:
+        """The cancellation and deadline sweep over the four pools: queued,
+        waiting to retry, pending, live.  Host only; a live lane's
+        deactivation is one element written on the engine's stream."""
+        for r in list(queue):
+            why = (RequestStatus.CANCELLED if r.cancelled else
+                   RequestStatus.TIMEOUT if self._expired(r) else None)
+            if why is not None:
+                queue.remove(r)
+                self._end_unstarted(
+                    r, why, "cancelled before admission"
+                    if why is RequestStatus.CANCELLED
+                    else f"deadline_s={r.deadline_s} expired in queue")
+                self._maybe_retry(r)
+        for e in list(self._retryq):
+            # a deadline restarts at the requeue; a cancellation is seen
+            if e["req"].cancelled:
+                self._retryq.remove(e)
+                self._end_unstarted(e["req"], RequestStatus.CANCELLED,
+                                    "cancelled while waiting to retry")
+        for i in list(pending):
+            r = pending[i]["req"]
+            if r.cancelled:
+                self._abort_admission(pending, i, RequestStatus.CANCELLED,
+                                      "cancelled during admission")
+            elif self._expired(r):
+                self._abort_admission(
+                    pending, i, RequestStatus.TIMEOUT,
+                    f"deadline_s={r.deadline_s} expired during admission")
+        for i, s in enumerate(slots):
+            if not s.active:
+                continue
+            r = s.request
+            if r.cancelled:
+                self._fault_retire(slots, i, RequestStatus.CANCELLED,
+                                   "cancelled mid-decode")
+            elif self._expired(r):
+                self._fault_retire(
+                    slots, i, RequestStatus.TIMEOUT,
+                    f"deadline_s={r.deadline_s} expired mid-decode")
+
+    # -- retries with progress replay --------------------------------------
+
+    @staticmethod
+    def _carried(req: Request) -> list:
+        """Tokens a withdrawn attempt committed (empty for a fresh one)."""
+        return getattr(req, "_replay_tokens", None) or []
+
+    @staticmethod
+    def _eff_prompt(req: Request):
+        """What the current attempt prefills: the prompt, or for a retry
+        the prompt plus the tokens emitted so far, so its first sampled
+        token continues the output.  The worst-case reservation is the
+        same either way: eff_plen + remaining - 1 == plen + max_new - 1."""
+        p = getattr(req, "_replay_prompt", None)
+        return p if p is not None else req.prompt
+
+    def _retry_budget(self, req: Request) -> int:
+        return (int(req.max_retries) if req.max_retries is not None
+                else self.max_retries)
+
+    def _maybe_retry(self, req: Request) -> None:
+        """Called right after ``req`` was stamped terminal.  A FAILED (or,
+        with ``retry_timeouts``, TIMEOUT) request with budget left, while
+        the retry breaker allows, has its stamp withdrawn and waits out a
+        seeded exponential backoff, then re-enters the queue with its
+        progress replayed (``_eff_prompt``)."""
+        status = req.status
+        if status not in (RequestStatus.FAILED, RequestStatus.TIMEOUT):
+            return
+        if status is RequestStatus.TIMEOUT and not self.retry_timeouts:
+            return
+        if self._retry_budget(req) <= 0:
+            return
+        # every retryable failure is breaker evidence, budget left or not
+        self._retry_breaker.record_failure()
+        if req.retries >= self._retry_budget(req):
+            return
+        st = self.stats
+        if not self._retry_breaker.allow():
+            st["retries_denied_breaker"] += 1
+            return
+        st[_STATUS_COUNTERS[status]] -= 1   # the stamp is withdrawn
+        tokens = req.output.tolist() if req.output is not None else []
+        req.retry_errors.append(
+            f"attempt {req.attempts} [{status.value}]: {req.error}")
+        req.done = False
+        req.status = None
+        req.error = None
+        req.output = None
+        req.retries += 1
+        st["retries_total"] += 1
+        req._replay_tokens = tokens
+        req._replay_prompt = np.concatenate(
+            [np.asarray(req.prompt, np.int32), np.asarray(tokens, np.int32)])
+        delay = backoff_delay(self.retry_backoff_s, req.retries - 1,
+                              seed=self.seed * 1000003 + req.seed)
+        st["retry_backoff_s"] += delay
+        now = time.perf_counter()
+        req._deadline_t0 = now + delay   # the deadline is per attempt
+        self._retryq.append({"req": req, "not_before": now + delay})
+
+    def _pump_retries(self, queue) -> None:
+        """Requests whose backoff elapsed join the queue's tail."""
+        if not self._retryq:
+            return
+        now = time.perf_counter()
+        ready = [e for e in self._retryq if e["not_before"] <= now]
+        self._retryq = [e for e in self._retryq if e["not_before"] > now]
+        queue.extend(e["req"] for e in ready)
+
+    # -- degrade and re-promotion ------------------------------------------
+
+    def _degrade(self, slots) -> None:
+        """Fall back to host-driven scheduling: drain every block in flight
+        (the host mirror is then exact) and stop dispatching from the device
+        state.  The state tensors and the captured block stay: promotion
+        writes the mirror back into them."""
+        self.stats["sched_fallbacks"] += 1
+        self._drain_blocks(slots, depth=0)
+        self._degraded = True
+        self._dev_active = False
         self._sched_epoch += 1
-        self._lanes[i].free()
+        # trips the device breaker (threshold 1): promotion waits out the
+        # probe cooldown, then a half-open canary
+        self._dev_breaker.record_failure()
+
+    def _canary_probe(self) -> bool:
+        """A small op on the engine's stream, waited for, behind the same
+        seams as a block (the injector's dispatch hook, the watchdog) but
+        never the captured block, whose state a failing probe must not
+        touch.  True when the device answered in time."""
+        self.stats["canary_probes"] += 1
+        fi = self.fault_injector
+
+        def probe():
+            if fi is not None:
+                fi.on_dispatch(device=True)
+            x = torch.arange(8, dtype=torch.int32, device=self.device)
+            return int((x * 2 + 1).sum())   # waits for the device
+
+        wd = (Watchdog(self.block_deadline_s)
+              if self.block_deadline_s is not None else None)
+        try:
+            with wd or contextlib.nullcontext():
+                probe()
+            if wd is not None and wd.fired:
+                self.stats["watchdog_trips"] += 1
+                return False
+        except InjectedFault:
+            return False
+        return True
+
+    def _try_promote(self, slots) -> None:
+        """The device breaker's half-open trial: a canary, then promotion
+        on success or a re-opened breaker with a doubled cooldown."""
+        br = self._dev_breaker
+        if not br.allow():
+            return
+        if self._canary_probe():
+            br.record_success()
+            self._promote(slots)
+        else:
+            br.record_failure()
+
+    def _promote(self, slots) -> None:
+        """Hand scheduling back to the device mid-run: top live paged lanes
+        up to their whole reservation (device-resident decode never
+        allocates), write the host mirror into the state tensors in place
+        (the captured block reads them at their addresses), and restart the
+        steady-state sync gauge.  The device block table follows every host
+        row change in both modes, so it is exact already."""
+        st = self.stats
         if self.paged:
-            self._release_slot_pages(i)
+            for i, s in enumerate(slots):
+                if not s.active:
+                    continue
+                upto = min(s.cache_len + (s.request.max_new_tokens
+                                          - len(s.tokens)), self.max_seq)
+                try:
+                    self._grow_pages(i, upto)
+                except InjectedFault as e:
+                    self._fault_retire(
+                        slots, i, RequestStatus.FAILED,
+                        f"KV page allocation failed at re-promotion: {e}")
+        reqs = [s.request for s in slots]
+        host = {"last_token": ([s.last_token for s in slots], np.int64),
+                "cache_len": ([s.cache_len for s in slots], np.int32),
+                "emitted": ([len(s.tokens) for s in slots], np.int32),
+                "active": ([s.active for s in slots], bool),
+                "max_new": ([r.max_new_tokens if r else 0 for r in reqs],
+                            np.int32),
+                "temps": ([r.temperature if r else 0.0 for r in reqs],
+                          np.float32),
+                "seeds": ([r.seed if r else 0 for r in reqs], np.int64)}
+        for name, (values, dtype) in host.items():
+            self._state[name].copy_(self._upload(np.asarray(values, dtype)))
+        self._dev_active = True
+        self._degraded = False
+        self._sched_epoch += 1
+        st["repromotions"] += 1
+        st["steady_state_blocks"] = 0
+        self._steady_syncs = 0
+        self._last_dispatch_epoch = None
+        if self.audit_on_retire:
+            self.audit()
+
+    def _restore_device_residency(self) -> None:
+        """At a window boundary after a degraded window, with nothing live,
+        pending or in flight, a zeroed device state is exact: return to
+        device-resident scheduling without a canary.  The device breaker
+        keeps its cooldown."""
+        if not self.device_sched or self._dev_active:
+            return
+        if (self._pending or self._inflight
+                or any(s.active for s in self._lanes)):
+            return
+        if self._state is not None:
+            with self._on_stream():
+                for t in self._state.values():
+                    t.zero_()
+        self._dev_active = True
+        self._degraded = False
+        self._sched_epoch += 1
 
     # -- paged KV (host side) ----------------------------------------------
 
@@ -1024,7 +1736,10 @@ class ServingEngine:
     def _alloc_pages(self, n: int) -> List[int]:
         """Pool allocation; when the free list is short, least recently
         used cached prefixes are evicted first (the admission gate makes
-        this always succeed)."""
+        this always succeed).  The injector's allocation seam fires before
+        anything changes, so a fault rolls back from a consistent pool."""
+        if self.fault_injector is not None:
+            self.fault_injector.on_alloc()
         if self._prefix is not None:
             while self._pool.free_pages < n and self._evict_one_prefix():
                 pass
@@ -1059,10 +1774,14 @@ class ServingEngine:
         return sum(1 for p in self._page_slot_refs if p not in self._backed)
 
     def _release_slot_pages(self, i: int) -> None:
-        """Drop slot i's page references (shared pages live on while the
-        index or other slots read them), return its reservation and zero its
-        table row, so a later write of the dead lane lands in the null
-        page."""
+        """Every retirement's bookkeeping: a scheduler event; paged, drop
+        slot i's page references (shared pages live on while the index or
+        other slots read them), return its reservation and zero its table
+        row, so a later write of the dead lane lands in the null page."""
+        self._sched_epoch += 1
+        self._slot_reg_nodes[i] = []   # registrations outlive the slot
+        if not self.paged:
+            return
         pages, self._slot_pages[i] = self._slot_pages[i], []
         shared_n, self._slot_shared_n[i] = self._slot_shared_n[i], 0
         self._reserved_total -= self._slot_reserved[i]
@@ -1088,17 +1807,82 @@ class ServingEngine:
         self.stats["kv_live_tokens_peak"] = max(
             self.stats["kv_live_tokens_peak"], live)
 
+    def audit(self) -> dict:
+        """Check the page pool, prefix trie and block tables and return a
+        summary; raise ``AuditError`` at the first violation.  Every page
+        is free or referenced, never both (no leak, no double free), the
+        null page never enters the allocator or a slot, each slot's table
+        row mirrors its page list, and the pool's refcounts equal the slot
+        plus trie references recounted from scratch.  Host state only."""
+        if not self.paged:
+            return {"ok": True, "paged": False}
+        pool = self._pool
+
+        def fail(msg):
+            raise AuditError(f"serving audit failed: {msg}")
+
+        free, live = pool._free, pool._refs
+        if len(set(free)) != len(free):
+            fail("duplicate entries in the free list (double free)")
+        if 0 in live or 0 in free:
+            fail("null page entered the allocator")
+        if set(free) & set(live):
+            fail("page both free and referenced")
+        if set(free) | set(live) != set(range(1, pool.num_pages)):
+            fail("pages leaked: neither free nor referenced")
+        if any(c < 1 for c in live.values()):
+            fail("nonpositive refcount on a live page")
+        expected: dict = {}
+        for i, pages in enumerate(self._slot_pages):
+            row = self._bt[i]
+            for j, p in enumerate(pages):
+                if p == 0:
+                    fail(f"slot {i} owns the null page")
+                if int(row[j]) != p:
+                    fail(f"block-table row {i} diverged from the slot's "
+                         f"page list at column {j}")
+                expected[p] = expected.get(p, 0) + 1
+            if any(int(x) != 0 for x in row[len(pages):]):
+                fail(f"block-table row {i} has live entries past the "
+                     "slot's page list")
+        if expected != self._page_slot_refs:
+            fail("slot page-reference map diverged from the block tables")
+        n_index = 0
+        if self._prefix is not None:
+            stack = [self._prefix.root]
+            while stack:
+                node = stack.pop()
+                stack.extend(node.children.values())
+                if node.page is not None:
+                    n_index += 1
+                    if node.page == 0:
+                        fail("null page registered in the prefix index")
+                    expected[node.page] = expected.get(node.page, 0) + 1
+            if n_index != self._prefix.n_pages:
+                fail("prefix-index page count diverged from its nodes")
+        if expected != live:
+            fail("pool refcounts diverged from the block-table + "
+                 "prefix-index oracle")
+        if sum(self._slot_reserved) != self._reserved_total:
+            fail("reservation sum diverged from per-slot reservations")
+        if not self._backed <= set(live):
+            fail("reservation-backed page is not referenced")
+        return {"ok": True, "paged": True, "used_pages": pool.used_pages,
+                "free_pages": pool.free_pages,
+                "shared_pages": pool.shared_pages, "index_pages": n_index}
+
     # -- prefix sharing (host side) ----------------------------------------
 
     def _prefix_lookup(self, prompt) -> dict:
-        """The longest cached prefix of ``prompt`` at the engine's sharing
-        granularity.  The share base is a ``prefill_chunk`` multiple (the
-        sharer's chunk schedule is the plain engine's, so its tokens are
-        too), at most ``max_seq - prefill_chunk`` (a shifted final chunk
-        never rewrites a shared position) and at most ``plen - 1`` (the
-        last prompt token runs through prefill for its logits).  Returns
-        the full pages to alias and, for a base inside a page, the page to
-        copy."""
+        """The longest cached prefix of ``prompt`` (the effective prompt:
+        a retry's replay may find the pages its failed attempt registered)
+        at the engine's sharing granularity.  The share base is a
+        ``prefill_chunk`` multiple (the sharer's chunk schedule is the plain
+        engine's, so its tokens are too), at most ``max_seq -
+        prefill_chunk`` (a shifted final chunk never rewrites a shared
+        position) and at most ``plen - 1`` (the last prompt token runs
+        through prefill for its logits).  Returns the full pages to alias
+        and, for a base inside a page, the page to copy."""
         chain, boundary, blcp = self._prefix.lookup(prompt)
         ps, c = self.page_size, self.prefill_chunk
         base = min(len(chain) * ps + blcp, len(prompt) - 1, self.max_seq - c)
@@ -1119,7 +1903,7 @@ class ServingEngine:
         prefix twice.  Donors finish in finitely many waves."""
         if self._prefix is None or not pending:
             return False
-        prompt = np.asarray(req.prompt)
+        prompt = np.asarray(self._eff_prompt(req))
         ps, c = self.page_size, self.prefill_chunk
         for adm in pending.values():
             donor = adm["prompt"]
@@ -1154,10 +1938,12 @@ class ServingEngine:
             # source could be evicted and handed straight back as dst
             src = grant["cow_src"]
             self._pool.incref(src)
-            (dst,) = self._alloc_pages(1)
-            self._own_page(i, dst, len(grant["pages"]))
-            transformer.copy_paged_page(self._cache, src, dst)
-            self._pool.decref(src)
+            try:
+                (dst,) = self._alloc_pages(1)
+                self._own_page(i, dst, len(grant["pages"]))
+                transformer.copy_paged_page(self._cache, src, dst)
+            finally:
+                self._pool.decref(src)
             st["kv_cow_splits"] += 1
         self._push_bt_row(i)
         st["prefix_hits"] += 1
@@ -1168,13 +1954,31 @@ class ServingEngine:
 
     def _register_prefix(self, i: int, prompt, plen: int) -> None:
         """Index slot i's fully written prompt pages; each new node takes a
-        pool reference, so the cached prefix outlives the slot."""
+        pool reference, so the cached prefix outlives the slot.  The new
+        nodes are remembered, so a fault of this occupant can withdraw
+        exactly them."""
         m = plen // self.page_size
         if not m:
             return
         new = self._prefix.insert(prompt, self._slot_pages[i][:m])
         for node in new:
             self._pool.incref(node.page)
+        self._slot_reg_nodes[i] = new
+
+    def _unregister_prefix(self, i: int) -> None:
+        """Withdraw the trie nodes slot i's occupant registered, deepest
+        first.  A node another prompt has since extended stays (its page
+        was fully written before the fault); every leaf this slot added
+        drops its index reference."""
+        if self._prefix is None:
+            return
+        nodes, self._slot_reg_nodes[i] = self._slot_reg_nodes[i], []
+        for node in reversed(nodes):
+            if node.children or node.parent.children.get(node.key) is not node:
+                continue   # extended, or already evicted
+            del node.parent.children[node.key]
+            self._prefix.n_pages -= 1
+            self._pool.decref(node.page)
 
     def _evict_one_prefix(self) -> bool:
         page = self._prefix.evict_coldest(
@@ -1188,11 +1992,29 @@ class ServingEngine:
     # -- stats -------------------------------------------------------------
 
     def _finalize_window(self) -> None:
+        """Close the window over the requests submitted since
+        ``reset_stats()``: wall clock, throughput, TTFT, the status counters
+        recounted from the requests (a retried request counts once, under
+        its final status), pool gauges; then fold the window into
+        ``lifetime`` once (finalizing again replaces its contribution)."""
         reqs = self._window_requests
         st = self.stats
         wall = time.perf_counter() - self._window_t0
         total = sum(len(r.output) for r in reqs if r.output is not None)
         ttfts = [r.ttft_s for r in reqs if r.ttft_s is not None]
+        counts = {s: 0 for s in RequestStatus}
+        for r in reqs:
+            if r.status is not None:
+                counts[r.status] += 1
+        for status, key in _STATUS_COUNTERS.items():
+            st[key] = counts[status]
+        st["requests_retried"] = sum(1 for r in reqs if r.retries)
+        st["retries_total"] = sum(r.retries for r in reqs)
+        st["breaker_state"] = self._dev_breaker.state
+        st["retry_breaker_state"] = self._retry_breaker.state
+        fi = self.fault_injector
+        if fi is not None:
+            st["faults_injected"] = max(0, len(fi.events) - self._fi_events0)
         st.update({
             "wall_s": wall,
             "total_new_tokens": total,
@@ -1222,3 +2044,12 @@ class ServingEngine:
                 "prefix_hit_rate": (st["prefix_hits"] / st["admissions"]
                                     if st["admissions"] else 0.0),
             })
+        contrib = {"windows": 1, "total_new_tokens": total}
+        for key in (*_STATUS_COUNTERS.values(), "faults_injected",
+                    "admissions", "decode_blocks", "decode_tokens",
+                    "requests_retried", "retries_total", "graph_captures"):
+            contrib[key] = st[key]
+        prev = self._window_contrib or {}
+        for k, v in contrib.items():
+            self.lifetime[k] += v - prev.get(k, 0)
+        self._window_contrib = contrib

@@ -10,7 +10,10 @@ What the recorded function may touch is fixed: it reads and writes tensors
 that live as long as the engine (the scheduler state, the KV cache, the
 device block table, the pre-decoded weights), in place, and returns its
 outputs, which the graph's memory pool keeps at fixed addresses — each
-replay overwrites them.  Nothing in it reads a host value.
+replay overwrites them.  Nothing in it reads a host value.  The engine
+keeps those tensors for its whole life: a degrade to host-driven blocks
+stops the replays, a promotion writes the host mirror into the same tensors
+and replays the same graph again; only rebuilding the cache drops the graph.
 
 A capture records launches and runs none, so what the kernel wrappers'
 launch counters count during it is taken back

@@ -15,7 +15,10 @@ on the same rows they are compared with ``torch.equal``.
 
 The serving engine's device-resident decode block runs as a captured CUDA
 graph on the card; its tokens are compared with the host-driven engine's
-for equality (the same kernels on the same rows, replayed).
+for equality (the same kernels on the same rows, replayed), and under
+injected faults (a NaN lane, a dispatch outage that degrades and promotes
+the engine, a retry) the surviving and retried requests with the
+fault-free tokens.
 """
 
 import numpy as np
@@ -43,7 +46,8 @@ from repro_torch.kernels.tlmm_lut import ops as lut_ops
 from repro_torch.kernels.tlmm_lut import ref as lut_ref
 from repro_torch.models import transformer
 from repro_torch.models.layers import Ctx
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import (FaultInjector, Request, RequestStatus,
+                                 ServingEngine)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 PAGE_SIZES = (4, 5, 16)
@@ -985,3 +989,124 @@ def test_captured_engine_prefix_sharing_equals_plain_paged(cuda):
     st = eng.stats
     assert st["prefix_hits"] > 0 and st["kv_cow_splits"] > 0
     assert st["kv_pages_in_use"] == st["kv_prefix_cached_pages"]
+
+
+# ---------------------------------------------------------------------------
+# The captured decode block under injected faults
+# ---------------------------------------------------------------------------
+
+class _Readbacks(FaultInjector):
+    """Counts the blocks read back: each launched its decode kernels, and a
+    block whose dispatch failed after its retries is never read back."""
+    n = 0
+
+    def on_readback(self, blk, mask, bad_token):
+        self.n += 1
+        return super().on_readback(blk, mask, bad_token)
+
+
+def _captured_ptrs(eng):
+    """The addresses the captured graph reads and writes: the scheduler
+    state, the NaN-lane buffer, the cache, the block table, the outputs."""
+    tensors = [*eng._state.values(), eng._nan_dev, *eng._cache.values(),
+               *eng._graph.outputs]
+    if eng.paged:
+        tensors.append(eng._bt_dev)
+    return [t.data_ptr() for t in tensors]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["contiguous", "paged"])
+def test_captured_engine_isolates_a_nan_lane(cuda, mode):
+    """A NaN lane in a replayed block (block 4; block 0 was captured): the
+    block's non-finite latch fails that request alone, every other request
+    emits the fault-free tokens, and the pool rolls back."""
+    cfg, packed = _served_on_card(cuda)
+    extra, _ = ENGINE_MODES[mode]
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda", **extra)
+    base = ServingEngine(cfg, packed, **kw).run(_card_requests(cfg, 0.0))
+    eng = ServingEngine(cfg, packed, audit_on_retire=True,
+                        fault_injector=FaultInjector().inject_nan(lane=1,
+                                                                  block=4),
+                        **kw)
+    reqs = eng.run(_card_requests(cfg, 0.0))
+    assert eng._graph is not None and eng.stats["graph_captures"] == 1
+    assert eng.stats["integrity_faults"] == 1
+    failed = [r for r in reqs if r.status is RequestStatus.FAILED]
+    assert len(failed) == 1 and "non-finite" in failed[0].error
+    for r, b in zip(reqs, base):
+        if r.status is RequestStatus.OK:
+            assert r.output.tolist() == b.output.tolist()
+        else:
+            assert r.output.tolist() == b.output.tolist()[:len(r.output)]
+    assert eng.audit()["ok"]
+    if eng.paged:
+        assert eng.stats["kv_pages_in_use"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["contiguous", "paged"])
+def test_captured_engine_degrades_and_promotes_in_place(cuda, mode):
+    """A dispatch outage past the retries degrades a captured engine to
+    host-driven blocks (a request finishing there is DEGRADED); the canary
+    passes and the same graph replays again on the same tensors: the
+    host-driven engine's tokens (sampled), one
+    capture in the engine's life, every captured address unchanged, and
+    the decode launches counted for every block, eager or replayed."""
+    cfg, packed = _served_on_card(cuda)
+    extra, decode_kernel = ENGINE_MODES[mode]
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda", **extra)
+    host = _card_requests(cfg, 0.8)
+    ServingEngine(cfg, packed, device_sched=False, **kw).run(host)
+    fi = _Readbacks()
+    eng = ServingEngine(cfg, packed, fault_injector=fi, dispatch_retries=2,
+                        **kw)
+    fi.armed = False
+    eng.run(_card_requests(cfg, 0.8)[:2])   # captures the block
+    fi.armed, fi.n = True, 0
+    fi.dispatch_outage(2, 3)
+    ptrs = _captured_ptrs(eng)
+    reset_launch_counts()
+    reqs = eng.run(_card_requests(cfg, 0.8))
+    torch.cuda.synchronize()
+    st = eng.stats
+    assert st["sched_fallbacks"] == 1 and st["repromotions"] == 1
+    assert st["degraded_blocks"] >= 1
+    assert eng.lifetime["graph_captures"] == 1
+    assert st["graph_captures"] == 0
+    assert _captured_ptrs(eng) == ptrs
+    assert all(r.status in (RequestStatus.OK, RequestStatus.DEGRADED)
+               for r in reqs)
+    for h, d in zip(host, reqs):
+        assert d.output.tolist() == h.output.tolist()
+    # the block whose dispatch failed is counted, never read back, and
+    # launched nothing
+    assert fi.n < st["decode_blocks"]
+    assert launch_counts()[decode_kernel] == (
+        fi.n * eng.decode_block * cfg.n_layers)
+    assert st["steady_state_syncs_per_block"] == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_engine_retry_replays_the_fault_free_tokens(cuda,
+                                                             temperature):
+    """A NaN lane in a replayed block retries: the replay prefills the
+    prompt plus the tokens so far and continues with the fault-free
+    tokens, greedy and sampled."""
+    cfg, packed = _served_on_card(cuda)
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda")
+    base = ServingEngine(cfg, packed, **kw).run(
+        _card_requests(cfg, temperature))
+    eng = ServingEngine(cfg, packed, max_retries=1, retry_backoff_s=0.0,
+                        fault_injector=FaultInjector().inject_nan(lane=1,
+                                                                  block=4),
+                        **kw)
+    reqs = eng.run(_card_requests(cfg, temperature))
+    assert eng.stats["retries_total"] == 1
+    assert all(r.status is RequestStatus.OK for r in reqs)
+    for r, b in zip(reqs, base):
+        assert r.output.tolist() == b.output.tolist()

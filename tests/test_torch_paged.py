@@ -46,7 +46,7 @@ from repro_torch.convert import from_jax_packed
 from repro_torch.kernels.decode_attention.ref import gather_pages_ref
 from repro_torch.models import attention, transformer
 from repro_torch.models.layers import Ctx
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, RequestStatus, ServingEngine
 from repro_torch.serving.engine import _PagePool, reference_decode
 
 LOGIT_TOL = 2e-3   # as tests/test_torch_model.py: framework ULPs through int8
@@ -348,8 +348,9 @@ def test_paged_engine_refuses_what_cannot_run(served):
     _, _, _, cfg, ours = served
     eng = ServingEngine(cfg, ours, max_seq=32, batch_slots=1, paged=True,
                         page_size=4, kv_pages=3, device="cpu")
-    with pytest.raises(ValueError, match="KV pages"):
-        eng.submit(Request(prompt=np.arange(1, 12), max_new_tokens=4))
+    big = eng.submit(Request(prompt=np.arange(1, 12), max_new_tokens=4))
+    assert big.done and big.status is RequestStatus.REJECTED
+    assert "KV pages" in big.error and len(big.output) == 0
     with pytest.raises(ValueError, match="null page"):
         ServingEngine(cfg, ours, max_seq=32, paged=True, kv_pages=1,
                       device="cpu")

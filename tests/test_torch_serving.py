@@ -24,7 +24,7 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_packed
 from repro_torch.models.layers import Ctx
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, RequestStatus, ServingEngine
 from repro_torch.serving.engine import reference_decode, sample
 
 NEAR_TIE = 1e-2
@@ -150,6 +150,7 @@ def test_engine_runs_on_the_card_by_default(served):
     expected = RuntimeError if not torch.cuda.is_available() else ValueError
     with pytest.raises(expected):
         ServingEngine(cfg, ours, max_seq=16)    # device="cuda" by default
-    with pytest.raises(ValueError, match="prompt length"):
-        ServingEngine(cfg, ours, max_seq=4, device="cpu").submit(
-            Request(prompt=np.arange(5)))
+    long = ServingEngine(cfg, ours, max_seq=4, device="cpu").submit(
+        Request(prompt=np.arange(5)))
+    assert long.status is RequestStatus.REJECTED
+    assert "prompt length" in long.error
