@@ -25,7 +25,14 @@ degrades the engine to host-driven blocks until a canary promotes it back to
 replays of the same graph, profiled; on the templated mix with sharing a
 failed page allocation and a retried NaN lane, audited after every
 retirement): every surviving or retried request emits the fault-free
-tokens.  Around each engine path it counts the
+tokens.  Phase 4f serves the requests on device-resident engines with
+split-K decode attention (``kv_splits=4``, contiguous and paged: no decode
+kernel launches, tokens held to phase 4's), times plain split-K beside the
+decode kernel, serves a (1, 1) ``DeviceMesh`` engine in an NCCL world of
+one (its captured block holding its gather collective; phase 4's tokens),
+and runs the oracle's prompt under the Fig. 6b attention baselines
+(``Ctx(attn="skip")``, ``"naive"``) against the flash kernel.  Around each
+engine path it counts the
 kernel launches, a graph replay adding the launches it holds, and checks
 that every kernel of that path launched.  It
 then holds the model to its packed-weight oracle (``prefill_step`` +
@@ -271,7 +278,7 @@ def main() -> int:
     from repro_torch.kernels.tlmm import ref as tlmm_ref
     from repro_torch.kernels.tlmm_lut import ops as lut_ops
     from repro_torch.kernels.tlmm_lut import ref as lut_ref
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
     from repro_torch.models.layers import Ctx
     from repro_torch.serving import (FaultInjector, Request, RequestStatus,
                                      ServingEngine)
@@ -1385,6 +1392,190 @@ def main() -> int:
         if robust_counts[name] <= 0:
             raise AssertionError(f"robustness phase did not launch {name}")
 
+    log(f"-- phase 4f at {time.perf_counter() - t_main:.1f} s")
+    t_4f = time.perf_counter()
+    # -- 4f. split-K decode and the mesh engine: the device-resident engines
+    # with kv_splits=4 (every decode read split-K, plain PyTorch inside the
+    # captured block, as the JAX engine's kv_splits overrides its Pallas
+    # decode kernels), contiguous bf16 and paged bf16 on 25 pages, held to
+    # phase 4's tokens (a differing token to the oracle's gap rule of phase
+    # 5); then a (1, 1) DeviceMesh engine in an NCCL world of one, whose
+    # captured block holds its gather collective; then the Fig. 6b prompt
+    # attention baselines of the oracle against its kernel.
+    ctx = Ctx()
+    splitk_counts = dict.fromkeys(eng_counts, 0)
+    splitk_gaps = []
+
+    def splitk_engine(label, **kw):
+        eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                            prefill_chunk=32, decode_block=8, kv_splits=4,
+                            **kw)
+        eng.run(requests()[:2])          # warm-up: eager block, capture
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rs = eng.run(requests())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            splitk_counts[k] += v
+        engine_line(f"engine, {label}, split-K 4", eng.stats)
+        log(f"  launches ({label}, split-K): {counts}")
+        if not (eng.ctx.kv_splits == 4 and eng._graph is not None
+                and eng.lifetime["graph_captures"] == 1
+                and eng.stats["steady_state_syncs_per_block"] == 0.0):
+            raise AssertionError(f"{label} split-K: ctx {eng.ctx}, graph "
+                                 f"{eng._graph}, lifetime {eng.lifetime}, "
+                                 f"stats {eng.stats}")
+        diff = 0
+        for r, want in zip(rs, reqs):
+            got = r.output.tolist()
+            n = sum(a != b_ for a, b_ in zip(got, want.output.tolist()))
+            if n or len(got) != len(want.output):
+                diff += max(n, 1)
+                _, g_r = reference_decode(cfg, packed, ctx, r.prompt,
+                                          len(got), max_seq, torch.bfloat16,
+                                          follow=r.output)
+                splitk_gaps.append(max(g_r))
+                if max(g_r) > TOKEN_GAP:
+                    raise AssertionError(
+                        f"{label} split-K tokens {got} off the oracle's "
+                        f"choice by {max(g_r)} (phase 4: "
+                        f"{want.output.tolist()})")
+        log(f"  {label}, split-K 4: {diff} tokens differ from phase 4's "
+            f"kv_splits=0 tokens (oracle gaps of the requests that differ: "
+            f"{[round(g, 5) for g in splitk_gaps]}, limit {TOKEN_GAP})")
+        return eng, counts
+
+    eng, c_sk = splitk_engine("contiguous bf16")
+    # a profiled window: every block after the capture one replay, no
+    # kernel launch call inside it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(requests()[:4])
+        torch.cuda.synchronize()
+    replays = inside = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == REPLAY:
+            replays += 1
+        elif is_launch(e.name):
+            p = e.cpu_parent
+            while p is not None and p.name != REPLAY:
+                p = p.cpu_parent
+            inside += p is not None
+    log(f"  profile, contiguous bf16 split-K: replayed blocks {replays}, "
+        f"launch calls inside them {inside}, graph captures in the engine's "
+        f"life {eng.lifetime['graph_captures']}")
+    if inside or not replays or eng.lifetime["graph_captures"] != 1:
+        raise AssertionError(f"split-K profile: {replays} replays, {inside} "
+                             f"launch calls inside, "
+                             f"{eng.lifetime['graph_captures']} captures")
+    del eng
+    eng, p_sk = splitk_engine("paged bf16, 25 pages", paged=True,
+                              page_size=16, kv_pages=26)
+    del eng
+    torch.cuda.empty_cache()
+    for label, counts, chunk in (("contiguous", c_sk, "flash_chunk_prefill"),
+                                 ("paged", p_sk,
+                                  "flash_chunk_prefill_paged")):
+        if any(counts[k] for k in DECODE_COUNTERS) or counts[chunk] <= 0:
+            raise AssertionError(f"split-K {label} engine: decode kernels "
+                                 f"launched or {chunk} did not: {counts}")
+
+    # plain split-K at phase 3's decode shape beside the decode kernel
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    q4 = torch.randn(4, 1, 24, 64, generator=gen4, device=dev).transpose(1, 2)
+    k4, v4 = (torch.randn(4, 256, 24, 64, generator=gen4, device=dev
+                          ).to(torch.bfloat16).transpose(1, 2)
+              for _ in range(2))
+    cl4 = torch.tensor([1, 77, 200, 256], dtype=torch.int32, device=dev)
+    want4 = da_ref.decode_attention_ref(q4, k4, v4, cl4)
+    err4 = (da_ops.decode_attention_splitk(q4, k4, v4, cl4, num_splits=4)
+            - want4).abs().max().item()
+    if not err4 <= ATTN_ATOL:
+        raise AssertionError(f"split-K: max_abs_err {err4} > {ATTN_ATOL}")
+    sk_ms = device_ms(lambda: da_ops.decode_attention_splitk(
+        q4, k4, v4, cl4, num_splits=4), iters=3)
+    b8_ms = device_ms(lambda: da_ops.decode_attention(q4, k4, v4, cl4))
+    log(f"  split-K decode (plain PyTorch, K = 4) q (4, 24, 1, 64) vs bf16 "
+        f"(4, 24, 256, 64), cache_len {cl4.tolist()}: device_ms "
+        f"{sk_ms:.4f}, max_abs_err {err4:.3g}; decode_attention (B8) on the "
+        f"same: device_ms {b8_ms:.4f}")
+
+    # the (1, 1) mesh engine in an NCCL world of one
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                            prefill_chunk=32, decode_block=8, mesh=mesh)
+        eng.run(requests()[:2])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mreqs = eng.run(requests())
+        torch.cuda.synchronize()
+        for k, v in kernels.launch_counts().items():
+            splitk_counts[k] += v
+        engine_line("engine, contiguous bf16, mesh (1, 1)", eng.stats)
+        if [r.output.tolist() for r in mreqs] != [r.output.tolist()
+                                                   for r in reqs]:
+            raise AssertionError("mesh (1, 1) tokens differ from the "
+                                 "single-device engine's")
+        if not (eng._graph is not None and eng.mesh_shape == (1, 1)
+                and eng.stats["steady_state_syncs_per_block"] == 0.0):
+            raise AssertionError(f"mesh (1, 1): {eng.stats}")
+        log(f"  mesh (1, 1), NCCL world of one: tokens == single-device "
+            f"engine's; graph launches a replay {eng._graph.launches}")
+        del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the Fig. 6b baselines: the live-tile and the every-tile scans (plain
+    # PyTorch) against the flash prefill kernel, first as attention at
+    # phase 3's prompt shape, then as the oracle's prompt attention.  The
+    # logits are held like phase 5's other softmax orders: a ULP of
+    # attention can move an int8 activation code by one in 24 layers
+    # (section 2 of PERF.md), so 2e-3 is counted, 0.15 the limit.
+    qa, ka, va = (torch.randn(1, 24, 128, 64, generator=gen4, device=dev)
+                  for _ in range(3))
+    flash = fp_ops.flash_prefill(qa, ka, va)
+    attn_err = {}
+    for attn, fn in (("skip", attention.attention_skip),
+                     ("naive", attention.attention_naive)):
+        attn_err[attn] = (fn(qa, ka, va, q_chunk=32, kv_chunk=32)
+                          - flash).abs().max().item()
+    log(f"  attention q (1, 24, 128, 64), 32-token tiles, against the flash "
+        f"kernel: max_abs_err {attn_err} (tolerance {ATTN_ATOL})")
+    if max(attn_err.values()) > ATTN_ATOL:
+        raise AssertionError(f"attention baselines: {attn_err}")
+    diffs = {"skip": [], "naive": []}
+    for r in reqs:
+        prompt = torch.as_tensor(r.prompt, device=dev)[None]
+        outs = {a: transformer.prefill_step(
+            cfg, packed, prompt, Ctx(attn=a, attn_q_chunk=32,
+                                     attn_kv_chunk=32),
+            transformer.init_cache(cfg, 1, max_seq, torch.float32, dev))[0]
+            for a in ("kernel", "skip", "naive")}
+        if not all(torch.isfinite(o).all() for o in outs.values()):
+            raise AssertionError("Ctx.attn logits not finite")
+        for a in diffs:
+            diffs[a].append((outs[a] - outs["kernel"]).abs().max().item())
+    log(f"  prefill_step, Ctx(attn=...) against attn='kernel' at f32, 32-"
+        f"token tiles, per prompt: max |diff| "
+        f"{ {a: [round(x, 6) for x in d] for a, d in diffs.items()} }; "
+        f"within {LOGIT_TOL_EXACT}: "
+        f"{ {a: sum(x <= LOGIT_TOL_EXACT for x in d) for a, d in diffs.items()} }"
+        f" of {len(reqs)} (limit {LOGIT_TOL_PERTURBED})")
+    if max(max(d) for d in diffs.values()) > LOGIT_TOL_PERTURBED:
+        raise AssertionError(f"attention baselines' logits: {diffs}")
+    log(f"split-K and mesh phase: {time.perf_counter() - t_4f:.1f} s")
+
     log(f"-- phase 5 at {time.perf_counter() - t_main:.1f} s")
     # -- 5. the model against its packed-weight oracle ------------------------
     ctx = Ctx()
@@ -1569,7 +1760,8 @@ def main() -> int:
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c[row["name"]] for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
-            robust_counts, ora_counts, ffn_counts, lut_counts, bf16_counts))
+            robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
+            bf16_counts))
 
     log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,14 @@
-"""KV cache writes, contiguous and paged, and the int8 paged chunk read.
+"""KV cache writes, contiguous and paged, the int8 paged chunk read, the
+paper's Fig. 6b attention baselines and the split-K decode reads.
 
-Counterpart of the cache half of ``repro/models/attention.py``:
+Counterpart of ``repro/models/attention.py``:
+
+* ``attention_skip`` / ``attention_naive`` — whole-prompt attention in plain
+  PyTorch on (q-chunk, kv-chunk) tiles (``Ctx.attn="skip"``/``"naive"``):
+  only the causally live tiles, or every tile with the mask applied
+  afterwards (2x the useful FLOPs), each an online softmax over its tiles;
+* ``splitk_decode_attention`` and its paged and paged-int8 variants — the
+  decode reads of ``Ctx.kv_splits`` (gather the pages, then split-K);
 
 * contiguous writes — ``update_cache_slice`` / ``update_kv_cache`` and the
   admission wave's masked ``write_rows``, in place;
@@ -22,9 +30,118 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.ref import (gather_pages_ref,
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import (dequant_bf16,
+                                                      gather_pages_ref,
                                                       gather_scale_pages_ref)
 from repro_torch.kernels.flash_prefill import ops as fp_ops
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt attention: the Fig. 6b baselines
+# ---------------------------------------------------------------------------
+
+def live_tile_pairs(n_q: int, n_kv: int, q_chunk: int, kv_chunk: int,
+                    causal: bool, window) -> list:
+    """The (q-chunk, kv-chunk) tiles holding any unmasked position, in
+    order — the RPA "a mask never generates work" set."""
+    pairs = []
+    for i in range(n_q):
+        q_lo, q_hi = i * q_chunk, (i + 1) * q_chunk - 1
+        for j in range(n_kv):
+            k_lo, k_hi = j * kv_chunk, (j + 1) * kv_chunk - 1
+            if causal and k_lo > q_hi:
+                continue
+            if window is not None and k_hi < q_lo - window + 1:
+                continue
+            pairs.append((i, j))
+    return pairs
+
+
+def _tiles(s: int, q_chunk: int, kv_chunk: int):
+    """(q_chunk, kv_chunk, n_q, n_kv) for a length-s prompt; a size that
+    does not divide s falls back to one chunk, as in JAX."""
+    q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, s)
+    if s % q_chunk:
+        q_chunk = s
+    if s % kv_chunk:
+        kv_chunk = s
+    return q_chunk, kv_chunk, s // q_chunk, s // kv_chunk
+
+
+def _tile_step(carry, qg_blk, k_blk, v_blk, q_start, k_start, scale, causal,
+               window):
+    """One online-softmax step of a q tile against a kv tile: (acc, m, l)
+    -> updated.  q tile (b, kv_h, g, qc, d); K/V tiles (b, kv_h, kc, d)."""
+    acc, m, l = carry
+    qc, kc = qg_blk.shape[3], k_blk.shape[2]
+    dev = qg_blk.device
+    q_ids = q_start + torch.arange(qc, device=dev)[:, None]
+    k_ids = k_start + torch.arange(kc, device=dev)[None, :]
+    mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (k_ids <= q_ids)
+    if window is not None:
+        mask = mask & (k_ids > q_ids - window)
+    sc = torch.matmul(qg_blk, k_blk[:, :, None].transpose(-1, -2)) * scale
+    sc = torch.where(mask, sc, NEG_INF)
+    m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, torch.exp(sc - m_new), 0.0)
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(p, v_blk[:, :, None])
+    return acc, m_new, l
+
+
+def _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window):
+    """Online softmax of every q tile over its kv tiles in ``pairs``
+    order: (b, h, s, d) out in q's dtype."""
+    b, h, s, d = q.shape
+    qg = q.to(torch.float32).reshape(b, k.shape[1], h // k.shape[1], s, d)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    scale = 1.0 / float(d) ** 0.5
+    shape = qg.shape[:3] + (q_chunk,)
+    carries = {}
+    for i, j in pairs:
+        c = carries.get(i)
+        if c is None:
+            c = (qg.new_zeros(shape + (d,)),
+                 qg.new_full(shape + (1,), NEG_INF),
+                 qg.new_zeros(shape + (1,)))
+        qs, ks = i * q_chunk, j * kv_chunk
+        carries[i] = _tile_step(c, qg[:, :, :, qs:qs + q_chunk],
+                                kf[:, :, ks:ks + kv_chunk],
+                                vf[:, :, ks:ks + kv_chunk], qs, ks, scale,
+                                causal, window)
+    out = qg.new_zeros(qg.shape)
+    for i, (acc, _, l) in carries.items():
+        out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = acc / l.clamp_min(1e-30)
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def attention_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window=None, q_chunk: int = 512,
+                   kv_chunk: int = 512) -> torch.Tensor:
+    """Causal-skip attention: one online softmax over only the live tiles
+    (``live_tile_pairs``).  q: (b, h, s, d); k, v: (b, kv_h, s, d) ->
+    (b, h, s, d); GQA grouped.  The forward of JAX's
+    ``attention_xla_skip`` (its custom VJP waits for training)."""
+    q_chunk, kv_chunk, n_q, n_kv = _tiles(q.shape[2], q_chunk, kv_chunk)
+    pairs = live_tile_pairs(n_q, n_kv, q_chunk, kv_chunk, causal, window)
+    return _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window)
+
+
+def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, q_chunk: int = 512,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """The Fig. 6b baseline: every (q, kv) tile computed, the mask applied
+    afterwards (2x the useful FLOPs of the skip schedule).  Counterpart of
+    JAX's ``attention_xla_naive``."""
+    q_chunk, kv_chunk, n_q, n_kv = _tiles(q.shape[2], q_chunk, kv_chunk)
+    pairs = [(i, j) for i in range(n_q) for j in range(n_kv)]
+    return _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -166,3 +283,36 @@ def paged_chunk_prefill_attention_quant(q, k_pool, v_pool, k_scale_pool,
     v = gather_kv_pages_dequant(v_pool, v_scale_pool, block_table, q.dtype)
     return fp_ops.flash_chunk_prefill(q, k, v, k_fresh, v_fresh, offset,
                                       window=window)
+
+
+# ---------------------------------------------------------------------------
+# Split-K decode reads (Ctx.kv_splits)
+# ---------------------------------------------------------------------------
+
+def splitk_decode_attention(q, k, v, cache_len, *, ctx, window=None):
+    """Single-token attention by split-K (``Ctx.kv_splits`` chunks; over
+    ``Ctx.kv_group`` when set).  q: (b, h, 1, d); k, v: (b, kv_h, S, d)."""
+    return da_ops.splitk_decode(q, k, v, cache_len, kv_splits=ctx.kv_splits,
+                                window=window, group=ctx.kv_group,
+                                group_size=ctx.kv_group_size)
+
+
+def paged_splitk_decode_attention(q, k_pool, v_pool, block_table, cache_len,
+                                  *, ctx, window=None):
+    """The paged read: gather the slots' pages into rows in q's dtype, then
+    split-K (JAX's ``paged_decode_attention`` with ``kv_splits``)."""
+    k = gather_pages_ref(k_pool, block_table).to(q.dtype)
+    v = gather_pages_ref(v_pool, block_table).to(q.dtype)
+    return splitk_decode_attention(q, k, v, cache_len, ctx=ctx, window=window)
+
+
+def paged_splitk_decode_attention_quant(q, k_pool, v_pool, k_scale_pool,
+                                        v_scale_pool, block_table, cache_len,
+                                        *, ctx, window=None):
+    """The paged int8 read: gather the pages and their scales, dequantize
+    through bf16 (the contiguous int8 decode read), then split-K."""
+    k = dequant_bf16(gather_pages_ref(k_pool, block_table),
+                     gather_scale_pages_ref(k_scale_pool, block_table))
+    v = dequant_bf16(gather_pages_ref(v_pool, block_table),
+                     gather_scale_pages_ref(v_scale_pool, block_table))
+    return splitk_decode_attention(q, k, v, cache_len, ctx=ctx, window=window)

@@ -16,6 +16,8 @@ from torch import nn
 from repro_torch.core import bitlinear
 from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
 
+# whole-prompt attention of Ctx.attn: the kernel and the two Fig. 6b baselines
+ATTNS = ("kernel", "skip", "naive")
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
@@ -28,14 +30,38 @@ class Ctx:
     (JAX's ``impl="pallas"``) or the paper's table lookup ``"tlmm_lut"``
     (``impl="pallas_lut"``).  Both give the same int32 sums.  Pre-decoded
     linears (the serving engine's) ignore it, as in JAX.
+
+    ``attn`` chooses the whole-prompt attention of ``prefill_step``:
+    ``"kernel"`` (the flash prefill kernel, JAX's ``attn_impl="pallas"``),
+    or the paper's Fig. 6b baselines in plain PyTorch, ``"skip"`` (only the
+    causally live tiles, JAX's ``"xla"``) and ``"naive"`` (every tile, masked
+    afterwards, ``"xla_naive"``), on ``attn_q_chunk`` x ``attn_kv_chunk``
+    tiles.  Admission chunks and decode stay on their kernels, as both JAX
+    XLA paths share theirs.
+
+    ``kv_splits`` = K >= 1 routes every decode attention read through the
+    split-K formulation (``kernels.decode_attention.ops.splitk_partials``
+    and ``splitk_combine``) instead of the decode kernels, as in JAX.  With
+    ``kv_group`` (a ``torch.distributed`` process group of
+    ``kv_group_size`` ranks, the mesh's ``model`` axis; JAX's
+    ``kv_shard_axis``/``kv_shard_size``) each rank computes K / size chunks
+    and the partials are all-gathered in rank order before the combine.
     """
     act_dtype: torch.dtype = torch.float32
     matmul: str = "tlmm"
+    attn: str = "kernel"
+    attn_q_chunk: int = 512
+    attn_kv_chunk: int = 512
+    kv_splits: int = 0
+    kv_group: object = None
+    kv_group_size: int = 1
 
     def __post_init__(self):
         if self.matmul not in bitlinear.MATMULS:
             raise ValueError(f"Ctx.matmul {self.matmul!r} not one of "
                              f"{bitlinear.MATMULS}")
+        if self.attn not in ATTNS:
+            raise ValueError(f"Ctx.attn {self.attn!r} not one of {ATTNS}")
 
 
 # ---------------------------------------------------------------------------

@@ -225,7 +225,13 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
             if quant:
                 attention.update_kv_cache(cache["k_scale"], cache["v_scale"],
                                           ks, vs, 0)
-        o = fp_ops.flash_prefill(qt, kt, vt, window=window)
+        if ctx.attn == "kernel":
+            o = fp_ops.flash_prefill(qt, kt, vt, window=window)
+        else:   # the Fig. 6b baselines, plain PyTorch
+            fn = (attention.attention_skip if ctx.attn == "skip"
+                  else attention.attention_naive)
+            o = fn(qt, kt, vt, causal=True, window=window,
+                   q_chunk=ctx.attn_q_chunk, kv_chunk=ctx.attn_kv_chunk)
     elif phase == "chunk":
         # admission wave: rows with chunk_mask write their chunk's KV at
         # offset cache_len[i] of their own row (contiguous) or through their
@@ -266,6 +272,11 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 qt, k_read.transpose(1, 2), v_read.transpose(1, 2), kt, vt,
                 offsets, window=window)
     else:   # decode step, t == 1
+        # with ctx.kv_splits every read below is split-K (plain PyTorch,
+        # over ctx.kv_group when set) instead of a decode kernel, as in JAX
+        splitk = bool(ctx.kv_splits)
+        read_kw = ({"ctx": ctx, "window": window} if splitk
+                   else {"window": window})
         if page_table is not None:
             # a lane parked at max_seq writes the null page when max_seq is
             # a whole number of pages, else its final page's slack row
@@ -275,14 +286,16 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 attention.paged_update_kv_scales(
                     cache["k_scale"], cache["v_scale"], ks, vs, page_table,
                     cache_len)
-                o = da_ops.decode_attention_paged_quant(
-                    qt, cache["k"], cache["v"], cache["k_scale"],
-                    cache["v_scale"], page_table, cache_len + 1,
-                    window=window)
+                read = (attention.paged_splitk_decode_attention_quant
+                        if splitk else da_ops.decode_attention_paged_quant)
+                o = read(qt, cache["k"], cache["v"], cache["k_scale"],
+                         cache["v_scale"], page_table, cache_len + 1,
+                         **read_kw)
             else:
-                o = da_ops.decode_attention_paged(
-                    qt, cache["k"], cache["v"], page_table, cache_len + 1,
-                    window=window)
+                read = (attention.paged_splitk_decode_attention if splitk
+                        else da_ops.decode_attention_paged)
+                o = read(qt, cache["k"], cache["v"], page_table,
+                         cache_len + 1, **read_kw)
         else:
             attention.update_kv_cache(cache["k"], cache["v"], kw, vw,
                                       cache_len)
@@ -295,9 +308,10 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                                           ks, vs, cache_len)
                 k_read = dequant_bf16(k_read, cache["k_scale"])
                 v_read = dequant_bf16(v_read, cache["v_scale"])
-            o = da_ops.decode_attention(
-                qt, k_read.transpose(1, 2), v_read.transpose(1, 2),
-                cache_len + 1, window=window)
+            read = (attention.splitk_decode_attention if splitk
+                    else da_ops.decode_attention)
+            o = read(qt, k_read.transpose(1, 2), v_read.transpose(1, 2),
+                     cache_len + 1, **read_kw)
     o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
     return layers.linear_apply(p["o"], o, ctx)
 

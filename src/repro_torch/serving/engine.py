@@ -3,7 +3,7 @@ interleaved with multi-tick decode blocks, on a contiguous or a paged KV
 cache, in bf16/f32 or int8, scheduled on the device or by the host, with
 the JAX engine's robustness layers.
 
-Counterpart of ``repro/serving/engine.py`` (one device, no mesh):
+Counterpart of ``repro/serving/engine.py``:
 
   * **chunked admission waves** — every pending admission advances by one
     ``prefill_chunk``-token chunk per wave, all rows in one
@@ -83,6 +83,29 @@ Counterpart of ``repro/serving/engine.py`` (one device, no mesh):
   * **int8 KV** (``kv_quant=True``, contiguous or paged) — K/V stored as
     int8 with per-(token, head) absmax scales; chunk attention reads them as
     f32(int8) * f32(scale), decode through bf16, as the JAX model does.
+  * **split-K decode** (``kv_splits=K``) — every decode attention read goes
+    through K-chunk split-K (plain PyTorch, ``Ctx.kv_splits``) instead of
+    the decode kernels, as in JAX; its tokens are the engine's without it.
+  * **multi-rank serving** (``mesh=``, a ``torch.distributed``
+    ``DeviceMesh`` with axes ("data", "model"); ``shard_slots=True``,
+    ``shard_kv=False``) — every rank runs this host scheduler over all
+    lanes (it must be deterministic: the same requests, the same fault
+    schedule, no clock-driven decision that ranks could take apart), and
+    its device holds only its data shard's lanes: scheduler state, block
+    table rows and contiguous cache rows (``runtime/sharding.py``); a paged
+    pool is whole on every rank but written only for its own lanes, so
+    prefix sharing keeps one namespace a data shard and a copy-on-write
+    split runs on the owning shard.  A slot count that ``data`` does not
+    divide is padded with lanes never assigned (``requested_slots``
+    against ``slots``; ``slots_per_device``).  The decode block gathers its
+    outputs (tokens, emit masks, the non-finite latch) and a wave its first
+    tokens over ``data``, so every rank reads the same readback, one block
+    behind as before.  With ``shard_kv`` the ranks of one data index split
+    the split-K chunks over ``model`` (``kv_splits`` defaults to its size
+    and must tile it) and all-gather the partials in rank order: the
+    tokens are the single-device engine's.  On the card the groups must be
+    NCCL (and the captured block then holds its collectives), on the CPU
+    gloo.
 
 **Robustness** (the JAX engine's, JAX PRs 7-9).  Every request ends with a
 ``RequestStatus``: an invalid one is REJECTED at ``submit()``; ``cancel()``
@@ -146,11 +169,14 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import validate_num_splits
 from repro_torch.models import transformer
 from repro_torch.models.layers import Ctx
+from repro_torch.runtime import sharding
 from repro_torch.runtime.fault import (CircuitBreaker, Watchdog,
                                        backoff_delay, with_retries)
 from repro_torch.serving import graphs
@@ -407,11 +433,16 @@ class _PrefixNode:
 
 class _PrefixIndex:
     """Radix trie over cached prompt prefixes at page granularity (the JAX
-    engine's, with one sharing namespace).  Each node is a fully written
-    prompt page; partial trailing pages are never indexed, which also keeps
-    decode appends and parked writes out of every indexed page.  Eviction
-    removes least recently used leaves, so a cached prefix goes tail
-    first."""
+    engine's).  Each node is a fully written prompt page; partial trailing
+    pages are never indexed, which also keeps decode appends and parked
+    writes out of every indexed page.  Eviction removes least recently used
+    leaves, so a cached prefix goes tail first.
+
+    ``ns`` is the sharing namespace, the data shard of the slot (0 without
+    a mesh): node keys are ``(ns,) + page tokens``, so a prompt matches only
+    pages its own shard registered.  Each shard writes only its own slots'
+    pages into its copy of the pool; another shard's page holds other
+    data there."""
 
     def __init__(self, page_size: int):
         self.page_size = page_size
@@ -423,18 +454,18 @@ class _PrefixIndex:
         self._clock += 1
         return self._clock
 
-    def lookup(self, prompt) -> tuple:
-        """Longest cached prefix of ``prompt``: the chain of matched
-        full-page nodes and, where the next page diverges inside the page,
-        the child sharing most leading tokens with it and that count (the
-        copy-on-write donor).  Touches the matched nodes."""
+    def lookup(self, prompt, ns: int = 0) -> tuple:
+        """Longest cached prefix of ``prompt`` in namespace ``ns``: the chain
+        of matched full-page nodes and, where the next page diverges inside
+        the page, the child sharing most leading tokens with it and that
+        count (the copy-on-write donor).  Touches the matched nodes."""
         ps = self.page_size
         now = self._tick()
         node, chain = self.root, []
         n_full = len(prompt) // ps
         while len(chain) < n_full:
             j = len(chain)
-            key = tuple(int(t) for t in prompt[j * ps:(j + 1) * ps])
+            key = (ns,) + tuple(int(t) for t in prompt[j * ps:(j + 1) * ps])
             child = node.children.get(key)
             if child is None:
                 break
@@ -444,8 +475,10 @@ class _PrefixIndex:
         rest = [int(t) for t in prompt[len(chain) * ps:]]
         boundary, blcp = None, 0
         for key, child in node.children.items():
+            if key[0] != ns:
+                continue
             lcp = 0
-            for a, b in zip(key, rest):
+            for a, b in zip(key[1:], rest):
                 if a != b:
                     break
                 lcp += 1
@@ -455,15 +488,16 @@ class _PrefixIndex:
             boundary.last_use = now
         return chain, boundary, blcp
 
-    def insert(self, prompt, pages) -> list:
-        """Index ``pages[j]`` as the KV of prompt page j; returns the new
-        nodes (the caller takes one pool reference for each).  A page whose
-        tokens are already cached keeps the first registrant's page."""
+    def insert(self, prompt, pages, ns: int = 0) -> list:
+        """Index ``pages[j]`` as the KV of prompt page j in namespace
+        ``ns``; returns the new nodes (the caller takes one pool reference
+        for each).  A page whose tokens are already cached keeps the first
+        registrant's page."""
         ps = self.page_size
         now = self._tick()
         node, new = self.root, []
         for j in range(len(pages)):
-            key = tuple(int(t) for t in prompt[j * ps:(j + 1) * ps])
+            key = (ns,) + tuple(int(t) for t in prompt[j * ps:(j + 1) * ps])
             child = node.children.get(key)
             if child is None:
                 child = _PrefixNode(key, pages[j], node)
@@ -541,6 +575,24 @@ def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
     return toks, margins
 
 
+def check_mesh(mesh, device: torch.device) -> tuple:
+    """A serving mesh's (data, model) sizes, after checking its axis names
+    (the JAX engine's message) and that its process groups can run on
+    ``device``: NCCL on the card, gloo on the CPU."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != ("data", "model"):
+        raise ValueError("ServingEngine mesh must have axis_names "
+                         f"('data', 'model'); got {names}")
+    want = "nccl" if device.type == "cuda" else "gloo"
+    for axis in names:
+        backend = dist.get_backend(mesh.get_group(axis))
+        if backend != want:
+            raise ValueError(
+                f"a mesh engine on {device.type} needs {want} process "
+                f"groups; the mesh's '{axis}' group runs {backend}")
+    return mesh.size(0), mesh.size(1)
+
+
 class ServingEngine:
     """Token-level continuous batching over ``batch_slots`` lanes of up to
     ``max_seq`` positions.  ``params`` are packed parameters
@@ -553,7 +605,11 @@ class ServingEngine:
     keeps KV in a pool of ``kv_pages`` pages of ``page_size`` tokens
     (default: every slot can reach ``max_seq``, plus the null page), with
     prefix sharing under ``enable_prefix_sharing``; ``kv_quant=True``
-    stores int8 KV with f32 scales.
+    stores int8 KV with f32 scales.  ``kv_splits``, ``mesh``,
+    ``shard_slots`` and ``shard_kv`` are the JAX engine's split-K and
+    multi-device options (module docstring), with its validation messages;
+    ``mesh_shape``, ``slots_per_device`` and ``requested_slots`` report the
+    layout.
 
     Robustness keywords, with the JAX engine's defaults:
     ``block_deadline_s`` bounds one block's dispatch and the readback it
@@ -576,6 +632,8 @@ class ServingEngine:
                  kv_pages: Optional[int] = None,
                  enable_prefix_sharing: bool = False,
                  device_sched: bool = True, kv_quant: bool = False,
+                 mesh=None, shard_slots: bool = True, shard_kv: bool = False,
+                 kv_splits: Optional[int] = None,
                  block_deadline_s: Optional[float] = None,
                  dispatch_retries: int = 2,
                  dispatch_backoff_s: float = 0.0,
@@ -615,12 +673,20 @@ class ServingEngine:
         self.device_sched = bool(device_sched)
         self.paged = bool(paged)
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
+        self._init_mesh(mesh, shard_slots, shard_kv, kv_splits)
         if self.paged:
             self.page_size = max(1, min(int(page_size), max_seq))
             self.pages_per_slot = -(-max_seq // self.page_size)
             self.kv_pages = (int(kv_pages) if kv_pages is not None
                              else batch_slots * self.pages_per_slot + 1)
         self.ctx = ctx or Ctx()
+        if self.kv_splits:
+            # split-K decode attention: the formulation whose result does
+            # not depend on how its chunks are spread over ranks
+            self.ctx = dataclasses.replace(
+                self.ctx, kv_splits=self.kv_splits,
+                kv_group=self._model_group,
+                kv_group_size=self.mesh_shape[1] if self.shard_kv else 1)
         self.seed = seed
         self.block_deadline_s = block_deadline_s
         self.dispatch_retries = max(0, int(dispatch_retries))
@@ -651,6 +717,87 @@ class ServingEngine:
         self._closed = False
         self._reset_engine_state()
         self.reset_stats()
+
+    def _init_mesh(self, mesh, shard_slots: bool, shard_kv: bool,
+                   kv_splits: Optional[int]) -> None:
+        """Check the mesh options (the JAX engine's messages) and set the
+        rank's share of the slots.  Every rank runs this host scheduler over
+        all ``slots`` lanes; its device holds only its ``data`` shard's
+        lanes, ``[_lo, _lo + slots_per_device)``, and ranks of one ``data``
+        index split only the decode attention chunks over ``model``."""
+        self.mesh = mesh
+        dd, mm = check_mesh(mesh, self.device) if mesh is not None else (1, 1)
+        self._data_group = self._model_group = None
+        self.shard_slots = bool(shard_slots) and dd > 1
+        self.shard_kv = bool(shard_kv) and mm > 1
+        self.requested_slots = self._usable_slots = self.slots
+        if self.shard_slots and self.slots % dd:
+            # pad the slot axis to a data-axis multiple; the padded lanes
+            # are never assigned and tick fully masked
+            self.slots = -(-self.slots // dd) * dd
+        self.mesh_shape = (dd, mm)
+        self.slots_per_device = self.slots
+        if mesh is not None:
+            specs = sharding.serving_specs(
+                mesh, slots=self.slots, paged=self.paged,
+                kv_quant=self.kv_quant, shard_slots=self.shard_slots)
+            (self.slots_per_device,) = sharding.local_shape(
+                mesh, specs["state"], (self.slots,))
+        if kv_splits is None:
+            self.kv_splits = mm if self.shard_kv else 0
+        else:
+            self.kv_splits = int(kv_splits)
+            if self.kv_splits < 1:
+                raise ValueError("kv_splits must be >= 1 when set")
+        if self.shard_kv:
+            validate_num_splits(self.kv_splits, mm)
+            self._model_group = mesh.get_group("model")
+        self._lo = (mesh.get_local_rank("data") * self.slots_per_device
+                    if self.shard_slots else 0)
+        # the block's outputs are gathered over 'data' (an identity on a
+        # one-rank axis, kept so that a mesh engine always runs its
+        # collectives); lanes replicated over 'data' need no gather
+        if mesh is not None and (self.shard_slots or dd == 1):
+            self._data_group = mesh.get_group("data")
+
+    def _slot_shard(self, i: int) -> int:
+        """The data shard owning slot i (0 when slots are not sharded): the
+        prefix-sharing namespace."""
+        return i // self.slots_per_device if self.shard_slots else 0
+
+    def _local(self, i: int) -> Optional[int]:
+        """Slot i's row in this rank's device tensors, or None when another
+        data shard holds it."""
+        j = i - self._lo
+        return j if 0 <= j < self.slots_per_device else None
+
+    def _mine(self, arr: np.ndarray) -> np.ndarray:
+        """A copy of this rank's rows of a (slots, ...) host array (on the
+        CPU an upload shares its memory, and the host mirror changes)."""
+        return arr[self._lo:self._lo + self.slots_per_device].copy()
+
+    def _upload_mine(self, arr: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a (slots, ...) host array, on the device."""
+        return self._upload(self._mine(arr))
+
+    def _gather_slots(self, *parts: torch.Tensor) -> tuple:
+        """(slots_per_device, ...) tensors of this rank -> (slots, ...) in
+        shard order, all-gathered over the 'data' group in one collective
+        (packed as int64 side by side); as given without a mesh."""
+        if self._data_group is None:
+            return parts
+        n = self.slots_per_device
+        packed = torch.cat([p.reshape(n, -1).to(torch.int64) for p in parts],
+                           dim=1)
+        out = packed.new_empty((self.slots, packed.shape[1]))
+        sharding.all_gather_rows(out, packed, self._data_group)
+        res, col = [], 0
+        for p in parts:
+            w = p[0].numel()
+            res.append(out[:, col:col + w].reshape((self.slots,) + p.shape[1:])
+                       .to(p.dtype))
+            col += w
+        return tuple(res)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -892,17 +1039,19 @@ class ServingEngine:
         if self._cache is not None:
             return
         if self.paged:
+            # the whole pool on every rank, written only for its own slots
             self._cache = transformer.init_paged_cache(
                 self.cfg, self.kv_pages, self.page_size, self.cache_dtype,
                 self.device, kv_quant=self.kv_quant)
-            self._bt_dev = self._upload(self._bt.copy())
+            self._bt_dev = self._upload_mine(self._bt)
         else:
             self._cache = transformer.init_cache(
-                self.cfg, self.slots, self.max_seq, self.cache_dtype,
-                self.device, kv_quant=self.kv_quant)
+                self.cfg, self.slots_per_device, self.max_seq,
+                self.cache_dtype, self.device, kv_quant=self.kv_quant)
 
         def z(dtype):
-            return torch.zeros((self.slots,), dtype=dtype, device=self.device)
+            return torch.zeros((self.slots_per_device,), dtype=dtype,
+                               device=self.device)
         self._nan_dev = z(torch.bool)
         if self.device_sched:
             self._state = {"last_token": z(torch.int64),
@@ -935,7 +1084,8 @@ class ServingEngine:
     def _admit(self, slots, pending: dict, queue) -> None:
         """Assign free slots to queued requests, FIFO; paged admission is
         gated by each request's worst-case reservation."""
-        for i, s in enumerate(slots):
+        # padded lanes (past _usable_slots) are never assigned
+        for i, s in enumerate(slots[:self._usable_slots]):
             if not queue:
                 break
             if s.active or i in pending:
@@ -952,10 +1102,11 @@ class ServingEngine:
             head = queue[0]
             grant = None
             if self.paged:
+                ns = self._slot_shard(i)
                 if self._prefix is not None:
-                    grant = self._prefix_lookup(self._eff_prompt(head))
+                    grant = self._prefix_lookup(self._eff_prompt(head), ns)
                 if self._held_for_pending_prefix(
-                        head, pending, grant["base"] if grant else 0):
+                        head, pending, grant["base"] if grant else 0, ns):
                     # a pending admission is prefilling this head's prefix:
                     # wait for it to register its pages (once per head)
                     if head is not self._held_head:
@@ -1068,7 +1219,7 @@ class ServingEngine:
                 completing.append(i)
         if not mask.any():
             return   # every admission of this wave aborted
-        up = self._upload
+        up = self._upload_mine
         logits, _ = transformer.prefill_chunk(
             self.cfg, self.params, up(toks), self.ctx, self._cache,
             offsets=up(offs), admit_mask=up(mask), last_index=up(last),
@@ -1082,15 +1233,18 @@ class ServingEngine:
             # reads them: the read below is bookkeeping only
             self._merge_admissions([pending[i] for i in completing], first,
                                    seeds_d, temps_d)
-        ft = first.cpu().numpy()   # a sync only when an admission completes
+        # every shard's first tokens (a sync only when an admission
+        # completes)
+        ft = self._gather_slots(first)[0].cpu().numpy()
         for i in completing:
             self._finish_admission(slots, pending.pop(i), int(ft[i]))
 
     def _merge_admissions(self, admits, first, seeds, temps) -> None:
-        """Fold completed admissions into the device state in place.  A
-        lane whose request finished at prefill (its budget reached or a
-        full row) is merged inactive: a tick emits before it checks done.
-        A retry resumes at emit index carried + 1."""
+        """Fold completed admissions into the device state in place (this
+        rank's rows; ``first``, ``seeds`` and ``temps`` are the wave's, on
+        those rows).  A lane whose request finished at prefill (its budget
+        reached or a full row) is merged inactive: a tick emits before it
+        checks done.  A retry resumes at emit index carried + 1."""
         n = self.slots
         upd = np.zeros((n,), bool)
         activate = np.zeros((n,), bool)
@@ -1106,13 +1260,12 @@ class ServingEngine:
             mnew[i] = req.max_new_tokens
             activate[i] = not (req.max_new_tokens <= k + 1
                                or plen >= self.max_seq)
-        u = self._upload(upd)
+        up = self._upload_mine
+        u = up(upd)
         st = self._state
-        for name, new in (("last_token", first),
-                          ("cache_len", self._upload(clens)),
-                          ("emitted", self._upload(emit0)),
-                          ("active", self._upload(activate)),
-                          ("max_new", self._upload(mnew)), ("temps", temps),
+        for name, new in (("last_token", first), ("cache_len", up(clens)),
+                          ("emitted", up(emit0)), ("active", up(activate)),
+                          ("max_new", up(mnew)), ("temps", temps),
                           ("seeds", seeds)):
             st[name].copy_(torch.where(u, new.to(st[name].dtype), st[name]))
 
@@ -1141,10 +1294,11 @@ class ServingEngine:
     def _ticks(self, tokens, cache_len, emitted, active, max_new, temps,
                seeds, nan_mask):
         """``decode_block`` ticks of decode_step + sample + bookkeeping over
-        (slots,) tensors -> their values after the block, the block's
-        (slots, decode_block) tokens and emit masks, and its (slots,)
-        non-finite latch.  Reads no host value: the device-resident block
-        runs it inside a CUDA graph."""
+        this rank's (slots_per_device,) tensors -> their values after the
+        block, and every shard's (slots, decode_block) tokens and emit masks
+        and (slots,) non-finite latch (gathered over 'data' under a mesh).
+        Reads no host value: the device-resident block runs it inside a
+        CUDA graph, its collectives included."""
         outs, masks = [], []
         bad = torch.zeros_like(active)
         for _ in range(self.decode_block):
@@ -1166,8 +1320,9 @@ class ServingEngine:
             emitted = torch.where(active, emitted + 1, emitted)
             done = (emitted >= max_new) | (cache_len >= self.max_seq)
             active = active & ~done
-        return (tokens, cache_len, emitted, active, torch.stack(outs, 1),
-                torch.stack(masks, 1), bad)
+        return (tokens, cache_len, emitted, active,
+                *self._gather_slots(torch.stack(outs, 1),
+                                    torch.stack(masks, 1), bad))
 
     def _device_block(self):
         """One block from the device state, which it advances in place;
@@ -1276,9 +1431,10 @@ class ServingEngine:
             self._drain_blocks(slots, depth=1)
             return
         dev, reqs = self.device, [s.request for s in slots]
+        lo, hi = self._lo, self._lo + self.slots_per_device
 
-        def col(values, dtype):
-            return torch.tensor(values, dtype=dtype, device=dev)
+        def col(values, dtype):   # this rank's lanes
+            return torch.tensor(values[lo:hi], dtype=dtype, device=dev)
 
         def dispatch():
             if fi is not None:
@@ -1292,7 +1448,7 @@ class ServingEngine:
                 col([r.temperature if r else 0.0 for r in reqs],
                     torch.float32),
                 col([r.seed if r else 0 for r in reqs], torch.int64),
-                self._nan_dev if nan is None else self._upload(nan))
+                self._nan_dev if nan is None else self._upload_mine(nan))
 
         *_, blk, mask, bad = with_retries(
             dispatch, max_retries=self.dispatch_retries,
@@ -1310,14 +1466,15 @@ class ServingEngine:
         lane mask goes into the buffer the block reads, before it, and is
         cleared after it, on the engine's stream."""
         if nan is not None:
-            src = torch.from_numpy(nan)
+            src = torch.from_numpy(self._mine(nan))
             self._nan_dev.copy_(src.pin_memory() if self._stream is not None
                                 else src, non_blocking=True)
         if self._graph is None:
             out = self._readback(*self._device_block())
             if self._stream is not None:
-                self._graph = graphs.CapturedBlock(self._device_block,
-                                                   self._stream)
+                self._graph = graphs.CapturedBlock(
+                    self._device_block, self._stream,
+                    collectives=self.mesh is not None)
                 self.stats["graph_captures"] += 1
         else:
             with torch.profiler.record_function("ServingEngine.replay_block"):
@@ -1446,8 +1603,9 @@ class ServingEngine:
         prefix pages this occupant registered (faulted KV)."""
         if rollback_prefix:
             self._unregister_prefix(i)
-        if self._dev_active and self._state is not None:
-            self._state["active"][i] = False
+        j = self._local(i)
+        if self._dev_active and self._state is not None and j is not None:
+            self._state["active"][j] = False
         req = slots[i].request
         self._free_slot(slots, i, status, error)
         self.stats[_STATUS_COUNTERS[status]] += 1
@@ -1660,11 +1818,12 @@ class ServingEngine:
 
     def _promote(self, slots) -> None:
         """Hand scheduling back to the device mid-run: top live paged lanes
-        up to their whole reservation (device-resident decode never
-        allocates), write the host mirror into the state tensors in place
-        (the captured block reads them at their addresses), and restart the
-        steady-state sync gauge.  The device block table follows every host
-        row change in both modes, so it is exact already."""
+        and pending admissions up to their whole reservation
+        (device-resident decode never allocates), write the host mirror
+        into the state tensors in place (the captured block reads them at
+        their addresses), and restart the steady-state sync gauge.  The
+        device block table follows every host row change in both modes, so
+        it is exact already."""
         st = self.stats
         if self.paged:
             for i, s in enumerate(slots):
@@ -1678,6 +1837,20 @@ class ServingEngine:
                     self._fault_retire(
                         slots, i, RequestStatus.FAILED,
                         f"KV page allocation failed at re-promotion: {e}")
+            # an admission started host-driven holds only the pages its
+            # chunks have covered: once it completes, device-resident
+            # decode would write past them, into the null page, and read
+            # that back (the JAX engine's promotion misses these too)
+            for i, adm in list(self._pending.items()):
+                req = adm["req"]
+                try:
+                    self._grow_pages(i, min(len(req.prompt)
+                                            + req.max_new_tokens - 1,
+                                            self.max_seq))
+                except InjectedFault as e:
+                    self._abort_admission(
+                        self._pending, i, RequestStatus.FAILED,
+                        f"KV page allocation failed at re-promotion: {e}")
         reqs = [s.request for s in slots]
         host = {"last_token": ([s.last_token for s in slots], np.int64),
                 "cache_len": ([s.cache_len for s in slots], np.int32),
@@ -1689,7 +1862,8 @@ class ServingEngine:
                           np.float32),
                 "seeds": ([r.seed if r else 0 for r in reqs], np.int64)}
         for name, (values, dtype) in host.items():
-            self._state[name].copy_(self._upload(np.asarray(values, dtype)))
+            self._state[name].copy_(
+                self._upload_mine(np.asarray(values, dtype)))
         self._dev_active = True
         self._degraded = False
         self._sched_epoch += 1
@@ -1798,10 +1972,12 @@ class ServingEngine:
 
     def _push_bt_row(self, i: int) -> None:
         """Copy slot i's table row to the device table, on the current
-        stream (the engine's), in order with waves and blocks.  Before the
-        first beat the whole table is uploaded with the cache."""
-        if self._bt_dev is not None:
-            self._bt_dev[i].copy_(self._upload(self._bt[i]))
+        stream (the engine's), in order with waves and blocks, on the rank
+        that holds slot i.  Before the first beat the whole table is
+        uploaded with the cache."""
+        j = self._local(i)
+        if self._bt_dev is not None and j is not None:
+            self._bt_dev[j].copy_(self._upload(self._bt[i]))
 
     def _note_live_tokens(self, live: int) -> None:
         self.stats["kv_live_tokens_peak"] = max(
@@ -1873,7 +2049,7 @@ class ServingEngine:
 
     # -- prefix sharing (host side) ----------------------------------------
 
-    def _prefix_lookup(self, prompt) -> dict:
+    def _prefix_lookup(self, prompt, ns: int = 0) -> dict:
         """The longest cached prefix of ``prompt`` (the effective prompt:
         a retry's replay may find the pages its failed attempt registered)
         at the engine's sharing granularity.  The share base is a
@@ -1882,8 +2058,9 @@ class ServingEngine:
         prefill_chunk`` (a shifted final chunk never rewrites a shared
         position) and at most ``plen - 1`` (the last prompt token runs
         through prefill for its logits).  Returns the full pages to alias
-        and, for a base inside a page, the page to copy."""
-        chain, boundary, blcp = self._prefix.lookup(prompt)
+        and, for a base inside a page, the page to copy.  ``ns`` is the
+        slot's sharing namespace (``_slot_shard``)."""
+        chain, boundary, blcp = self._prefix.lookup(prompt, ns)
         ps, c = self.page_size, self.prefill_chunk
         base = min(len(chain) * ps + blcp, len(prompt) - 1, self.max_seq - c)
         base -= base % c
@@ -1896,16 +2073,20 @@ class ServingEngine:
                 "cow_src": cow_src}
 
     def _held_for_pending_prefix(self, req: Request, pending: dict,
-                                 have: int) -> bool:
+                                 have: int, ns: int = 0) -> bool:
         """Whether the head shares more full pages with a pending
         admission's prompt than the index grants now (``have``): then it
         waits for that donor to register its pages rather than prefill the
-        prefix twice.  Donors finish in finitely many waves."""
+        prefix twice.  Donors finish in finitely many waves.  Only donors
+        of the same data shard (``ns``) count: another shard's pages could
+        never be granted here."""
         if self._prefix is None or not pending:
             return False
         prompt = np.asarray(self._eff_prompt(req))
         ps, c = self.page_size, self.prefill_chunk
         for adm in pending.values():
+            if self._slot_shard(adm["slot"]) != ns:
+                continue
             donor = adm["prompt"]
             lcp = 0
             for a, b in zip(donor, prompt):
@@ -1941,7 +2122,8 @@ class ServingEngine:
             try:
                 (dst,) = self._alloc_pages(1)
                 self._own_page(i, dst, len(grant["pages"]))
-                transformer.copy_paged_page(self._cache, src, dst)
+                if self._local(i) is not None:   # the owning shard's pool
+                    transformer.copy_paged_page(self._cache, src, dst)
             finally:
                 self._pool.decref(src)
             st["kv_cow_splits"] += 1
@@ -1960,7 +2142,8 @@ class ServingEngine:
         m = plen // self.page_size
         if not m:
             return
-        new = self._prefix.insert(prompt, self._slot_pages[i][:m])
+        new = self._prefix.insert(prompt, self._slot_pages[i][:m],
+                                  ns=self._slot_shard(i))
         for node in new:
             self._pool.incref(node.page)
         self._slot_reg_nodes[i] = new

@@ -19,6 +19,12 @@ A capture records launches and runs none, so what the kernel wrappers'
 launch counters count during it is taken back
 (``kernels.take_captured_launches``); each replay adds the launches the
 graph holds (``kernels.add_launches``).
+
+Under a mesh the block holds NCCL collectives (the gather of its outputs
+over the mesh's ``data`` axis, the split-K partials over ``model``), which
+the graph records with the rest.  A communicator is created at its first
+collective, which a capture must not be: the eager first block issues
+every one of them on the engine's stream before the capture.
 """
 
 from __future__ import annotations
@@ -31,13 +37,19 @@ from repro_torch import kernels
 class CapturedBlock:
     """``fn()`` captured into one CUDA graph on ``stream``.  The caller has
     run ``fn`` eagerly on the same stream first: that run warms cuBLAS on
-    the stream and sets the kernels' one-time attributes, which a capture
-    must not be the first to do.  A failed capture raises."""
+    the stream, sets the kernels' one-time attributes and creates the NCCL
+    communicators of its collectives, which a capture must not be the
+    first to do.  A failed capture raises.  ``collectives`` captures in
+    the thread-local mode: the process group's watchdog thread polls its
+    events during the capture, which the global mode forbids."""
 
-    def __init__(self, fn, stream: torch.cuda.Stream):
+    def __init__(self, fn, stream: torch.cuda.Stream, *,
+                 collectives: bool = False):
         self.graph = torch.cuda.CUDAGraph()
         before = kernels.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream):
+        mode = "thread_local" if collectives else "global"
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode=mode):
             self.outputs = fn()
         self.launches = kernels.take_captured_launches(before)
 

@@ -1110,3 +1110,103 @@ def test_captured_engine_retry_replays_the_fault_free_tokens(cuda,
     assert all(r.status is RequestStatus.OK for r in reqs)
     for r, b in zip(reqs, base):
         assert r.output.tolist() == b.output.tolist()
+
+
+# -- split-K decode and the mesh engine on the card --------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [31, 101, 256, 257])
+def test_splitk_on_the_card_matches_plain_and_merges_bitwise(cuda, s):
+    """Split-K (plain PyTorch on the card) against the decode kernel's plain
+    version, and the partials of simulated ranks merged in rank order
+    against one call, bit for bit: every chunk is the same program."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn(3, 4, 1, 32, generator=gen, device=cuda)
+    k, v = (torch.randn(3, 2, s, 32, generator=gen, device=cuda)
+            for _ in range(2))
+    cl = torch.tensor([1, s // 2, s - 2], dtype=torch.int32, device=cuda)
+    for K in (2, 4, 8):
+        ref = da_ops.decode_attention_splitk(q, k, v, cl, num_splits=K)
+        torch.testing.assert_close(ref, da_ref.decode_attention_ref(
+            q, k, v, cl), **TOL)
+        kp, vp, chunk = da_ops._pad_seq(k, v, K)
+        for shards in (2, K) if K > 2 else (2,):
+            n = K // shards
+            parts = [da_ops.splitk_partials(
+                q, kp[:, :, r * n * chunk:(r + 1) * n * chunk],
+                vp[:, :, r * n * chunk:(r + 1) * n * chunk], cl, n_splits=n,
+                chunk=chunk, split0=r * n) for r in range(shards)]
+            out = da_ops.splitk_combine(
+                *(torch.cat(x, dim=2) for x in zip(*parts)), torch.float32)
+            assert torch.equal(out, ref), (s, K, shards)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(ENGINE_MODES))
+def test_captured_splitk_engine_equals_host_driven(cuda, mode):
+    """kv_splits=2 on the card: the captured engine emits the host-driven
+    engine's tokens and no decode kernel launches (every decode read is
+    split-K); the chunk kernels still do."""
+    cfg, packed = _served_on_card(cuda)
+    extra, decode_kernel = ENGINE_MODES[mode]
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda", kv_splits=2, **extra)
+    host = _card_requests(cfg, 0.8)
+    ServingEngine(cfg, packed, device_sched=False, **kw).run(host)
+    eng = ServingEngine(cfg, packed, **kw)
+    reset_launch_counts()
+    dev = eng.run(_card_requests(cfg, 0.8))
+    torch.cuda.synchronize()
+    for h, d in zip(host, dev):
+        assert d.done and d.output.tolist() == h.output.tolist()
+    counts = launch_counts()
+    assert eng._graph is not None and counts[decode_kernel] == 0
+    # the paged int8 chunk read gathers and dequantizes, then runs the
+    # contiguous chunk kernel
+    paged_chunk = "paged" in extra and "kv_quant" not in extra
+    assert counts["flash_chunk_prefill_paged" if paged_chunk
+                  else "flash_chunk_prefill"] > 0
+    assert eng.stats["steady_state_syncs_per_block"] == 0.0
+
+
+@pytest.mark.gpu
+def test_mesh_engine_in_an_nccl_world_of_one(cuda):
+    """A (1, 1) DeviceMesh engine on NCCL: its captured block holds the
+    gather of its outputs, and it emits the single-device engine's tokens
+    (contiguous and paged with sharing); a gloo mesh cannot drive the
+    card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.serving.engine import check_mesh
+
+    cfg, packed = _served_on_card(cuda)
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for extra in ({}, dict(paged=True, page_size=5, kv_pages=20,
+                               enable_prefix_sharing=True)):
+            kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4,
+                      decode_block=4, device="cuda", **extra)
+            want = ServingEngine(cfg, packed, **kw).run(
+                _card_requests(cfg, 0.8))
+            eng = ServingEngine(cfg, packed, mesh=mesh, **kw)
+            got = eng.run(_card_requests(cfg, 0.8))
+            torch.cuda.synchronize()
+            assert eng._graph is not None and eng.mesh_shape == (1, 1)
+            assert [r.output.tolist() for r in got] == \
+                [r.output.tolist() for r in want]
+            assert eng.stats["steady_state_syncs_per_block"] == 0.0
+        gloo = dist.new_group(backend="gloo")
+        fake = type("GlooMesh", (), {
+            "mesh_dim_names": ("data", "model"),
+            "get_group": staticmethod(lambda axis: gloo),
+            "size": staticmethod(lambda i: 1)})()
+        with pytest.raises(ValueError, match="needs nccl"):
+            check_mesh(fake, cuda)
+    finally:
+        dist.destroy_process_group()

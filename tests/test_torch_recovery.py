@@ -470,12 +470,44 @@ def test_transient_schedules_recover_property(served, baselines,
     prop()
 
 
+def test_promotion_grants_pending_admissions_their_pages(served,
+                                                         baselines):
+    """A dispatch outage degrades a fresh paged engine while the third
+    request's admission is pending (started host-driven, so holding only
+    its chunks' pages); the canary promotes the engine before that
+    admission completes.  Promotion must grant it its whole reservation, as
+    admission does on a device-resident engine: device-resident decode
+    never allocates, and without the pages it writes and reads the null
+    page (OK status, wrong tokens).  Drawn seed 57290 of the transient
+    schedules found it."""
+    _, _, cfg, ours = served
+    eng = _engine(cfg, ours, max_retries=4, retry_backoff_s=0.0,
+                  retry_breaker_threshold=99, probe_cooldown_blocks=1,
+                  audit_on_retire=True, **_SHARED)
+    covered = []
+    promote = eng._promote
+
+    def checked_promote(slots):
+        promote(slots)
+        for i, adm in eng._pending.items():
+            r = adm["req"]
+            covered.append(len(eng._slot_pages[i]) * eng.page_size
+                           >= min(len(r.prompt) + r.max_new_tokens - 1,
+                                  eng.max_seq))
+
+    eng._promote = checked_promote
+    _run_transient_schedule(eng, cfg, 57290, baselines["shared"])
+    assert eng.stats["repromotions"] == 1 and covered == [True], covered
+
+
 def test_mesh_transient_schedules_recover_property(served, baselines):
     """The JAX test runs this property on a 2x2 mesh engine in a
     subprocess, and fails in this repository's runs (ROADMAP section C).
-    The port has no mesh yet (ROADMAP A11), so it holds what the sharded
-    engine must equal: the single-device port engine, over drawn pairs of
-    seeds, heals to its own uninterrupted tokens."""
+    This one holds what the sharded engine must equal: the single-device
+    port engine, over drawn pairs of seeds, heals to its own uninterrupted
+    tokens.  The port's mesh engine is held to the same property on gloo
+    ranks by ``tests/test_torch_multidevice.py::
+    test_mesh_transient_schedules_recover_property``."""
     hyp = pytest.importorskip("hypothesis")
     from hypothesis import strategies as state
 
