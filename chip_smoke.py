@@ -46,7 +46,20 @@ and against the unfused packed path, and the oracle with every ternary
 linear on the table-lookup ``tlmm_lut`` (``Ctx(matmul="tlmm_lut")``), whose
 logits and tokens must equal the ``tlmm`` oracle's, and the oracle at bf16
 activations (``Ctx(act_dtype=torch.bfloat16)``): every kernel launches on
-bf16 queries, with finite logits and tokens in the vocabulary.  Phase 3
+bf16 queries, with finite logits and tokens in the vocabulary.  Phase 9
+runs the JAX package's other attention-block configs at full width, two
+layers each: mixtral-8x22b (MoE, each expert bank a tlmm launch an expert)
+served drop-free in both scheduling modes with profiled windows holding
+the traced tlmm and decode kernels to the launch counters, its bf16
+tokens judged by an oracle that prefills in the engine's chunk order on a
+bf16 cache (a token past the gap passes only at a router near-tie), its
+f32 tokens by the monolithic oracle, and at capacity factor 1.25 the
+tokens that differ between the modes printed; granite-3-2b, command-r-35b
+and qwen2-72b served device-resident and judged by the oracle; and the
+embed-frontend musicgen-medium and internvl2-76b, a decode step against a
+prefill one longer.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
+one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
 the decode kernel at the oracle's one-slot shape and an empty kernel (the
 launch floor), checks that a CUDA tensor divided by a Python scalar is its
@@ -65,6 +78,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -106,6 +120,11 @@ TOKEN_GAP = 2 * LOGIT_TOL_PERTURBED
 # by one; one code of the SwiGLU output moves an output by about 1e-3 of the
 # outputs' std (a row sums some 4096 such terms), so 0.02 allows twenty.
 FFN_PLAIN_TOL = 0.02
+# An MoE token judged past TOKEN_GAP passes only where a router's
+# top_k-th and (top_k + 1)-th logits lie closer than this at the first
+# diverging position: a ULP there flips an expert, which no tolerance on
+# logits describes.
+ROUTER_NEAR_TIE = 1e-3
 
 
 def log(*a):
@@ -223,8 +242,9 @@ def ptxas_summary(build_log: str) -> list:
                            r"(ContigKV|PagedKV)I(f|13__nv_bfloat16|a)EE(\w)",
                            name)
             rq = re.search(r"rmsnorm_quant_kernelI(f|13__nv_bfloat16)"
-                           r"(f|13__nv_bfloat16|S\d*_)Lb([01])E", name)
-            sq = re.search(r"swiglu_quant_kernelILb([01])ELb([01])E", name)
+                           r"(f|13__nv_bfloat16|S\d*_)Lb([01])ELb([01])E",
+                           name)
+            sq = re.search(r"swiglu_quant_kernelILb([01])ELi([012])E", name)
             if t:
                 name = f"{t.group(1)}<{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
             elif f:
@@ -238,16 +258,464 @@ def ptxas_summary(build_log: str) -> list:
             elif rq:
                 tx, tw = ("f32" if g == "f" else "bf16" for g in rq.group(1, 2))
                 name = (f"rmsnorm_quant_kernel<x {tx}, w {tw}, "
-                        f"VEC={rq.group(3)}>")
+                        f"VEC={rq.group(3)}, LOOP={rq.group(4)}>")
             elif sq:
-                name = (f"swiglu_quant_kernel<VEC={sq.group(1)}, "
-                        f"STAGED={sq.group(2)}>")
+                path = ("REGS", "STAGED", "LOOPED")[int(sq.group(2))]
+                name = f"swiglu_quant_kernel<VEC={sq.group(1)}, {path}>"
         elif "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif "registers" in line and name is not None:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
             name, spill = None, ""
     return out
+
+
+# -- engine windows, shared by every serving phase -----------------------------
+
+DECODE_COUNTERS = ("decode_attention", "decode_attention_paged",
+                   "decode_attention_paged_quant")
+# what a profiled window holds its trace to: a label -> (which traced
+# kernel names count, which launch counters count them)
+DECODE_CHECK = {"decode attention": (lambda k: "decode_attn_kernel" in k,
+                                     DECODE_COUNTERS)}
+TLMM_CHECK = {"tlmm": (lambda k: ("tlmm_dp4a_kernel" in k
+                                  or "tlmm_mma_kernel" in k), ("tlmm",))}
+
+
+def is_launch(name):
+    return name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+
+
+def launch_total(names) -> int:
+    from repro_torch import kernels
+    c = kernels.launch_counts()
+    return sum(c[k] for k in names)
+
+
+def engine_line(name, s, mem=None):
+    extra = "" if mem is None else (f"; max_memory_allocated "
+                                    f"{mem / 2**30:.3f} GiB")
+    log(f"{name}: {s['total_new_tokens']} tokens in {s['wall_s']:.3f} s "
+        f"= {s['tokens_per_s']:.1f} tok/s; decode {s['decode_tok_s']:.1f} "
+        f"tok/s; TTFT p50 {s['ttft_p50_s']:.4f} s p95 "
+        f"{s['ttft_p95_s']:.4f} s; waves {s['prefill_chunks']}, blocks "
+        f"{s['decode_blocks']} (steady {s['steady_state_blocks']}, "
+        f"{s['steady_state_syncs_per_block']:.1f} gating syncs a steady "
+        f"block)" + extra)
+
+
+def profile_window(eng, label, reqs, checks):
+    """Serve ``reqs`` on a warmed engine under the profiler: where the
+    window's time goes (host ops, device kernels, idle share), the
+    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, and a failure on a
+    kernel launch call inside a replayed decode block.  For each entry of
+    ``checks`` (label -> (which traced kernel names, which launch
+    counters)) the kernels the profiler traced on the device, replays
+    included, must equal the launch counters' count, and be more than
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    before = kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    dropped = cupti_dropped()
+    ev = prof.key_averages()
+    traced = {what: sum(e.count for e in ev if e.device_type == DeviceType.CUDA
+                        and match(e.key))
+              for what, (match, _) in checks.items()}
+    counted = {what: sum(after[k] - before[k] for k in names)
+               for what, (_, names) in checks.items()}
+    busy = sum(kernel_us(e) for e in ev) / 1e6
+    calls = {name: sum(e.count for e in ev if e.key == name)
+             for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
+    replays = inside = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == REPLAY:
+            replays += 1
+        elif is_launch(e.name):
+            p = e.cpu_parent
+            while p is not None and p.name != REPLAY:
+                p = p.cpu_parent
+            inside += p is not None
+    log(f"profile, {label}: engine window of {len(reqs)} requests {wall:.3f} "
+        f"s wall (profiled), device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}; cudaLaunchKernel {calls['cudaLaunchKernel']}"
+        f", cudaGraphLaunch {calls['cudaGraphLaunch']}, replayed blocks "
+        f"{replays}, launch calls inside them {inside}; "
+        + "; ".join(f"{what} kernels traced {traced[what]}, counted "
+                    f"{counted[what]}" for what in checks)
+        + f"; CUPTI dropped records {dropped}")
+    for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
+            f"{e.self_cpu_time_total / 1e3:9.1f} ms")
+    for e in sorted(ev, key=lambda e: -kernel_us(e))[:8]:
+        log(f"  device {e.key[:46]:46s} calls {e.count:7d} self "
+            f"{kernel_us(e) / 1e3:9.1f} ms")
+    if inside:
+        raise AssertionError(f"{label}: {inside} kernel launch calls "
+                             "inside replayed decode blocks")
+    for what in checks:
+        if traced[what] != counted[what] or counted[what] <= 0:
+            raise AssertionError(f"{label}: the profiler traced "
+                                 f"{traced[what]} {what} kernels, the launch "
+                                 f"counters say {counted[what]} (CUPTI "
+                                 f"dropped {dropped} records)")
+    if eng.device_sched and not (
+            replays > 0 and calls["cudaGraphLaunch"] >= replays):
+        raise AssertionError(f"{label}: no decode block replayed as a "
+                             f"graph ({replays} spans, "
+                             f"{calls['cudaGraphLaunch']} graph launches)")
+    return {"wall": wall, "busy": busy, "replays": replays,
+            "traced": traced}
+
+
+def sampled_of(reqs):
+    """The requests again, each with its own temperature and seed: a
+    sampled token depends on (seed, emit index, logits), so a replay that
+    read stale state would show even where greedy tokens repeat."""
+    for i, r in enumerate(reqs):
+        r.temperature, r.seed = 1.0 + 0.5 * i, 1000 + i
+    return reqs
+
+
+def serve_modes(cfg, packed, label, requests, *, max_seq, checks, prof=True,
+                sampled=True, same_tokens=True, **kw):
+    """``requests()`` (a fresh list each call) on a warmed engine in each
+    scheduling mode, host-driven then device-resident (its decode block
+    captured at the warm-up's first block and replayed from then on), one
+    engine alive at a time; the device-resident engine is kept.  With
+    ``same_tokens`` the device tokens must be the host ones, greedy (and,
+    with ``sampled``, sampled), and only the host-driven engine may wait on
+    a readback in steady state.  ``prof`` profiles a window of 4 requests
+    in each mode, held to ``checks`` (``profile_window``).  Returns
+    {"host"/"device": {"engine", "reqs", "sampled", "counts", "mem",
+    "stats", "profile"}}."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServingEngine
+    out = {}
+    for mode in ("host", "device"):
+        eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                            prefill_chunk=32, decode_block=8,
+                            device_sched=mode == "device", **kw)
+        eng.run(requests()[:2])            # warm-up (cuBLAS, allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        run = {"reqs": eng.run(requests())}
+        torch.cuda.synchronize()
+        run.update(counts=kernels.launch_counts(), stats=eng.stats,
+                   mem=torch.cuda.max_memory_allocated())
+        engine_line(f"engine, {label}, {mode:6s}", eng.stats, run["mem"])
+        log(f"  launches ({mode}): {run['counts']}")
+        if prof:
+            run["profile"] = profile_window(eng, f"{label}, {mode}",
+                                            requests()[:4], checks)
+        if sampled:
+            run["sampled"] = eng.run(sampled_of(requests()))
+        run["engine"] = eng if mode == "device" else None
+        del eng
+        out[mode] = run
+    dev, host = out["device"], out["host"]
+    if dev["engine"]._graph is None:
+        raise AssertionError(f"{label}: no captured decode block")
+    if not same_tokens:
+        return out
+    for kind in ("reqs", "sampled") if sampled else ("reqs",):
+        for h, d in zip(host[kind], dev[kind]):
+            if h.output.tolist() != d.output.tolist():
+                raise AssertionError(f"{label}: device-resident tokens "
+                                     f"({kind}) {d.output.tolist()} != "
+                                     f"host-driven {h.output.tolist()}")
+    if (dev["stats"]["steady_state_syncs_per_block"] != 0.0
+            or host["stats"]["host_syncs_per_block"] != 1.0):
+        raise AssertionError(f"{label}: gating syncs a block, device "
+                             f"{dev['stats']}, host {host['stats']}")
+    distinct = {kind: len(set(np.concatenate([r.output for r in dev[kind]])))
+                for kind in (("reqs", "sampled") if sampled else ("reqs",))}
+    log(f"  {label}: device-resident tokens == host-driven tokens, "
+        f"{'greedy and sampled' if sampled else 'greedy'} (distinct tokens: "
+        f"{distinct}); graph launches a replay {dev['engine']._graph.launches}")
+    return out
+
+
+def phase9(dev, gen, requests, max_seq):
+    """Phase 9: MoE (mixtral-8x22b), the dense configs (granite-3-2b,
+    command-r-35b, qwen2-72b) and ``frontend="embed"`` (musicgen-medium,
+    internvl2-76b) at full width, 2 layers each, on random weights from a
+    seed.  ``requests()`` gives phase 4's 8 requests afresh.  Returns (the
+    kernels' launches in the phase, the failures found)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import ternary
+    from repro_torch.kernels.tlmm import ref as tlmm_ref
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import reference_decode
+    failures = []
+    # -- 9. MoE, the dense configs and frontend="embed" at full width -------
+    # two layers of each (random weights from a seed); the rest of each
+    # model is as published.  Every path's launches are counted.
+    t_9 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    p9_counts = {}
+
+    def add_counts():
+        for k, v in kernels.launch_counts().items():
+            p9_counts[k] = p9_counts.get(k, 0) + v
+        kernels.reset_launch_counts()
+
+    def router_margins(fn):
+        """Run fn() with every MoE layer's router logits recorded: returns
+        (fn's result, for each routing call in order the margin between the
+        top_k-th and the (top_k + 1)-th router logit of each row)."""
+        seen = []
+
+        def route(p, x, *, top_k, capacity_factor):
+            logits = layers.linear_apply(p.router, x, Ctx()).float()
+            top = torch.topk(logits, top_k + 1, dim=-1).values
+            seen.append((top[:, top_k - 1] - top[:, top_k]).cpu())
+            return orig(p, x, top_k=top_k, capacity_factor=capacity_factor)
+
+        orig = layers.moe_route
+        layers.moe_route = route
+        try:
+            out = fn()
+        finally:
+            layers.moe_route = orig
+        return out, seen
+
+    def chunked_oracle(mc, mp, r, dt):
+        """One request alone as the engine admits it (32-token chunks from
+        0, the last padded past the prompt) on a ``dt`` cache, then one
+        decode step a token fed the engine's tokens: each step's gap (the
+        oracle's top logit minus its logit of the engine's token) and the
+        least router margin over the layers at the row that gives that
+        step's logits (the prompt's last row at the prefill, in the last
+        chunk's routing calls; padding rows are not read)."""
+        c = 32
+        toks = torch.as_tensor(np.asarray(r.prompt, np.int64), device=dev)
+        plen = len(r.prompt)
+        last_row = (plen - 1) % c
+        cache = transformer.init_cache(mc, 1, max_seq, dt, dev)
+        gaps, margins = [], []
+
+        def prefill():
+            for lo in range(0, plen, c):
+                seg = torch.zeros((1, c), dtype=torch.int64, device=dev)
+                seg[0, :min(c, plen - lo)] = toks[lo:lo + c]
+                out, _ = transformer.prefill_chunk(
+                    mc, mp, seg, Ctx(), cache, offsets=[lo],
+                    admit_mask=[True], last_index=[min(plen - 1 - lo,
+                                                       c - 1)])
+            return out
+
+        step = prefill
+        for i, t in enumerate(r.output.tolist()):
+            logits, seen = router_margins(step)
+            row = logits[0].float()
+            gaps.append(float(row.max() - row[t]))
+            margins.append(min(
+                float(s[last_row]) for s in seen[-mc.n_layers:]) if i == 0
+                else min(float(s.min()) for s in seen))
+            pos = plen + i
+            step = (lambda t=t, pos=pos: transformer.decode_step(
+                mc, mp, torch.tensor([[t]], device=dev), Ctx(), cache,
+                pos)[0])
+        return gaps, margins
+
+    # (a) mixtral-8x22b: 8 experts top-2, window 4096; 2 of 56 layers (the
+    # draw and the packed banks: 56 layers' banks alone are ~27 GB)
+    mcfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=2)
+    mfree = dataclasses.replace(mcfg, capacity_factor=float(mcfg.n_experts))
+    torch.cuda.reset_peak_memory_stats()
+    mpacked = transformer.init_packed_params(
+        mcfg, torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    log(f"mixtral-8x22b, 2 layers: packed parameters drawn bank by bank, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+    # B1 at the expert banks' shapes, outside the counted runs: each bank
+    # of layer 0, one tlmm launch an expert (layers._expert_matmul_packed,
+    # as the MoE runs it), at every capacity the engines reach (cf 1.25: 2
+    # rows a tick, 40 a wave; drop-free: 8 and 256), each expert's output
+    # equal bit for bit to the plain version's acc * x_scale * gamma
+    moe0 = mpacked["layers"][0]["moe"]
+    bank_gen = torch.Generator(device=dev).manual_seed(90)
+    bank_lines = []
+    for rows in (2, 8, 40, 256):
+        for bank in layers.MoE.BANKS:
+            codes = getattr(moe0, f"{bank}_codes")
+            gamma = getattr(moe0, f"{bank}_gamma")
+            n_in = mcfg.d_ff if bank == "down" else mcfg.d_model
+            n_out = codes.shape[-1]
+            x = torch.randn((mcfg.n_experts, rows, n_in), generator=bank_gen,
+                            device=dev)
+            got = layers._expert_matmul_packed(codes, gamma, n_in, moe0.g, x)
+            xq, xs = ternary.absmax_quant(x)
+            for e in range(mcfg.n_experts):
+                want = (tlmm_ref.tlmm_ref(xq[e], codes[e], moe0.g,
+                                          n_in).float() * xs[e] * gamma[e])
+                if not torch.equal(got[e], want):
+                    failures.append(f"tlmm at mixtral's {bank} bank, {rows} "
+                                    f"rows, expert {e}: kernel != plain")
+            ms = device_ms(lambda c=codes, gm=gamma, n=n_in, x=x:
+                           layers._expert_matmul_packed(c, gm, n, moe0.g, x))
+            b_ms, b_by = bound_ms(
+                mcfg.n_experts * (rows * n_in + codes[0].numel()
+                                  + rows * n_out * 4),
+                2.0 * mcfg.n_experts * rows * n_in * n_out, INT8_OPS_PER_S)
+            bank_lines.append(f"{bank} ({rows}, {n_in}) -> {n_out}: "
+                              f"device_ms {ms:.4f} bound_ms {b_ms:.4f} "
+                              f"({b_by})")
+    log(f"  tlmm at mixtral's expert banks, {mcfg.n_experts} launches a "
+        "call, each expert == plain bit for bit (wide shapes, not in the "
+        "rows): " + "; ".join(bank_lines))
+    del x, got, xq, xs
+    kernels.reset_launch_counts()
+    moe_checks = {**DECODE_CHECK, **TLMM_CHECK}
+    mres = serve_modes(mfree, mpacked, "mixtral-8x22b 2 layers, drop-free",
+                       requests, max_seq=max_seq, checks=moe_checks,
+                       sampled=False)
+    for mode in ("host", "device"):
+        c = mres[mode]["counts"]
+        for name in ("tlmm", "flash_chunk_prefill", "decode_attention"):
+            if c[name] <= 0:
+                raise AssertionError(f"mixtral engine ({mode}) did not launch "
+                                     f"{name}")
+    log(f"  mixtral drop-free, device-resident: tlmm launches in the profiled"
+        f" window's replays and waves traced {mres['device']['profile']['traced']}")
+    add_counts()
+    mreqs = mres["device"]["reqs"]
+    del mres
+    # the bf16-cache engine judged by an oracle that prefills in the
+    # engine's chunk order on a bf16 cache; a request past the gap passes
+    # only at a router near-tie at its first diverging position (at most 2)
+    near_tie_passes, worst = 0, []
+    for i, r in enumerate(mreqs):
+        gaps, margins = chunked_oracle(mfree, mpacked, r, torch.bfloat16)
+        worst.append(round(max(gaps), 5))
+        if max(gaps) > TOKEN_GAP:
+            first = next(j for j, g in enumerate(gaps) if g > 0)
+            log(f"  mixtral bf16 request {i}: first diverging position {first}"
+                f", gap there {gaps[first]:.5f}, least router margin there "
+                f"{margins[first]:.3g} (near-tie below {ROUTER_NEAR_TIE})")
+            if margins[first] >= ROUTER_NEAR_TIE:
+                failures.append(f"mixtral bf16 request {i} off the chunked "
+                                f"oracle by {max(gaps)} with no router "
+                                "near-tie")
+            else:
+                near_tie_passes += 1
+    log(f"tokens, mixtral bf16 cache vs the chunked bf16 oracle: largest gap "
+        f"per request {worst} (limit {TOKEN_GAP}); passed at a router "
+        f"near-tie: {near_tie_passes} (at most 2)")
+    if near_tie_passes > 2:
+        failures.append(f"mixtral: {near_tie_passes} requests passed only at "
+                        "router near-ties")
+    # the f32-cache engine against the monolithic oracle, as phase 5 judges
+    eng = ServingEngine(mfree, mpacked, max_seq=max_seq, batch_slots=4,
+                        prefill_chunk=32, decode_block=8,
+                        cache_dtype=torch.float32)
+    m32 = eng.run(requests())
+    del eng
+    gaps32 = [max(reference_decode(mfree, mpacked, Ctx(), r.prompt,
+                                   len(r.output), max_seq, torch.float32,
+                                   follow=r.output)[1]) for r in m32]
+    log(f"tokens, mixtral f32 cache vs the monolithic oracle: largest gap per "
+        f"request {[round(g, 5) for g in gaps32]} (limit {TOKEN_GAP})")
+    if max(gaps32) > TOKEN_GAP:
+        failures.append(f"mixtral f32 engine token off the oracle's choice "
+                        f"by {max(gaps32)}")
+    add_counts()
+    # at the config's capacity factor 1.25 capacity couples the lanes (idle
+    # and masked rows count), so the two modes may differ: printed
+    cres = serve_modes(mcfg, mpacked, "mixtral-8x22b 2 layers, cf 1.25",
+                       requests, max_seq=max_seq, checks=moe_checks,
+                       prof=False, sampled=False, same_tokens=False)
+    differ = sum(int(a != b) for h, d in zip(cres["host"]["reqs"],
+                                             cres["device"]["reqs"])
+                 for a, b in zip(h.output.tolist(), d.output.tolist()))
+    log(f"  mixtral cf 1.25: {differ} of "
+        f"{sum(len(r.output) for r in cres['host']['reqs'])} tokens differ "
+        "between host-driven and device-resident")
+    del cres, mpacked, mreqs
+    torch.cuda.empty_cache()
+    add_counts()
+
+    # (b) dense configs: one device-resident engine each on 2 requests,
+    # every token judged by the oracle
+    for name in ("granite-3-2b", "command-r-35b", "qwen2-72b"):
+        dcfg = dataclasses.replace(get_config(name), n_layers=2)
+        torch.cuda.reset_peak_memory_stats()
+        dpacked = transformer.init_packed_params(
+            dcfg, torch.Generator(device=dev).manual_seed(9))
+        eng = ServingEngine(dcfg, dpacked, max_seq=max_seq, batch_slots=4,
+                            prefill_chunk=32, decode_block=8)
+        eng.run(requests()[:1])          # warm-up: the block is captured
+        drs = eng.run(requests()[:2])
+        torch.cuda.synchronize()
+        engine_line(f"engine, {name} 2 layers, device", eng.stats,
+                    torch.cuda.max_memory_allocated())
+        del eng
+        dgaps = [max(reference_decode(dcfg, dpacked, Ctx(), r.prompt,
+                                      len(r.output), max_seq,
+                                      follow=r.output)[1]) for r in drs]
+        log(f"  {name}: tokens {[r.output.tolist()[:8] for r in drs]}...; "
+            f"largest oracle gap per request {[round(g, 5) for g in dgaps]} "
+            f"(limit {TOKEN_GAP})")
+        if max(dgaps) > TOKEN_GAP or not all(
+                len(r.output) == r.max_new_tokens for r in drs):
+            failures.append(f"{name} engine off the oracle by {max(dgaps)}")
+        del dpacked
+        torch.cuda.empty_cache()
+        add_counts()
+
+    # (c) frontend="embed": precomputed embeddings from the seed; the
+    # decode step after prefill_step against a monolithic prefill one longer
+    for name in ("musicgen-medium", "internvl2-76b"):
+        ecfg = dataclasses.replace(get_config(name), n_layers=2)
+        epacked = transformer.init_packed_params(
+            ecfg, torch.Generator(device=dev).manual_seed(9))
+        emb = torch.randn((1, 97, ecfg.d_model), generator=gen, device=dev)
+        s_ = emb.shape[1] - 1
+        for dt in (torch.float32, torch.bfloat16):
+            lim = (LOGIT_TOL_EXACT if dt == torch.float32
+                   else LOGIT_TOL_PERTURBED)
+            cache = transformer.init_cache(ecfg, 1, max_seq, dt, dev)
+            first, _ = transformer.prefill_step(ecfg, epacked, emb[:, :s_],
+                                                Ctx(), cache)
+            step, _ = transformer.decode_step(ecfg, epacked, emb[:, s_:],
+                                              Ctx(), cache, s_)
+            longer, _ = transformer.prefill_step(
+                ecfg, epacked, emb, Ctx(),
+                transformer.init_cache(ecfg, 1, max_seq, dt, dev))
+            diff = (step - longer).abs().max().item()
+            log(f"  {name} 2 layers, {dt} cache: decode step after "
+                f"prefill_step vs monolithic prefill of {s_ + 1}: max |diff| "
+                f"{diff:.3g} (tolerance {lim}); logits "
+                f"{tuple(step.shape)}, range [{step.min().item():.3f}, "
+                f"{step.max().item():.3f}]")
+            if not (torch.isfinite(step).all() and torch.isfinite(first).all()
+                    and step.shape == (1, ecfg.vocab_size)):
+                failures.append(f"{name}: logits not finite or of the wrong "
+                                "shape")
+            if diff > lim:
+                failures.append(f"{name} {dt}: decode vs prefill {diff}")
+        del epacked
+        torch.cuda.empty_cache()
+        add_counts()
+    log(f"phase 9: {time.perf_counter() - t_9:.1f} s; launches {p9_counts}")
+    return p9_counts, failures
 
 
 def main() -> int:
@@ -280,6 +748,7 @@ def main() -> int:
     from repro_torch.kernels.tlmm_lut import ref as lut_ref
     from repro_torch.models import attention, transformer
     from repro_torch.models.layers import Ctx
+    from torch import nn
     from repro_torch.serving import (FaultInjector, Request, RequestStatus,
                                      ServingEngine)
     from repro_torch.serving.engine import reference_decode
@@ -565,6 +1034,50 @@ def main() -> int:
             "ops": 12.0 * m * f, "peak": F32_FLOPS_PER_S})
     entry("swiglu_quant", "src/repro_torch/csrc/swiglu_quant.cu",
           "src/repro/kernels/swiglu_quant/kernel.py:17", calls)
+
+    # rows past the serving shapes, outside the JSON rows: rmsnorm_quant past
+    # one chunk a thread (d > 8192) and swiglu_quant past shared memory
+    # (f > 29040, qwen2-72b's 29568) take the looping kernels; each is held
+    # to its plain version (rmsnorm_quant in the kernel's order) bit for bit
+    wide_lines = []
+    for d_w in (8192 + 8, 16384):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(4, d_w, generator=gen, device=dev) * 3).to(dt)
+            w = 1 + 0.1 * torch.randn(d_w, generator=gen, device=dev)
+            got = rq_ops.rmsnorm_quant(x, w)
+            shape = f"x (4, {d_w}) {dt}"
+            quant_err(f"rmsnorm_quant {shape} vs the plain version in the "
+                      "kernel's order", got, rq_ref.rmsnorm_quant_ref(
+                          x, w, warps=rq_plan.warps_per_row(d_w)), exact=True)
+            quant_err(f"rmsnorm_quant {shape}", got,
+                      rq_ref.rmsnorm_quant_ref(x, w), exact=False)
+            ms = device_ms(lambda x=x, w=w: rq_ops.rmsnorm_quant(x, w))
+            pms = device_ms(lambda x=x, w=w: rq_ref.rmsnorm_quant_ref(x, w),
+                            iters=3)
+            b_ms, _ = bound_ms(4 * d_w * (x.element_size() + 1) + d_w * 4,
+                               8.0 * 4 * d_w, F32_FLOPS_PER_S)
+            wide_lines.append(f"rmsnorm_quant {shape} device_ms {ms:.4f} "
+                              f"plain_ms {pms:.4f} bound_ms {b_ms:.5f}")
+    for f_w in (29568, 65536):
+        for m in (4, 128):
+            gate_i, up_i = (torch.randint(-3000, 3000, (m, f_w), generator=gen,
+                                          device=dev, dtype=torch.int32)
+                            for _ in range(2))
+            gs = torch.rand(m, 1, generator=gen, device=dev) * 1e-3
+            us = torch.rand(m, 1, generator=gen, device=dev) * 1e-3
+            args = (gate_i, up_i, gs, us)
+            shape = f"gate, up ({m}, {f_w}) int32"
+            quant_err(f"swiglu_quant {shape}", sq_ops.swiglu_quant(*args),
+                      sq_ref.swiglu_quant_ref(*args), exact=True)
+            ms = device_ms(lambda a=args: sq_ops.swiglu_quant(*a))
+            pms = device_ms(lambda a=args: sq_ref.swiglu_quant_ref(*a),
+                            iters=3)
+            b_ms, _ = bound_ms(m * f_w * 9 + m * 12, 12.0 * m * f_w,
+                               F32_FLOPS_PER_S)
+            wide_lines.append(f"swiglu_quant {shape} device_ms {ms:.4f} "
+                              f"plain_ms {pms:.4f} bound_ms {b_ms:.5f}")
+    log("  wide rows (looping kernels, not in the rows): "
+        + "; ".join(wide_lines))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -917,147 +1430,15 @@ def main() -> int:
     def kv_mib(rows):   # bf16 K and V over every layer
         return rows * cfg.n_layers * cfg.kv_dim * 2 * 2 / 2**20
 
-    def engine_line(name, s, mem=None):
-        extra = "" if mem is None else (f"; max_memory_allocated "
-                                        f"{mem / 2**30:.3f} GiB")
-        log(f"{name}: {s['total_new_tokens']} tokens in {s['wall_s']:.3f} s "
-            f"= {s['tokens_per_s']:.1f} tok/s; decode {s['decode_tok_s']:.1f} "
-            f"tok/s; TTFT p50 {s['ttft_p50_s']:.4f} s p95 "
-            f"{s['ttft_p95_s']:.4f} s; waves {s['prefill_chunks']}, blocks "
-            f"{s['decode_blocks']} (steady {s['steady_state_blocks']}, "
-            f"{s['steady_state_syncs_per_block']:.1f} gating syncs a steady "
-            f"block)" + extra)
-
-    # where an engine window's time goes: host-side ops vs device kernels.
-    # A replayed decode block is the span REPLAY (ServingEngine); a launch
-    # call inside it would be a kernel launched one by one in steady state.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def is_launch(name):
-        return name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
-
-    DECODE_COUNTERS = ("decode_attention", "decode_attention_paged",
-                       "decode_attention_paged_quant")
-
-    def decode_launches():
-        c = kernels.launch_counts()
-        return sum(c[k] for k in DECODE_COUNTERS)
-
-    def profile_window(eng, label):
-        before = decode_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.run(requests()[:4])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        counted = decode_launches() - before
-        dropped = cupti_dropped()
-        ev = prof.key_averages()
-        # the decode kernels the profiler saw on the device, replays included
-        traced = sum(e.count for e in ev if e.device_type == DeviceType.CUDA
-                     and "decode_attn_kernel" in e.key)
-        busy = sum(kernel_us(e) for e in ev) / 1e6
-        calls = {name: sum(e.count for e in ev if e.key == name)
-                 for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
-        replays = inside = 0
-        for e in prof.events():
-            if e.device_type != DeviceType.CPU:
-                continue
-            if e.name == REPLAY:
-                replays += 1
-            elif is_launch(e.name):
-                p = e.cpu_parent
-                while p is not None and p.name != REPLAY:
-                    p = p.cpu_parent
-                inside += p is not None
-        log(f"profile, {label}: engine window of 4 requests {wall:.3f} s wall "
-            f"(profiled), device busy {busy:.3f} s, idle share "
-            f"{1 - busy / wall:.3f}; cudaLaunchKernel {calls['cudaLaunchKernel']}"
-            f", cudaGraphLaunch {calls['cudaGraphLaunch']}, replayed blocks "
-            f"{replays}, launch calls inside them {inside}; decode kernels "
-            f"traced {traced}, counted {counted}; CUPTI dropped records "
-            f"{dropped}")
-        for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]:
-            log(f"  host {e.key[:48]:48s} calls {e.count:7d} self "
-                f"{e.self_cpu_time_total / 1e3:9.1f} ms")
-        for e in sorted(ev, key=lambda e: -kernel_us(e))[:8]:
-            log(f"  device {e.key[:46]:46s} calls {e.count:7d} self "
-                f"{kernel_us(e) / 1e3:9.1f} ms")
-        if inside:
-            raise AssertionError(f"{label}: {inside} kernel launch calls "
-                                 "inside replayed decode blocks")
-        if traced != counted or counted <= 0:
-            raise AssertionError(f"{label}: the profiler traced {traced} "
-                                 f"decode attention kernels, the launch "
-                                 f"counters say {counted} (CUPTI dropped "
-                                 f"{dropped} records)")
-        if eng.device_sched and not (
-                replays > 0 and calls["cudaGraphLaunch"] >= replays):
-            raise AssertionError(f"{label}: no decode block replayed as a "
-                                 f"graph ({replays} spans, "
-                                 f"{calls['cudaGraphLaunch']} graph launches)")
-
     def sampled():
-        """The 8 requests again, each with its own temperature and seed:
-        a sampled token depends on (seed, emit index, logits), so a replay
-        that read stale state would show even where greedy tokens repeat."""
-        reqs = requests()
-        for i, r in enumerate(reqs):
-            r.temperature, r.seed = 1.0 + 0.5 * i, 1000 + i
-        return reqs
+        return sampled_of(requests())
 
     def serve(label, prof=True, **kw):
-        """The 8 requests on a warmed engine in each scheduling mode,
-        host-driven then device-resident (its decode block captured at the
-        warm-up's first block and replayed from then on), one engine alive
-        at a time; the device-resident engine is kept.  The device tokens
-        must be the host ones, greedy and sampled, and only the
-        host-driven engine may wait on a readback in steady state.  Returns
-        {"host"/"device": {"engine", "reqs", "sampled", "counts", "mem",
-        "stats"}}."""
-        out = {}
-        for mode in ("host", "device"):
-            eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
-                                prefill_chunk=32, decode_block=8,
-                                device_sched=mode == "device", **kw)
-            eng.run(requests()[:2])            # warm-up (cuBLAS, allocator)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launch_counts()
-            run = {"reqs": eng.run(requests())}
-            torch.cuda.synchronize()
-            run.update(counts=kernels.launch_counts(), stats=eng.stats,
-                       mem=torch.cuda.max_memory_allocated())
-            engine_line(f"engine, {label}, {mode:6s}", eng.stats, run["mem"])
-            log(f"  launches ({mode}): {run['counts']}")
-            if prof:
-                profile_window(eng, f"{label}, {mode}")
-            run["sampled"] = eng.run(sampled())
-            run["engine"] = eng if mode == "device" else None
-            del eng
-            out[mode] = run
-        dev, host = out["device"], out["host"]
-        if dev["engine"]._graph is None:
-            raise AssertionError(f"{label}: no captured decode block")
-        for kind in ("reqs", "sampled"):
-            for h, d in zip(host[kind], dev[kind]):
-                if h.output.tolist() != d.output.tolist():
-                    raise AssertionError(f"{label}: device-resident tokens "
-                                         f"({kind}) {d.output.tolist()} != "
-                                         f"host-driven {h.output.tolist()}")
-        if (dev["stats"]["steady_state_syncs_per_block"] != 0.0
-                or host["stats"]["host_syncs_per_block"] != 1.0):
-            raise AssertionError(f"{label}: gating syncs a block, device "
-                                 f"{dev['stats']}, host {host['stats']}")
-        log(f"  {label}: device-resident tokens == host-driven tokens, "
-            f"greedy and sampled (distinct tokens: greedy "
-            f"{len(set(np.concatenate([r.output for r in dev['reqs']])))}, "
-            f"sampled "
-            f"{len(set(np.concatenate([r.output for r in dev['sampled']])))}"
-            f"); graph launches a replay {dev['engine']._graph.launches}")
-        return out
+        return serve_modes(cfg, packed, label, requests, max_seq=max_seq,
+                           checks=DECODE_CHECK, prof=prof, **kw)
 
     def pool_ok(label, runs):
         """The 25-page pool in both modes: admission deferred, the peak
@@ -1333,7 +1714,7 @@ def main() -> int:
     s = eng.stats
     log(f"  replayed blocks {replays} ({before} before the outage, {after} "
         f"after the promotion), launch calls inside them {inside}; decode "
-        f"launches counted {decode_launches()}, blocks read back {fi.n} of "
+        f"launches counted {launch_total(DECODE_COUNTERS)}, blocks read back {fi.n} of "
         f"{s['decode_blocks']}")
     if (s["sched_fallbacks"] != 1 or s["repromotions"] != 1
             or s["degraded_blocks"] < 1 or eng.lifetime["graph_captures"] != 1
@@ -1341,7 +1722,7 @@ def main() -> int:
             or s["steady_state_blocks"] < 1 or after < 1 or inside
             or replays != before + after
             or fi.n >= s["decode_blocks"]
-            or decode_launches() != fi.n * eng.decode_block * cfg.n_layers):
+            or launch_total(DECODE_COUNTERS) != fi.n * eng.decode_block * cfg.n_layers):
         raise AssertionError(f"robustness (b): replays {replays}, inside "
                              f"{inside}, trace {trace}, {s}")
     held_to("robustness (b)", rb, reqs)
@@ -1699,6 +2080,41 @@ def main() -> int:
         failures.append(f"fused FFN off the unfused path ({worst_unfused} of "
                         f"the tolerance)")
 
+    # one layer at qwen2-72b's width (d 8192, f 29568): swiglu_quant on its
+    # looping path, against the same dataflow on the plain versions
+    qcfg = get_config("qwen2-72b")
+    qd, qf = qcfg.d_model, qcfg.d_ff
+    wide_mlp = nn.ModuleDict({
+        n: bitlinear.pack(bitlinear.init(gen, a, b), qcfg.group_size)
+        for n, (a, b) in (("gate", (qd, qf)), ("up", (qd, qf)),
+                          ("down", (qf, qd)))})
+    wide_w = torch.ones(qd, device=dev)
+    wide_cpu = copy.deepcopy(wide_mlp).cpu()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    worst_wide = 0.0
+    for m in (4, 128):
+        x = torch.randn(m, qd, generator=gen, device=dev)
+        y = fused_block.fused_ffn_packed(wide_mlp, wide_w, x)
+        plain = fused_block.fused_ffn_packed(wide_cpu, wide_w.cpu(), x.cpu())
+        if not (torch.isfinite(y).all() and y.shape == x.shape):
+            raise AssertionError("wide fused FFN output not finite or of the "
+                                 "wrong shape")
+        diff = (y.cpu() - plain).abs().max().item() / plain.std().item()
+        worst_wide = max(worst_wide, diff)
+    torch.cuda.synchronize()
+    ffn_wide_counts = kernels.launch_counts()
+    log(f"fused FFN at qwen2-72b's width (d {qd}, f {qf}, one layer, m 4 and "
+        f"128): max |fused - plain dataflow| {worst_wide:.3g} x std (limit "
+        f"{FFN_PLAIN_TOL}); launches {ffn_wide_counts}")
+    if worst_wide > FFN_PLAIN_TOL:
+        failures.append(f"wide fused FFN differs from its plain dataflow by "
+                        f"{worst_wide} x std")
+    if ffn_wide_counts["swiglu_quant"] != 2 or \
+            ffn_wide_counts["rmsnorm_quant"] != 2:
+        failures.append(f"wide fused FFN launches {ffn_wide_counts}")
+    del wide_mlp, wide_cpu
+
     log(f"-- phase 7 at {time.perf_counter() - t_main:.1f} s")
     # -- 7. the LUT oracle: every ternary linear on tlmm_lut ------------------
     # two requests at full depth with an f32 cache; the int32 sums are exact
@@ -1757,11 +2173,21 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    log(f"-- phase 9 at {time.perf_counter() - t_main:.1f} s")
+    p9_counts, p9_failures = phase9(dev, gen, requests, max_seq)
+    failures += p9_failures
+    for name in ("tlmm", "flash_prefill", "flash_chunk_prefill",
+                 "decode_attention"):
+        if p9_counts.get(name, 0) <= 0:
+            failures.append(f"phase 9 did not launch {name}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
-        row["launches"] = sum(c[row["name"]] for c in (
+        row["launches"] = sum(c.get(row["name"], 0) for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
             robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
-            bf16_counts))
+            bf16_counts, ffn_wide_counts, p9_counts))
 
     log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))

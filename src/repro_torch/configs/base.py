@@ -1,7 +1,8 @@
 """Model configuration dataclass (the port's own copy of the JAX package's).
 
 Every field keeps the JAX name and default so a configuration reads the
-same in both packages; the port serves ``block_kind="attn"`` models only.
+same in both packages; the port runs ``block_kind="attn"`` models (dense
+or MoE, token or embed frontend) and refuses the recurrent kinds.
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.hd
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can decode at 500k context (state or window)."""
+        return (self.block_kind in ("hymba", "xlstm_pair")
+                or self.swa_window is not None)
 
     def reduced(self, n_layers: int = 2, d_model: int = 64, n_heads: int = 2,
                 n_kv_heads: int | None = None, d_ff: int | None = None,

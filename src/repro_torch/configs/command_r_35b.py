@@ -1,0 +1,12 @@
+"""command-r-35b — GQA, no-bias [hf:CohereForAI/c4ai-command-r-v01; unverified].
+
+40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-35b", family="dense", block_kind="attn",
+    n_layers=40, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=22528, vocab_size=256000,
+)

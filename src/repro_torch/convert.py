@@ -4,7 +4,8 @@
 pack_params`` returns (layer leaves stacked along a leading L axis), with
 every leaf already converted to a numpy array by the caller, and builds the
 port's packed parameters — so both packages compute on the same codes,
-gammas, biases, norms and embeddings.  ``packed_from_jax`` does the same for
+gammas, biases, norms, routers, expert banks (``{gate,up,down}_{codes,
+gamma}`` stacked (L, E, ...)), embeddings and LM heads.  ``packed_from_jax`` does the same for
 one packed linear (``repro.core.bitlinear.pack``'s dict).  This module never
 imports JAX.
 """
@@ -17,8 +18,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitlinear import Linear, PackedLinear
-from repro_torch.models.layers import Embedding, RMSNorm
-from repro_torch.models.transformer import require_attn
+from repro_torch.models.layers import MoE, Embedding, RMSNorm
+from repro_torch.models.transformer import require_servable
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -36,7 +37,7 @@ def packed_from_jax(d: dict, g: int, device: str | torch.device = "cuda"
 
 def from_jax_packed(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> nn.ModuleDict:
-    require_attn(cfg)
+    require_servable(cfg)
 
     def t(a):
         return _tensor(a, device)
@@ -45,24 +46,34 @@ def from_jax_packed(cfg: ModelConfig, tree: dict,
         return packed_from_jax({k: v[i] for k, v in d.items()},
                                cfg.group_size, device)
 
+    def dense(d, i=None):
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        return Linear(t(pick(d["w"])), t(pick(d["b"])) if "b" in d else None)
+
     lay = tree["layers"]
     blocks = nn.ModuleList()
     for i in range(cfg.n_layers):
-        blocks.append(nn.ModuleDict({
+        block = nn.ModuleDict({
             "ln1": RMSNorm(t(lay["ln1"]["w"][i])),
             "ln2": RMSNorm(t(lay["ln2"]["w"][i])),
             "attn": nn.ModuleDict({n: packed(lay["attn"][n], i)
-                                   for n in ("q", "k", "v", "o")}),
-            "mlp": nn.ModuleDict({n: packed(lay["mlp"][n], i)
-                                  for n in ("gate", "up", "down")}),
-        }))
+                                   for n in ("q", "k", "v", "o")})})
+        if "moe" in lay:
+            m = lay["moe"]
+            block["moe"] = MoE(dense(m["router"], i), {
+                f"{n}_{part}": t(m[f"{n}_{part}"][i])
+                for n in MoE.BANKS for part in ("codes", "gamma")},
+                g=cfg.group_size)
+        if "mlp" in lay:
+            block["mlp"] = nn.ModuleDict({n: packed(lay["mlp"][n], i)
+                                          for n in ("gate", "up", "down")})
+        blocks.append(block)
     params = nn.ModuleDict({
         "layers": blocks,
         "final_norm": RMSNorm(t(tree["final_norm"]["w"])),
-        "embed": Embedding(t(tree["embed"]["tok"])),
     })
+    if "embed" in tree:
+        params["embed"] = Embedding(t(tree["embed"]["tok"]))
     if "lm_head" in tree:
-        head = tree["lm_head"]
-        params["lm_head"] = Linear(t(head["w"]),
-                                   t(head["b"]) if "b" in head else None)
+        params["lm_head"] = dense(tree["lm_head"])
     return params

@@ -20,8 +20,12 @@
 // reduced by shuffles and one shared-memory exchange, and each thread
 // quantizes its values from registers and stores 4 codes at once.  A row
 // too wide for registers is staged once into shared memory by cp.async
-// instead (h overwrites the gate chunk there; rows up to 29040 values).
-// No value is read twice and each expf runs once.  A maximum does not
+// instead (h overwrites the gate chunk there; rows up to 29040 values).  A
+// row too wide for shared memory (qwen2-72b's 29568) is looped: 1024
+// threads walk chunks t, t + 1024, ... from global memory twice, h and the
+// maximum first, then h again and the codes (each value's arithmetic is
+// its own, so h is the same bits both times).  Below the looped widths no
+// value is read twice and each expf runs once.  A maximum does not
 // depend on its order, so the bits do not depend on the layout.  (Splitting
 // a small-m row over a thread-block cluster with a distributed-shared-
 // memory maximum lost to one block a row at every m and width timed: its
@@ -107,8 +111,12 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return v;
 }
 
+// Where a block keeps its row: registers, shared memory, or nowhere (the
+// looped row, read twice).
+enum Path { REGS, STAGED, LOOPED };
+
 // Block b quantizes row b; thread t holds the chunks t + k * T.
-template <bool VEC, bool STAGED>
+template <bool VEC, int PATH>
 __global__ void __launch_bounds__(MAX_THREADS)
 swiglu_quant_kernel(const int32_t* __restrict__ gate, int64_t ldg,
                     const int32_t* __restrict__ up, int64_t ldu,
@@ -126,7 +134,7 @@ swiglu_quant_kernel(const int32_t* __restrict__ gate, int64_t ldg,
   const float gs = gscale[row], us = uscale[row];
   float amax = 0.f;
 
-  if constexpr (!STAGED) {
+  if constexpr (PATH == REGS) {
     int4 g[KMAX], u[KMAX];
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
@@ -147,6 +155,19 @@ swiglu_quant_kernel(const int32_t* __restrict__ gate, int64_t ldg,
       const int c = t + k * T;
       if (c < nc) store_chunk<VEC>(qr, c, f, h[k], sc);
     }
+    if (t == 0) scale[row] = sc;
+  } else if constexpr (PATH == LOOPED) {
+    for (int c = t; c < nc; c += T)
+      swiglu4(load_chunk<VEC>(gr, c, f), load_chunk<VEC>(ur, c, f), gs, us,
+              amax);
+    const float sc =
+        __fmul_rn(fmaxf(block_max(amax, red), 1e-5f), 1.0f / 127.0f);
+    float unused = 0.f;
+    for (int c = t; c < nc; c += T)
+      store_chunk<VEC>(qr, c, f,
+                       swiglu4(load_chunk<VEC>(gr, c, f),
+                               load_chunk<VEC>(ur, c, f), gs, us, unused),
+                       sc);
     if (t == 0) scale[row] = sc;
   } else {
     int4* gst = stage;
@@ -184,13 +205,13 @@ swiglu_quant_kernel(const int32_t* __restrict__ gate, int64_t ldg,
   }
 }
 
-template <bool VEC, bool STAGED>
+template <bool VEC, int PATH>
 int launch(const void* gate, int64_t ldg, const void* up, int64_t ldu,
            const void* gscale, const void* uscale, void* q, void* scale,
            int m, int f, int threads, cudaStream_t st) {
   const size_t smem =
-      STAGED ? 2 * sizeof(int4) * ((f + CHUNK - 1) / CHUNK) : 0;
-  const auto kernel = swiglu_quant_kernel<VEC, STAGED>;
+      PATH == STAGED ? 2 * sizeof(int4) * ((f + CHUNK - 1) / CHUNK) : 0;
+  const auto kernel = swiglu_quant_kernel<VEC, PATH>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -213,9 +234,9 @@ int launch(const void* gate, int64_t ldg, const void* up, int64_t ldu,
 // row on 16 bytes and f be a multiple of 4).  The layout follows f alone
 // (kernels/swiglu_quant/plan.py): THREADS threads a block, more (up to
 // MAX_THREADS) while KMAX chunks a thread hold a row in registers, past
-// that MAX_THREADS threads on the row staged in shared memory, which must
-// fit beside the block's static shared memory.  A call the kernel does not
-// take returns cudaErrorInvalidValue.
+// that MAX_THREADS threads on the row staged in shared memory where it fits
+// beside the block's static shared memory, and looped where it does not.
+// A call the kernel does not take returns cudaErrorInvalidValue.
 REPRO_API int swiglu_quant_launch(const void* gate, int64_t ldg,
                                   const void* up, int64_t ldu,
                                   const void* gscale, const void* uscale,
@@ -228,20 +249,26 @@ REPRO_API int swiglu_quant_launch(const void* gate, int64_t ldg,
     threads = std::min(MAX_THREADS,
                        32 * ((nc + 32 * KMAX - 1) / (32 * KMAX)));
   const bool staged = (nc + threads - 1) / threads > KMAX;
+  const bool looped =
+      staged && 2 * int64_t(sizeof(int4)) * nc +
+                        int64_t(sizeof(float)) * (MAX_THREADS / 32) > MAX_SMEM;
   if (f < 1 ||
-      (staged && 2 * int64_t(sizeof(int4)) * nc +
-                     int64_t(sizeof(float)) * (MAX_THREADS / 32) > MAX_SMEM) ||
       (vec && !(f % CHUNK == 0 &&
                 repro::aligned16(gate, {ldg * int64_t(sizeof(int32_t))}) &&
                 repro::aligned16(up, {ldu * int64_t(sizeof(int32_t))}))))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (looped)
+    return vec ? launch<true, LOOPED>(gate, ldg, up, ldu, gscale, uscale, q,
+                                      scale, m, f, threads, st)
+               : launch<false, LOOPED>(gate, ldg, up, ldu, gscale, uscale, q,
+                                       scale, m, f, threads, st);
   if (staged)
-    return vec ? launch<true, true>(gate, ldg, up, ldu, gscale, uscale, q,
-                                    scale, m, f, threads, st)
-               : launch<false, true>(gate, ldg, up, ldu, gscale, uscale, q,
-                                     scale, m, f, threads, st);
-  return vec ? launch<true, false>(gate, ldg, up, ldu, gscale, uscale, q,
-                                   scale, m, f, threads, st)
-             : launch<false, false>(gate, ldg, up, ldu, gscale, uscale, q,
-                                    scale, m, f, threads, st);
+    return vec ? launch<true, STAGED>(gate, ldg, up, ldu, gscale, uscale, q,
+                                      scale, m, f, threads, st)
+               : launch<false, STAGED>(gate, ldg, up, ldu, gscale, uscale, q,
+                                       scale, m, f, threads, st);
+  return vec ? launch<true, REGS>(gate, ldg, up, ldu, gscale, uscale, q,
+                                  scale, m, f, threads, st)
+             : launch<false, REGS>(gate, ldg, up, ldu, gscale, uscale, q,
+                                   scale, m, f, threads, st);
 }

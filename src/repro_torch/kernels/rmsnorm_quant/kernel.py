@@ -3,7 +3,8 @@
 
 Replaces ``repro/kernels/rmsnorm_quant/kernel.py::rmsnorm_quant_kernel``;
 the source note in ``rmsnorm_quant.cu`` says what bounds it on the card and
-how its design answers.  One block serves a row (``plan.py``); 16-byte
+how its design answers.  One block serves a row (``plan.py``), a row wider
+than ``plan.MAX_D`` by its LOOP instantiation; 16-byte
 loads are taken where x's rows and w start on 16 bytes, else the kernel's
 scalar instantiation reads the same chunks.
 """
@@ -18,8 +19,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def rmsnorm_quant_cuda(x: torch.Tensor, w: torch.Tensor, *, eps: float):
     """(m, d) f32/bf16 x, (d,) f32/bf16 w, on the card -> ((m, d) int8,
-    (m, 1) f32 scales).  Takes rows of 0 < d <= ``plan.MAX_D`` (8192)
-    values and raises on wider ones."""
+    (m, 1) f32 scales).  Rows of d <= ``plan.MAX_D`` (8192) values take
+    one chunk a thread, wider ones the kernel's LOOP instantiation."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("rmsnorm_quant_cuda takes CUDA tensors on one device")
     if x.dtype not in DTYPES or w.dtype not in DTYPES:

@@ -17,6 +17,9 @@ additions give the same bits as torch's.
 One chunk a thread and one row a block took the least time at every
 shape ``tools/norm_quant_plan_sweep.py`` timed with other warps a row
 (more chunks a thread) and rows a block, on an H100 at 700 W (PERF.md).
+Rows wider than ``MAX_D`` (more chunks than the kernel's 1024 threads) go
+to the kernel's LOOP instantiation: 32 warps, thread t walking chunks t,
+t + 1024, ... in order (:func:`looped`); the same replay covers it.
 
 Pure Python apart from the replay, which imports torch when called.
 """
@@ -32,13 +35,19 @@ def n_chunks(d: int) -> int:
     return -(-d // CHUNK)
 
 
+def looped(d: int) -> bool:
+    """Whether a row takes the kernel's LOOP instantiation (more than one
+    chunk a thread)."""
+    return d > MAX_D
+
+
 def warps_per_row(d: int) -> int:
-    """Warps of the block that serves a row: one chunk a thread.  Raises
-    for a row wider than the kernel takes (d > MAX_D)."""
-    if not 0 < d <= MAX_D:
+    """Warps of the block that serves a row: one chunk a thread, or all 32
+    for a looped row.  Raises for an empty row."""
+    if d < 1:
         raise ValueError(f"rmsnorm_quant: rows of {d} values; the kernel "
-                         f"takes 0 < d <= {MAX_D}")
-    return -(-n_chunks(d) // 32)
+                         f"takes d > 0")
+    return min(-(-n_chunks(d) // 32), MAX_THREADS // 32)
 
 
 def vector_ok(x_ptr: int, x_row_bytes: int, w_ptr: int, d: int) -> bool:
@@ -51,7 +60,8 @@ def vector_ok(x_ptr: int, x_row_bytes: int, w_ptr: int, d: int) -> bool:
 
 def thread_chunks(d: int, warps: int, t: int) -> list:
     """The chunks thread t of a row of ``warps`` warps holds, in its
-    summation order (one, t, for the plan's warps)."""
+    summation order (one, t, for the plan's warps on a row that is not
+    looped)."""
     return list(range(t, n_chunks(d), 32 * warps))
 
 

@@ -4,7 +4,8 @@
 Replaces ``repro/kernels/swiglu_quant/kernel.py::swiglu_quant_kernel``; the
 source note in ``swiglu_quant.cu`` says what bounds it on the card and how
 its design answers.  One block serves a row, in registers or, for rows
-wider than ``plan.MAX_REGISTER_F``, staged in shared memory (``plan.py``);
+wider than ``plan.MAX_REGISTER_F``, staged in shared memory, or, wider
+than ``plan.MAX_F``, read twice from global memory (``plan.py``);
 16-byte loads are taken where gate's and up's rows start on 16 bytes, else
 the kernel's scalar instantiation reads the same chunks.
 """
@@ -18,8 +19,8 @@ from repro_torch.kernels.swiglu_quant import plan
 def swiglu_quant_cuda(gate: torch.Tensor, up: torch.Tensor,
                       gscale: torch.Tensor, uscale: torch.Tensor):
     """(m, f) int32 gate and up accumulators, (m,) f32 dequant scales, on
-    the card -> ((m, f) int8, (m, 1) f32 scales).  Takes rows of
-    0 < f <= ``plan.MAX_F`` (29040) values and raises on wider ones."""
+    the card -> ((m, f) int8, (m, 1) f32 scales).  Rows wider than
+    ``plan.MAX_F`` (29040) values are looped."""
     ts = (gate, up, gscale, uscale)
     if not all(t.is_cuda and t.device == gate.device for t in ts):
         raise ValueError("swiglu_quant_cuda takes CUDA tensors on one device")

@@ -11,9 +11,10 @@ its own values.  A maximum does not depend on its order and every value's
 arithmetic is its own, so the layout changes no bit.
 
 The layout follows f alone, as the C launch computes it (:func:`threads`,
-:func:`staged`): rows up to ``MAX_REGISTER_F`` (8192) values stay in
-registers, rows up to :data:`MAX_F` (29040) are staged, wider ones are
-refused.  ``THREADS`` = 512 a block took the least time at f = 4096 and
+:func:`staged`, :func:`looped`): rows up to ``MAX_REGISTER_F`` (8192)
+values stay in registers, rows up to :data:`MAX_F` (29040) are staged,
+wider ones (qwen2-72b's 29568) are looped: the same partition read from
+global memory twice, h and the maximum, then h again and the codes.  ``THREADS`` = 512 a block took the least time at f = 4096 and
 2816, m = 1, 4 and 128, on an H100 at 700 W (PERF.md, the sweep table of
 ``tools/norm_quant_plan_sweep.py``), against 128-1024 threads, the
 shared-memory path and a row split over a thread-block cluster of 2, 4 or
@@ -50,9 +51,14 @@ def threads(f: int) -> int:
     return t
 
 
+def looped(f: int) -> bool:
+    """Whether a row is too wide for shared memory and is read twice."""
+    return f > MAX_F
+
+
 def staged(f: int) -> bool:
     """Whether a row stays in shared memory, not registers."""
-    return -(-n_chunks(f) // threads(f)) > KMAX
+    return -(-n_chunks(f) // threads(f)) > KMAX and not looped(f)
 
 
 def smem_bytes(f: int) -> int:
@@ -62,10 +68,10 @@ def smem_bytes(f: int) -> int:
 
 
 def check(f: int) -> None:
-    """Raise on a row width the kernel does not take."""
-    if not 0 < f <= MAX_F:
+    """Raise on a row width the kernel does not take (an empty row)."""
+    if f < 1:
         raise ValueError(f"swiglu_quant: rows of {f} values; the kernel "
-                         f"takes 0 < f <= {MAX_F}")
+                         f"takes f > 0")
 
 
 def vector_ok(ptrs, row_bytes, f: int) -> bool:

@@ -1,5 +1,6 @@
 """Shared model layers: execution context, linear dispatch, RMSNorm, RoPE
-(paper eq. 4/5), SwiGLU MLP and the token embedding.
+(paper eq. 4/5), SwiGLU MLP, the top-k MoE with ternary expert banks and
+the token embedding.
 
 Counterpart of ``repro/models/layers.py`` for attention-block decoders.
 Parameters are ``nn.Module``s holding buffers; the functions are plain
@@ -9,15 +10,18 @@ functions on tensors, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
-from repro_torch.core import bitlinear
+from repro_torch.core import bitlinear, ternary
 from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
+from repro_torch.kernels.tlmm import ops as tlmm_ops
 
 # whole-prompt attention of Ctx.attn: the kernel and the two Fig. 6b baselines
 ATTNS = ("kernel", "skip", "naive")
+
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
@@ -46,6 +50,10 @@ class Ctx:
     ``kv_group_size`` ranks, the mesh's ``model`` axis; JAX's
     ``kv_shard_axis``/``kv_shard_size``) each rank computes K / size chunks
     and the partials are all-gathered in rank order before the combine.
+
+    ``moe_token_chunk`` = C > 0 dispatches an MoE layer's tokens C at a
+    time when there are more than C of them and C divides their count, as
+    JAX's scan over token chunks does: capacity then counts a chunk.
     """
     act_dtype: torch.dtype = torch.float32
     matmul: str = "tlmm"
@@ -55,6 +63,7 @@ class Ctx:
     kv_splits: int = 0
     kv_group: object = None
     kv_group_size: int = 1
+    moe_token_chunk: int = 0
 
     def __post_init__(self):
         if self.matmul not in bitlinear.MATMULS:
@@ -153,3 +162,172 @@ class Embedding(nn.Module):
 
 def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     return p.tok[tokens]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity + scatter dispatch; ternary expert banks)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """A dense f32 router and three expert banks: float masters
+    ``{gate,up,down}_w`` (E, n_in, n_out), or, packed (``moe_pack``),
+    base-3 ``{gate,up,down}_codes`` (E, rows, n_out) with one absmean
+    ``{gate,up,down}_gamma`` an expert (E,) and the pack group ``g``."""
+
+    BANKS = ("gate", "up", "down")
+
+    def __init__(self, router: Linear, banks: dict, g: int | None = None):
+        super().__init__()
+        self.router = router
+        self.g = g
+        for name, t in banks.items():
+            self.register_buffer(name, t)
+
+    @property
+    def packed(self) -> bool:
+        return self.g is not None
+
+    @property
+    def n_experts(self) -> int:
+        return (self.gate_codes if self.packed else self.gate_w).shape[0]
+
+
+def moe_bank(generator: torch.Generator, n_experts: int, n_in: int,
+             n_out: int, d_model: int) -> torch.Tensor:
+    """One (E, n_in, n_out) f32 master bank ~ N(0, 1/d_model), as JAX
+    scales every bank of a layer."""
+    return torch.randn((n_experts, n_in, n_out), generator=generator,
+                       device=generator.device) / math.sqrt(d_model)
+
+
+def moe_init(generator: torch.Generator, d_model: int, d_ff: int,
+             n_experts: int, *, pack_g: int | None = None) -> MoE:
+    """Float masters: the router (d_model -> E, no bias), then the gate, up
+    and down banks, drawn in that order.  With ``pack_g`` each bank is
+    packed (``pack_bank``) before the next is drawn, which equals
+    ``moe_pack`` of the masters without holding two float banks."""
+    router = bitlinear.init(generator, d_model, n_experts)
+    shapes = {"gate": (d_model, d_ff), "up": (d_model, d_ff),
+              "down": (d_ff, d_model)}
+    banks = {}
+    for n in MoE.BANKS:
+        w = moe_bank(generator, n_experts, *shapes[n], d_model)
+        if pack_g is None:
+            banks[f"{n}_w"] = w
+        else:
+            banks[f"{n}_codes"], banks[f"{n}_gamma"] = pack_bank(w, pack_g)
+    return MoE(router, banks, g=pack_g)
+
+
+def pack_bank(w: torch.Tensor, g: int) -> tuple:
+    """(E, n_in, n_out) masters -> ((E, rows, n_out) uint8 codes, (E,) f32
+    gammas): each expert ternarized with its own absmean scale and packed
+    with rows padded to ``bitlinear.ROW_MULTIPLE``, as JAX's vmapped
+    ``moe_pack``."""
+    codes, gammas = [], []
+    for e in range(w.shape[0]):
+        wt, gamma = ternary.ternarize(w[e])
+        codes.append(ternary.pack_ternary(wt, g, bitlinear.ROW_MULTIPLE))
+        gammas.append(gamma)
+    return torch.stack(codes), torch.stack(gammas)
+
+
+def moe_pack(p: MoE, g: int) -> MoE:
+    """Offline base-3 packing of the expert banks (the router stays
+    dense)."""
+    banks = {}
+    for name in MoE.BANKS:
+        banks[f"{name}_codes"], banks[f"{name}_gamma"] = pack_bank(
+            getattr(p, f"{name}_w"), g)
+    return MoE(p.router, banks, g=g)
+
+
+def _expert_matmul_packed(codes: torch.Tensor, gamma: torch.Tensor,
+                          n_in: int, g: int, x: torch.Tensor) -> torch.Tensor:
+    """codes (E, rows, n_out), gamma (E,), x (E, C, n_in) float -> (E, C,
+    n_out) f32: per-row int8 quant, then one packed ternary matmul an
+    expert (``tlmm``: the kernel on the card, its plain version on the
+    CPU; the bank is never unpacked), then acc * x_scale * gamma."""
+    xq, xs = ternary.absmax_quant(x)
+    acc = torch.stack([tlmm_ops.tlmm(xq[e], codes[e], g=g, n=n_in)
+                       for e in range(codes.shape[0])])
+    return acc.float() * xs * gamma[:, None, None]
+
+
+def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float) -> dict:
+    """Top-k routing of (n, d) tokens: the router's f32 logits, the top
+    ``top_k`` experts a token and the softmax of their logits, then each
+    (token, slot) pair's position in its expert's buffer (an exclusive
+    cumulative count in token-major order) and whether it fits the
+    capacity ``max(int(n * top_k / E * capacity_factor), top_k)``.
+    Returns {"gates", "idx"} (n, k), {"pos", "keep", "flat_idx"} (n*k,),
+    and "capacity"."""
+    n = x.shape[0]
+    n_experts = p.n_experts
+    logits = linear_apply(p.router, x, Ctx()).float()
+    gates, idx = torch.topk(logits, top_k, dim=-1)
+    gates = torch.softmax(gates, dim=-1)
+    capacity = max(int(n * top_k / n_experts * capacity_factor), top_k)
+    flat_idx = idx.reshape(-1)
+    onehot = (flat_idx[:, None] == torch.arange(
+        n_experts, device=x.device)).to(torch.int32)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    return {"gates": gates, "idx": idx, "flat_idx": flat_idx, "pos": pos,
+            "keep": pos < capacity, "capacity": capacity}
+
+
+def _moe_apply_packed(p: MoE, x: torch.Tensor, *, top_k: int,
+                      capacity_factor: float) -> torch.Tensor:
+    n, d = x.shape
+    r = moe_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    cap, flat_idx, keep = r["capacity"], r["flat_idx"], r["keep"]
+    n_experts = p.n_experts
+    # dispatch without a scatter-add: every kept (expert, position) pair is
+    # unique, so each buffer row names the one (token, slot) pair that
+    # fills it (dropped pairs are sent to a dump row past the buffer);
+    # empty rows read a zero row
+    nk = flat_idx.shape[0]
+    dest = torch.where(keep, flat_idx * cap + r["pos"], n_experts * cap)
+    src = torch.full((n_experts * cap + 1,), nk, dtype=torch.int64,
+                     device=x.device)
+    src.scatter_(0, dest, torch.arange(nk, device=x.device))
+    rows = torch.cat([x[:, None].expand(n, top_k, d).reshape(n * top_k, d),
+                      x.new_zeros((1, d))])
+    buf = rows[src[:-1]].reshape(n_experts, cap, d)
+    g = p.g
+    h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)
+    h_u = _expert_matmul_packed(p.up_codes, p.up_gamma, d, g, buf)
+    h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
+    out_buf = _expert_matmul_packed(p.down_codes, p.down_gamma, h.shape[-1],
+                                    g, h).to(x.dtype)
+    safe_pos = torch.where(keep, r["pos"], cap - 1)
+    gathered = out_buf[flat_idx, safe_pos]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    weighted = (gathered * r["gates"].reshape(-1)[:, None]
+                .to(gathered.dtype)).reshape(n, top_k, d)
+    # JAX's scatter-add of a token's k slots, in slot order
+    out = weighted[:, 0]
+    for j in range(1, top_k):
+        out = out + weighted[:, j]
+    return out
+
+
+def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float, ctx: Ctx) -> torch.Tensor:
+    """Top-k MoE with capacity and dispatch, dropping on overflow, over
+    packed banks.  x: (n, d_model), the caller flattening (b, s).  With
+    ``ctx.moe_token_chunk`` dividing n (and below it) the tokens go a chunk
+    at a time."""
+    if not p.packed:
+        raise NotImplementedError(
+            "moe_apply runs packed banks (moe_pack); the float masters' "
+            "fake-quant forward belongs to training")
+    tc = ctx.moe_token_chunk
+    n = x.shape[0]
+    if tc and n > tc and n % tc == 0:
+        return torch.cat([_moe_apply_packed(
+            p, xc, top_k=top_k, capacity_factor=capacity_factor)
+            for xc in x.split(tc)])
+    return _moe_apply_packed(p, x, top_k=top_k,
+                             capacity_factor=capacity_factor)

@@ -1,5 +1,6 @@
-"""Decoder-only model for ``block_kind="attn"``: parameters and the three
-serving entry points.
+"""Decoder-only model for ``block_kind="attn"`` (dense SwiGLU or top-k MoE
+FFN; token ids or, ``frontend="embed"``, precomputed embeddings in):
+parameters and the three serving entry points.
 
 Counterpart of ``repro/models/transformer.py`` (attention blocks,
 contiguous caches):
@@ -12,9 +13,11 @@ contiguous caches):
     logits
 
 Parameters are an ``nn.ModuleDict`` shaped like the JAX pytree —
-``layers`` (one ``ModuleDict`` per layer instead of a stacked axis),
-``final_norm``, ``embed`` and, untied, ``lm_head`` — whose leaves are the
-modules of ``core.bitlinear`` and ``models.layers``.  The KV cache keeps the
+``layers`` (one ``ModuleDict`` per layer instead of a stacked axis, its
+FFN ``mlp`` or, with experts, ``moe``), ``final_norm``, ``embed`` (token
+frontend only) and, untied or embed frontend, ``lm_head`` — whose leaves
+are the modules of ``core.bitlinear`` and ``models.layers``.  An embed
+model takes (b, s, d_model) inputs where a token model takes (b, s) ids.  The KV cache keeps the
 JAX layouts: contiguous ``{"k", "v"}`` of shape (L, b, S, kv_h, hd)
 (``init_cache``), or a page pool of shape (L, num_pages, page_size, kv_h,
 hd) read through a (b, n_pages) block table (``init_paged_cache``,
@@ -39,66 +42,99 @@ from repro_torch.models import attention, layers
 from repro_torch.models.layers import Ctx, Embedding, RMSNorm
 
 
-def require_attn(cfg: ModelConfig) -> None:
-    if cfg.block_kind != "attn" or cfg.n_experts or not cfg.d_ff:
+def require_servable(cfg: ModelConfig) -> None:
+    """Raise for the recurrent block kinds, which the port does not run
+    yet (ROADMAP A13a part 2)."""
+    if cfg.block_kind != "attn":
         raise NotImplementedError(
-            f"the port serves dense attention-block models; {cfg.name} has "
-            f"block_kind={cfg.block_kind!r}, n_experts={cfg.n_experts}")
+            f"{cfg.name}: block_kind={cfg.block_kind!r} (hymba and "
+            "xlstm_pair) is not ported yet (ROADMAP A13a part 2); the port "
+            "runs block_kind='attn' models, dense or MoE")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> nn.ModuleDict:
-    """Random float master weights, drawn from ``generator`` on its device
-    (normal/sqrt(n_in) linears, zero biases, unit norms, 0.02 embeddings)."""
-    require_attn(cfg)
+def _draw(cfg: ModelConfig, generator: torch.Generator,
+          pack_g: int | None) -> nn.ModuleDict:
+    """Random weights, drawn from ``generator`` on its device (normal/
+    sqrt(n_in) linears, zero biases, unit norms, 0.02 embeddings, expert
+    banks normal/sqrt(d_model)), in one fixed order: each layer's Q, K, V,
+    O, then its FFN (gate, up, down; or the router and the gate, up and
+    down banks), then the embedding and the LM head.  With ``pack_g`` every
+    ternary linear and bank is packed as soon as it is drawn, so no two
+    float banks are held at once; the result equals packing the masters."""
+    require_servable(cfg)
     dev = generator.device
 
     def lin(n_in, n_out, bias=False):
-        return bitlinear.init(generator, n_in, n_out, bias=bias)
+        m = bitlinear.init(generator, n_in, n_out, bias=bias)
+        return m if pack_g is None else bitlinear.pack(m, pack_g)
 
     def norm():
         return RMSNorm(torch.ones(cfg.d_model, device=dev))
 
     blocks = nn.ModuleList()
     for _ in range(cfg.n_layers):
-        blocks.append(nn.ModuleDict({
+        block = nn.ModuleDict({
             "ln1": norm(), "ln2": norm(),
             "attn": nn.ModuleDict({
                 "q": lin(cfg.d_model, cfg.q_dim, cfg.qkv_bias),
                 "k": lin(cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
                 "v": lin(cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
-                "o": lin(cfg.q_dim, cfg.d_model)}),
-            "mlp": nn.ModuleDict({
+                "o": lin(cfg.q_dim, cfg.d_model)})})
+        if cfg.n_experts:
+            block["moe"] = layers.moe_init(generator, cfg.d_model, cfg.d_ff,
+                                           cfg.n_experts, pack_g=pack_g)
+        elif cfg.d_ff:
+            block["mlp"] = nn.ModuleDict({
                 "gate": lin(cfg.d_model, cfg.d_ff),
                 "up": lin(cfg.d_model, cfg.d_ff),
-                "down": lin(cfg.d_ff, cfg.d_model)}),
-        }))
-    params = nn.ModuleDict({
-        "layers": blocks, "final_norm": norm(),
-        "embed": Embedding(torch.randn((cfg.vocab_size, cfg.d_model),
-                                       generator=generator, device=dev) * 0.02),
-    })
-    if not cfg.tie_embeddings:
-        params["lm_head"] = lin(cfg.d_model, cfg.vocab_size)
+                "down": lin(cfg.d_ff, cfg.d_model)})
+        blocks.append(block)
+    params = nn.ModuleDict({"layers": blocks, "final_norm": norm()})
+    if cfg.frontend == "token":
+        params["embed"] = Embedding(torch.randn(
+            (cfg.vocab_size, cfg.d_model), generator=generator,
+            device=dev) * 0.02)
+    if not cfg.tie_embeddings or cfg.frontend != "token":
+        # the LM head stays dense (ternary_head=False, as JAX packs it)
+        params["lm_head"] = bitlinear.init(generator, cfg.d_model,
+                                           cfg.vocab_size)
     return params
 
 
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> nn.ModuleDict:
+    """Random float master weights (``_draw``'s order and scales)."""
+    return _draw(cfg, generator, None)
+
+
+def init_packed_params(cfg: ModelConfig,
+                       generator: torch.Generator) -> nn.ModuleDict:
+    """``pack_params(cfg, init_params(cfg, generator))`` without holding the
+    masters: each linear and expert bank is packed as soon as it is drawn
+    (a full-width MoE layer's float banks would take ~10 GB)."""
+    return _draw(cfg, generator, cfg.group_size)
+
+
 def pack_params(cfg: ModelConfig, params: nn.ModuleDict) -> nn.ModuleDict:
-    """Offline stage: base-3 pack every ternary linear (norms, embedding
-    and the dense LM head are shared with ``params``)."""
+    """Offline stage: base-3 pack every ternary linear and expert bank
+    (norms, the router, embedding and the dense LM head are shared with
+    ``params``)."""
     g = cfg.group_size
     blocks = nn.ModuleList()
     for p in params["layers"]:
-        blocks.append(nn.ModuleDict({
+        block = nn.ModuleDict({
             "ln1": p["ln1"], "ln2": p["ln2"],
             "attn": nn.ModuleDict({n: bitlinear.pack(m, g)
-                                   for n, m in p["attn"].items()}),
-            "mlp": nn.ModuleDict({n: bitlinear.pack(m, g)
-                                  for n, m in p["mlp"].items()}),
-        }))
+                                   for n, m in p["attn"].items()})})
+        if "moe" in p:
+            block["moe"] = layers.moe_pack(p["moe"], g)
+        if "mlp" in p:
+            block["mlp"] = nn.ModuleDict({n: bitlinear.pack(m, g)
+                                          for n, m in p["mlp"].items()})
+        blocks.append(block)
     out = nn.ModuleDict({k: v for k, v in params.items() if k != "layers"})
     out["layers"] = blocks
     return out
@@ -108,19 +144,24 @@ def predecode_packed(cfg: ModelConfig, params: nn.ModuleDict) -> nn.ModuleDict:
     """Decode every layer's packed codes into dense ternary matrices, fusing
     Q|K|V and gate|up into one matrix each (one activation quant and one
     GEMM per projection group).  Outputs equal the packed path's exactly
-    (see ``bitlinear.predecode``)."""
+    (see ``bitlinear.predecode``).  Expert banks stay packed, as in JAX:
+    the MoE runs them through ``tlmm`` an expert at a time."""
     blocks = nn.ModuleList()
     for p in params["layers"]:
-        a, m = p["attn"], p["mlp"]
-        blocks.append(nn.ModuleDict({
+        a = p["attn"]
+        block = nn.ModuleDict({
             "ln1": p["ln1"], "ln2": p["ln2"],
             "attn": nn.ModuleDict({
                 "qkv": bitlinear.predecode_fused([a["q"], a["k"], a["v"]]),
-                "o": bitlinear.predecode(a["o"])}),
-            "mlp": nn.ModuleDict({
+                "o": bitlinear.predecode(a["o"])})})
+        if "moe" in p:
+            block["moe"] = p["moe"]
+        if "mlp" in p:
+            m = p["mlp"]
+            block["mlp"] = nn.ModuleDict({
                 "gateup": bitlinear.predecode_fused([m["gate"], m["up"]]),
-                "down": bitlinear.predecode(m["down"])}),
-        }))
+                "down": bitlinear.predecode(m["down"])})
+        blocks.append(block)
     out = nn.ModuleDict({k: v for k, v in params.items() if k != "layers"})
     out["layers"] = blocks
     return out
@@ -165,7 +206,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     block tables (``attention.paged_update_kv_cache``); page 0 is the null
     page.  With ``kv_quant`` the pools are int8 and the scale planes
     (L, num_pages, page_size, kv_h) ride the same page axis."""
-    require_attn(cfg)
+    require_servable(cfg)
     return _kv_planes((cfg.n_layers, num_pages, page_size, cfg.n_kv_heads),
                       cfg.hd, dtype, kv_quant, device)
 
@@ -322,7 +363,15 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
     x = x + _attn_apply(cfg, ctx, p["attn"], h, cache, positions, phase,
                         cache_len, chunk_mask, page_table)
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + layers.mlp_apply(p["mlp"], h, ctx)
+    if "moe" in p:
+        b, t, d = h.shape
+        out = layers.moe_apply(p["moe"], h.reshape(b * t, d),
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor, ctx=ctx)
+        return x + out.reshape(b, t, d)
+    if "mlp" in p:
+        return x + layers.mlp_apply(p["mlp"], h, ctx)
+    return x
 
 
 def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
@@ -335,13 +384,20 @@ def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
     return x
 
 
-def _embed_in(params, inputs, ctx):
-    return layers.embed_apply(params["embed"], inputs).to(ctx.act_dtype)
+def _embed_in(cfg, params, inputs, ctx):
+    """Token ids (b, s) through the embedding, or, ``frontend="embed"``,
+    precomputed embeddings (b, s, d_model) as they are; in the activation
+    dtype."""
+    if cfg.frontend == "token":
+        x = layers.embed_apply(params["embed"], inputs)
+    else:
+        x = inputs
+    return x.to(ctx.act_dtype)
 
 
 def _lm_head(cfg, params, x, ctx):
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and "embed" in params:
         return torch.einsum("btd,vd->btv", x,
                             params["embed"].tok.to(x.dtype))
     return layers.linear_apply(params["lm_head"], x, ctx)
@@ -356,9 +412,11 @@ def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
                  lengths: torch.Tensor | None = None):
     """Prompt (b, s) -> (last-token logits (b, vocab), cache).  With
     ``lengths`` ((b,) int) row i's logits are taken at position
-    lengths[i] - 1 of a right-padded batch."""
-    x = _embed_in(params, inputs, ctx)
-    b, s = inputs.shape
+    lengths[i] - 1 of a right-padded batch.  An embed model takes
+    (b, s, d_model) embeddings."""
+    require_servable(cfg)
+    x = _embed_in(cfg, params, inputs, ctx)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
     x = _run_layers(cfg, ctx, params, x, cache, positions, "full")
     if lengths is None:
@@ -383,9 +441,9 @@ def prefill_chunk(cfg: ModelConfig, params: nn.ModuleDict,
     ((b, n_pages) int32) the cache is a page pool (``init_paged_cache``):
     row i's positions resolve through its table row, and masked rows'
     writes land in the null page."""
-    require_attn(cfg)
-    x = _embed_in(params, inputs, ctx)
-    b, c = inputs.shape
+    require_servable(cfg)
+    x = _embed_in(cfg, params, inputs, ctx)
+    b, c = x.shape[:2]
     dev = x.device
     offsets = torch.as_tensor(offsets, dtype=torch.int32, device=dev)
     admit = torch.as_tensor(admit_mask, dtype=torch.bool, device=dev)
@@ -404,8 +462,10 @@ def decode_step(cfg: ModelConfig, params: nn.ModuleDict,
     (b, vocab), cache).  ``cache_len`` is an int or a (b,) tensor: row i
     writes its KV at cache_len[i], rotates by that position and attends its
     own [0, cache_len[i]] prefix.  With ``page_table`` ((b, n_pages) int32)
-    the cache is a page pool and row i appends through its table row."""
-    x = _embed_in(params, inputs, ctx)
+    the cache is a page pool and row i appends through its table row.  An
+    embed model takes (b, 1, d_model) embeddings."""
+    require_servable(cfg)
+    x = _embed_in(cfg, params, inputs, ctx)
     cl = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
     positions = cl[..., None] + torch.arange(1, device=x.device)
     x = _run_layers(cfg, ctx, params, x, cache, positions, "step", cl,

@@ -90,7 +90,13 @@ Counterpart of ``repro/serving/engine.py``:
     ``DeviceMesh`` with axes ("data", "model"); ``shard_slots=True``,
     ``shard_kv=False``) — every rank runs this host scheduler over all
     lanes (it must be deterministic: the same requests, the same fault
-    schedule, no clock-driven decision that ranks could take apart), and
+    schedule, no clock-driven decision that ranks could take apart: once
+    a beat every rank reads its clock for the deadlines and retry backoffs
+    it holds, and one MAX all-reduce over a gloo group of the world
+    combines the flags, which every rank then acts on; the idle wait
+    before a retry is the least over ranks; the ``block_deadline_s``
+    watchdog, which could fire while a collective is stuck, is refused on
+    a world of more than one), and
     its device holds only its data shard's lanes: scheduler state, block
     table rows and contiguous cache rows (``runtime/sharding.py``); a paged
     pool is whole on every rank but written only for its own lanes, so
@@ -597,7 +603,10 @@ class ServingEngine:
     """Token-level continuous batching over ``batch_slots`` lanes of up to
     ``max_seq`` positions.  ``params`` are packed parameters
     (``transformer.pack_params`` or ``convert.from_jax_packed``) on
-    ``device``; the engine runs on the card unless ``device="cpu"``.
+    ``device``; the engine runs on the card unless ``device="cpu"``.  It
+    serves token-frontend attention-block models, dense or MoE (whose
+    expert banks stay packed and run through ``tlmm``); an MoE config runs
+    on one rank only.
 
     ``device_sched`` (default True) keeps the scheduler state on the device
     and, on a CUDA device, replays each decode block as one captured CUDA
@@ -648,7 +657,13 @@ class ServingEngine:
                  on_block: Optional[Callable] = None,
                  on_token: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
-        transformer.require_attn(cfg)
+        transformer.require_servable(cfg)
+        if cfg.frontend != "token":
+            raise ValueError(
+                f"ServingEngine serves token ids; {cfg.name} takes "
+                f"precomputed embeddings (frontend={cfg.frontend!r}): call "
+                "transformer.prefill_step / decode_step with (b, s, d_model) "
+                "inputs instead")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') needs a CUDA "
@@ -674,6 +689,23 @@ class ServingEngine:
         self.paged = bool(paged)
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
         self._init_mesh(mesh, shard_slots, shard_kv, kv_splits)
+        world = self.mesh_shape[0] * self.mesh_shape[1]
+        if world > 1 and cfg.n_experts:
+            # each rank would count expert capacity over its own rows only,
+            # where the JAX mesh engine counts the global batch
+            raise ValueError(
+                f"ServingEngine: MoE ({cfg.name}) on a mesh of {world} ranks "
+                "is not supported: expert capacity counts the whole batch, "
+                "and a rank holds only its data shard's rows")
+        if world > 1 and block_deadline_s is not None:
+            raise ValueError(
+                f"ServingEngine: block_deadline_s on a mesh of {world} ranks "
+                "is not supported: the watchdog fires while a collective may "
+                "be stuck, so ranks could not agree on it without hanging")
+        # clock-driven decisions are agreed once a beat over this group
+        self._clock_group = (dist.new_group(backend="gloo")
+                             if world > 1 else None)
+        self._clock_flags = None
         if self.paged:
             self.page_size = max(1, min(int(page_size), max_seq))
             self.pages_per_slot = -(-max_seq // self.page_size)
@@ -950,7 +982,7 @@ class ServingEngine:
         while self.has_work:
             out = self.step()
             if out.idle_until is not None:
-                wait = out.idle_until - time.perf_counter()
+                wait = self._agreed_wait(out.idle_until - time.perf_counter())
                 if wait > 0:
                     self.stats["idle_sleeps"] += 1
                     self.stats["idle_wait_s"] += wait
@@ -1001,6 +1033,7 @@ class ServingEngine:
         slots, pending, queue = self._lanes, self._pending, self._queue
         self._ensure_cache()
         self.stats["scheduler_beats"] += 1
+        self._agree_clock(slots, pending, queue)
         self._police(slots, pending, queue)
         self._dev_breaker.tick()
         self._retry_breaker.tick()
@@ -1645,11 +1678,53 @@ class ServingEngine:
         if self.audit_on_retire:
             self.audit()
 
-    def _expired(self, req: Request) -> bool:
+    def _expired(self, req: Request, now: Optional[float] = None) -> bool:
         if req.deadline_s is None:
             return False
+        if self._clock_flags is not None and now is None:
+            return id(req) in self._clock_flags[0]   # agreed this beat
         # measured from submit(), or from a retry's requeue
-        return time.perf_counter() - req._deadline_t0 > req.deadline_s
+        now = time.perf_counter() if now is None else now
+        return now - req._deadline_t0 > req.deadline_s
+
+    def _agree_clock(self, slots, pending: dict, queue) -> None:
+        """On a world of more than one rank: read this rank's clock once for
+        every deadline it holds (queued, pending, live requests) and every
+        retry backoff, combine the flags of all ranks by one MAX
+        all-reduce, and keep them for this beat's police sweep and retry
+        pump (``_expired``, ``_pump_retries``).  Every rank holds the same
+        requests in the same order, so the flags line up.  A retry queued
+        during the beat waits for the next one."""
+        if self._clock_group is None:
+            return
+        reqs = ([r for r in queue]
+                + [pending[i]["req"] for i in sorted(pending)]
+                + [s.request for s in slots if s.active])
+        reqs = [r for r in reqs if r.deadline_s is not None]
+        entries = list(self._retryq)
+        self._clock_flags = (set(), set())
+        if not reqs and not entries:
+            return   # the same on every rank: nothing to agree on
+        now = time.perf_counter()
+        flags = torch.tensor(
+            [self._expired(r, now) for r in reqs]
+            + [e["not_before"] <= now for e in entries], dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._clock_group)
+        f = flags.tolist()
+        self._clock_flags = (
+            {id(r) for r, x in zip(reqs, f) if x},
+            {id(e["req"]) for e, x in zip(entries, f[len(reqs):]) if x})
+
+    def _agreed_wait(self, wait: float) -> float:
+        """The idle wait before a retry: this rank's, or on a world of more
+        than one rank the least over ranks (a MAX all-reduce of its
+        negation), so no rank sleeps past a backoff another rank's clock
+        already saw elapse."""
+        if self._clock_group is None:
+            return wait
+        t = torch.tensor([-wait], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._clock_group)
+        return -float(t[0])
 
     def _police(self, slots, pending: dict, queue) -> None:
         """The cancellation and deadline sweep over the four pools: queued,
@@ -1754,8 +1829,16 @@ class ServingEngine:
         self._retryq.append({"req": req, "not_before": now + delay})
 
     def _pump_retries(self, queue) -> None:
-        """Requests whose backoff elapsed join the queue's tail."""
+        """Requests whose backoff elapsed join the queue's tail (on a world
+        of more than one rank, as this beat's agreed flags say)."""
         if not self._retryq:
+            return
+        if self._clock_flags is not None:
+            due = self._clock_flags[1]
+            ready = [e for e in self._retryq if id(e["req"]) in due]
+            self._retryq = [e for e in self._retryq
+                            if id(e["req"]) not in due]
+            queue.extend(e["req"] for e in ready)
             return
         now = time.perf_counter()
         ready = [e for e in self._retryq if e["not_before"] <= now]

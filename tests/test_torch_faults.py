@@ -585,7 +585,7 @@ def test_random_fault_schedules_hypothesis(served):
     base_eng = _engine(cfg, ours, **_SHARED)
     fault_eng = _engine(cfg, ours, audit_on_retire=True, **_SHARED)
 
-    @settings(max_examples=5, deadline=None)
+    @settings(max_examples=5, deadline=None, database=None)
     @given(seed=st.integers(100, 10_000))
     @example(seed=7593)
     def inner(seed):

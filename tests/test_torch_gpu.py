@@ -44,7 +44,7 @@ from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm import ref as tlmm_ref
 from repro_torch.kernels.tlmm_lut import ops as lut_ops
 from repro_torch.kernels.tlmm_lut import ref as lut_ref
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 from repro_torch.models.layers import Ctx
 from repro_torch.serving import (FaultInjector, Request, RequestStatus,
                                  ServingEngine)
@@ -791,18 +791,38 @@ def test_rmsnorm_quant_row_alone_and_strided_equal_the_batch(cuda, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [1, 9, 2048, 4100, rq_plan.MAX_D])
 def test_rmsnorm_quant_widths_equal_the_replay(cuda, d):
-    """From one value to the widest row the kernel takes (one warp to 32):
-    bit for bit the plain version summing in the plan's order; a wider row
-    is refused before a launch."""
+    """From one value to the widest row of one chunk a thread (one warp to
+    32): bit for bit the plain version summing in the plan's order; an
+    empty row is refused before a launch."""
     x, w = _norm_inputs(cuda, 37, d, torch.float32, seed=2)
     _assert_quant_equal(rq_kernel.rmsnorm_quant_cuda(x, w, eps=1e-5),
                         rq_ref.rmsnorm_quant_ref(
                             x, w, warps=rq_plan.warps_per_row(d)))
-    x, w = _norm_inputs(cuda, 2, rq_plan.MAX_D + 8, torch.float32)
+    x, w = _norm_inputs(cuda, 2, 0, torch.float32)
     before = launch_counts()["rmsnorm_quant"]
     with pytest.raises(ValueError):
         rq_kernel.rmsnorm_quant_cuda(x, w, eps=1e-5)
     assert launch_counts()["rmsnorm_quant"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [rq_plan.MAX_D + 8, 16384, 16384 + 3])
+def test_rmsnorm_quant_wide_rows_equal_the_replay(cuda, d, dtype):
+    """Rows past one chunk a thread take the looping kernel (32 warps, a
+    thread's chunks t, t + 1024, ... in order): bit for bit the plain
+    version summing in that order, with 16-byte loads and (d = 16387) by
+    value; within the usual tolerance of the plain version's own order."""
+    x, w = _norm_inputs(cuda, 5, d, dtype, seed=3)
+    assert rq_plan.looped(d)
+    before = launch_counts()["rmsnorm_quant"]
+    got = rq_ops.rmsnorm_quant(x, w)
+    assert launch_counts()["rmsnorm_quant"] == before + 1
+    _assert_quant_equal(got, rq_ref.rmsnorm_quant_ref(
+        x, w, warps=rq_plan.warps_per_row(d)))
+    (q, sc), (q_w, sc_w) = got, rq_ref.rmsnorm_quant_ref(x, w)
+    assert ((sc - sc_w).abs() / sc_w).max().item() <= 1e-6
+    assert (q.int() - q_w.int()).abs().max().item() <= 1
 
 
 def _swiglu_inputs(cuda, m, f, seed=0):
@@ -819,13 +839,15 @@ def _swiglu_inputs(cuda, m, f, seed=0):
 @pytest.mark.parametrize("m,f", [(4, 4096), (128, 4096), (4, 2816),
                                  (128, 2816), (3, 100), (1, 4096), (2, 4100),
                                  (2, 8192), (2, 8196), (2, 11008),
-                                 (2, sq_plan.MAX_F)])
+                                 (2, sq_plan.MAX_F), (4, 29568),
+                                 (128, 29568), (2, 65536), (3, 65539)])
 def test_swiglu_quant_kernel_matches_plain(cuda, m, f):
     """Bit for bit: the kernel runs the plain version's operations on each
     value and the scale is the same product.  f = 4100 takes more than the
     plan's 512 threads to stay in registers, f = 8192 is the widest row
     kept there; f = 8196 is staged in shared memory, 11008 (a 7B model's
-    FFN) in 88 KB, the widest row the kernel takes in 227 KB."""
+    FFN) in 88 KB, the widest row staged in 227 KB; 29568 (qwen2-72b's
+    FFN), 65536 and 65539 (by value) are looped, read twice."""
     gate, up, gs, us = _swiglu_inputs(cuda, m, f)
     before = launch_counts()["swiglu_quant"]
     got = sq_ops.swiglu_quant(gate, up, gs, us)
@@ -839,7 +861,7 @@ def test_swiglu_quant_every_layout_equal(cuda, f):
     """Registers (f <= 8192) or shared memory (8196), a column slice of
     gate and up (the scalar instantiation) and a row alone give the bits
     of the plain version on a batch of 128; a row wider than the kernel
-    takes is refused before a launch."""
+    takes is looped, and an empty one refused before a launch."""
     gate, up, gs, us = _swiglu_inputs(cuda, 128, f + 3, seed=1)
     gs1, us1 = gs.reshape(-1), us.reshape(-1)
     g, u = gate[:, :f].contiguous(), up[:, :f].contiguous()
@@ -852,9 +874,14 @@ def test_swiglu_quant_every_layout_equal(cuda, f):
                         sq_ref.swiglu_quant_ref(gsl, usl, gs, us))
     wide = torch.zeros((1, sq_plan.MAX_F + 4), dtype=torch.int32,
                        device=cuda)
+    assert sq_plan.looped(wide.shape[1])
+    _assert_quant_equal(sq_kernel.swiglu_quant_cuda(wide, wide, gs1[:1],
+                                                    us1[:1]),
+                        sq_ref.swiglu_quant_ref(wide, wide, gs[:1], us[:1]))
+    empty = torch.zeros((1, 0), dtype=torch.int32, device=cuda)
     before = launch_counts()["swiglu_quant"]
     with pytest.raises(ValueError):
-        sq_kernel.swiglu_quant_cuda(wide, wide, gs1[:1], us1[:1])
+        sq_kernel.swiglu_quant_cuda(empty, empty, gs1[:1], us1[:1])
     assert launch_counts()["swiglu_quant"] == before
     for i in (0, 64, 127):
         q, s = sq_ops.swiglu_quant(g[i:i + 1], u[i:i + 1], gs[i:i + 1],
@@ -966,6 +993,49 @@ def test_captured_engine_equals_host_driven(cuda, mode, temperature):
     if "paged" in extra:
         assert st["admissions_deferred_pages"] > 0
         assert st["kv_pages_in_use"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_captured_moe_engine_equals_host_driven(cuda, paged):
+    """A reduced mixtral (8 experts, top-2) on the card, drop-free: the
+    captured engine, its expert banks one tlmm launch an expert inside the
+    replayed block, emits the host-driven engine's tokens, contiguous or
+    paged (the same tokens either way), greedy and sampled; the block's
+    tlmm launches are counted, replays included (blocks x ticks x layers x
+    3 banks x 8 experts)."""
+    import dataclasses
+    cfg = get_config("mixtral-8x22b").reduced(d_model=128, n_heads=4,
+                                              n_experts=8)
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    packed = transformer.init_packed_params(cfg, gen)
+    kw = dict(max_seq=32, batch_slots=3, prefill_chunk=4, decode_block=4,
+              device="cuda")
+    contiguous = ServingEngine(cfg, packed, **kw).run(
+        _card_requests(cfg, 0.0))
+    if paged:
+        kw.update(paged=True, page_size=5, kv_pages=16)
+    for temperature in (0.0, 0.8):
+        host = ServingEngine(cfg, packed, device_sched=False, **kw).run(
+            _card_requests(cfg, temperature))
+        eng = ServingEngine(cfg, packed, **kw)
+        eng.run(_card_requests(cfg, temperature)[:1])   # capture the block
+        reset_launch_counts()
+        dev = eng.run(_card_requests(cfg, temperature))
+        torch.cuda.synchronize()
+        for h, d in zip(host, dev):
+            assert d.done and d.output.tolist() == h.output.tolist()
+        if temperature == 0.0:
+            assert [d.output.tolist() for d in dev] == [
+                c.output.tolist() for c in contiguous]
+        st = eng.stats
+        assert eng._graph is not None and eng._graph.launches["tlmm"] == (
+            eng.decode_block * cfg.n_layers * 3 * cfg.n_experts)
+        decode_tlmm = st["decode_blocks"] * eng._graph.launches["tlmm"]
+        wave_tlmm = (st["prefill_chunks"] * cfg.n_layers * 3
+                     * cfg.n_experts)
+        assert launch_counts()["tlmm"] == decode_tlmm + wave_tlmm
 
 
 @pytest.mark.gpu
@@ -1210,3 +1280,67 @@ def test_mesh_engine_in_an_nccl_world_of_one(cuda):
             check_mesh(fake, cuda)
     finally:
         dist.destroy_process_group()
+
+
+# -- MoE: the expert banks through tlmm ----------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [2, 40, 8, 256])
+def test_moe_expert_matmul_mixtral_banks_equal_plain(cuda, rows):
+    """One tlmm launch an expert at mixtral-8x22b's bank shapes (8 experts,
+    d 6144 <-> f 16384) at the capacities the smoke run reaches (cf 1.25:
+    2 rows a tick, 40 a wave; drop-free: 8 and 256), bit for bit against
+    the plain version per expert; the bank is never unpacked."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    cfg = get_config("mixtral-8x22b")
+    for n_in, n_out in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        wt = torch.randint(-1, 2, (cfg.n_experts, n_in, n_out), generator=gen,
+                           device=cuda, dtype=torch.int8)
+        codes = torch.stack([ternary.pack_ternary(w, 5, bitlinear.ROW_MULTIPLE)
+                             for w in wt])
+        del wt
+        gamma = torch.rand(cfg.n_experts, generator=gen, device=cuda)
+        x = torch.randn((cfg.n_experts, rows, n_in), generator=gen,
+                        device=cuda)
+        before = launch_counts()["tlmm"]
+        got = layers._expert_matmul_packed(codes, gamma, n_in, 5, x)
+        assert launch_counts()["tlmm"] == before + cfg.n_experts
+        xq, xs = ternary.absmax_quant(x)
+        for e in range(cfg.n_experts):
+            acc = tlmm_ref.tlmm_ref(xq[e], codes[e], 5, n_in)
+            assert torch.equal(got[e], acc.float() * xs[e] * gamma[e])
+        del codes
+
+
+@pytest.mark.gpu
+def test_moe_captured_replay_equals_eager(cuda):
+    """A CUDA graph holding a packed MoE layer (its per-expert tlmm
+    launches, dispatch and combine) replays to its eager result bit for
+    bit, on new inputs copied into the captured buffer, at 1.25 (drops)
+    and drop-free."""
+    cfg = get_config("mixtral-8x22b").reduced(d_model=256, n_heads=4,
+                                              d_ff=512, n_experts=8)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    moe = layers.moe_pack(layers.moe_init(gen, cfg.d_model, cfg.d_ff,
+                                          cfg.n_experts), 5)
+    x = torch.randn((24, cfg.d_model), generator=gen, device=cuda)
+    for cf in (1.25, float(cfg.n_experts)):
+        kw = dict(top_k=cfg.top_k, capacity_factor=cf, ctx=Ctx())
+        static = x.clone()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            layers.moe_apply(moe, static, **kw)      # warm-up
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = layers.moe_apply(moe, static, **kw)
+        for seed in (1, 2):
+            new = torch.randn(x.shape, generator=gen, device=cuda)
+            static.copy_(new)
+            before = launch_counts()["tlmm"]
+            graph.replay()
+            torch.cuda.synchronize()
+            assert launch_counts()["tlmm"] == before   # a replay counts nothing here
+            eager = layers.moe_apply(moe, new, **kw)
+            assert torch.equal(out, eager), (cf, seed)

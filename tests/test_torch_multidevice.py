@@ -200,7 +200,7 @@ def test_mesh_transient_schedules_recover_property(tmp_path):
     hyp = pytest.importorskip("hypothesis")
     from hypothesis import strategies as st
 
-    @hyp.settings(max_examples=1, deadline=None,
+    @hyp.settings(max_examples=1, deadline=None, database=None,
                   suppress_health_check=list(hyp.HealthCheck))
     @hyp.given(seeds=st.lists(st.integers(min_value=0,
                                           max_value=2 ** 31 - 1),

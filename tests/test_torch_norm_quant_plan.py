@@ -51,6 +51,11 @@ D_CASES = (96, 1000, 1024, 1536)
 F_CASES = (100, 2816, 4096)
 WIDE_F_CASES = (sq_plan.MAX_REGISTER_F, sq_plan.MAX_REGISTER_F + 4, 11008,
                 sq_plan.MAX_F)
+# past shared memory: the looped row (29568 is qwen2-72b's d_ff)
+LOOPED_F_CASES = (sq_plan.MAX_F + 4, 29568, 65536, 65536 + 3)
+# past one chunk a thread: the looping RMS-MAX kernel (8 values past the
+# widest one-chunk row, and twice its width)
+WIDE_D_CASES = (8192 + 8, 16384)
 BATCHES = (1, 4, 5, 128)
 
 
@@ -106,10 +111,59 @@ def test_rmsnorm_plan_covers_each_chunk_once(d):
 
 
 def test_rmsnorm_plan_refuses_what_the_kernel_does_not_take():
-    for d in (0, rq_plan.MAX_D + 1):
-        with pytest.raises(ValueError):
-            rq_plan.warps_per_row(d)
+    """An empty row is refused; a row wider than one chunk a thread is
+    taken by the looping kernel at the launch bound's 32 warps."""
+    with pytest.raises(ValueError):
+        rq_plan.warps_per_row(0)
     assert rq_plan.warps_per_row(rq_plan.MAX_D) == rq_plan.MAX_THREADS // 32
+    assert not rq_plan.looped(rq_plan.MAX_D)
+    for d in (rq_plan.MAX_D + 1, 16384, 65536):
+        assert rq_plan.looped(d)
+        assert rq_plan.warps_per_row(d) == rq_plan.MAX_THREADS // 32
+
+
+@pytest.mark.parametrize("d", WIDE_D_CASES + (rq_plan.MAX_D + 1, 65536 + 3))
+def test_rmsnorm_wide_plan_covers_each_chunk_once(d):
+    """The looping kernel's partition: 1024 threads, thread t walking
+    chunks t, t + 1024, ... in order, every chunk of a row once."""
+    warps = rq_plan.warps_per_row(d)
+    T = 32 * warps
+    assert T == rq_plan.MAX_THREADS
+    seen = []
+    for t in range(T):
+        chunks = rq_plan.thread_chunks(d, warps, t)
+        assert chunks == list(range(t, rq_plan.n_chunks(d), T))
+        seen += chunks
+    assert sorted(seen) == list(range(rq_plan.n_chunks(d)))
+    # the kernel's f32(1/d) equals the plain version's rounded 1/d here too
+    assert (np.float32(1.0 / d) == np.float32(1) / np.float32(d))
+
+
+@pytest.mark.parametrize("d", WIDE_D_CASES)
+def test_rmsnorm_wide_order_equals_lane_emulation(d):
+    """The looping kernel's sum of squares, lane by lane: the replay (the
+    plain version's order argument) gives its bits."""
+    x, _ = _inputs(d, torch.float32, m=2)
+    warps = rq_plan.warps_per_row(d)
+    got = rq_plan.sum_of_squares(x, warps)
+    for i in range(x.shape[0]):
+        want = _lane_emulation(x[i].numpy(), warps)
+        assert got[i, 0].numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_D_CASES)
+def test_rmsnorm_wide_replay_matches_plain_and_jax(d, dtype):
+    """A wide row in the looping kernel's order stays within the JAX
+    kernel tests' tolerance of the plain version and of the JAX Pallas
+    kernel (interpret mode), which takes any width as one block."""
+    x, w = _inputs(d, dtype, m=3)
+    got = rq_ref.rmsnorm_quant_ref(x, w, warps=rq_plan.warps_per_row(d))
+    _assert_quant_close(got, rq_ref.rmsnorm_quant_ref(x, w))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = j_rq.rmsnorm_quant(jnp.asarray(x.float().numpy()).astype(jdt),
+                              jnp.asarray(w.numpy()), interpret=True)
+    _assert_quant_close(got, want)
 
 
 def test_rmsnorm_reciprocal_of_d_rounds_once():
@@ -270,9 +324,31 @@ def test_swiglu_plan_choices():
     assert sq_plan.MAX_F == 29040
     assert (sq_plan.smem_bytes(sq_plan.MAX_F + 4) + sq_plan.STATIC_SMEM
             > sq_plan.MAX_SMEM)
-    for f in (0, sq_plan.MAX_F + 1, 29568):     # 29568: qwen2-72b's d_ff
-        with pytest.raises(ValueError):
-            sq_plan.check(f)
+    with pytest.raises(ValueError):
+        sq_plan.check(0)
+    # wider than shared memory: looped, not refused (29568: qwen2-72b's
+    # d_ff)
+    assert sq_plan.staged(sq_plan.MAX_F) and not sq_plan.looped(sq_plan.MAX_F)
+    for f in (sq_plan.MAX_F + 1, 29568, 65536):
+        sq_plan.check(f)
+        assert sq_plan.looped(f) and not sq_plan.staged(f)
+        assert sq_plan.threads(f) == sq_plan.MAX_THREADS
+
+
+@pytest.mark.parametrize("f", LOOPED_F_CASES)
+def test_swiglu_looped_partition_covers_each_value_once(f):
+    """The looped row: 1024 threads, thread t walking chunks t, t + 1024,
+    ... (each walk twice in the kernel), every value of a row once."""
+    t = sq_plan.threads(f)
+    assert t == sq_plan.MAX_THREADS and sq_plan.looped(f)
+    seen = []
+    for i in range(t):
+        chunks = sq_plan.thread_chunks(f, i)
+        assert chunks == list(range(i, sq_plan.n_chunks(f), t))
+        seen += [e for ch in chunks for e in
+                 range(ch * sq_plan.CHUNK, (ch + 1) * sq_plan.CHUNK)
+                 if e < f]
+    assert sorted(seen) == list(range(f))
 
 
 def _swiglu_replay(gate, up, gs, us):
@@ -313,7 +389,8 @@ def _swiglu_inputs(m, f, seed=0):
     return tuple(map(torch.from_numpy, (gate, up, gs, us)))
 
 
-@pytest.mark.parametrize("f", (5,) + F_CASES + WIDE_F_CASES)
+@pytest.mark.parametrize("f", (5,) + F_CASES + WIDE_F_CASES
+                         + LOOPED_F_CASES[:2])
 def test_swiglu_replay_equals_plain(f):
     args = _swiglu_inputs(2, f)
     want = sq_ref.swiglu_quant_ref(*args)

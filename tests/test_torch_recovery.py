@@ -460,7 +460,7 @@ def test_transient_schedules_recover_property(served, baselines,
 
     _, _, cfg, _ = served
 
-    @hyp.settings(max_examples=10, deadline=None,
+    @hyp.settings(max_examples=10, deadline=None, database=None,
                   suppress_health_check=list(hyp.HealthCheck))
     @hyp.given(seed=state.integers(min_value=0, max_value=2 ** 31 - 1))
     def prop(seed):
@@ -516,7 +516,7 @@ def test_mesh_transient_schedules_recover_property(served, baselines):
                   retry_breaker_threshold=99, probe_cooldown_blocks=1,
                   audit_on_retire=True, **_SHARED)
 
-    @hyp.settings(max_examples=1, deadline=None,
+    @hyp.settings(max_examples=1, deadline=None, database=None,
                   suppress_health_check=list(hyp.HealthCheck))
     @hyp.given(seeds=state.lists(
         state.integers(min_value=0, max_value=2 ** 31 - 1),
