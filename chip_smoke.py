@@ -57,7 +57,15 @@ f32 tokens by the monolithic oracle, and at capacity factor 1.25 the
 tokens that differ between the modes printed; granite-3-2b, command-r-35b
 and qwen2-72b served device-resident and judged by the oracle; and the
 embed-frontend musicgen-medium and internvl2-76b, a decode step against a
-prefill one longer.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+prefill one longer.  Phase 10 runs the recurrent kinds: tlmm on every
+linear shape of hymba-1.5b and xlstm-350m at 1, 4 and 128 rows bit for bit,
+flash_prefill and the decode kernel at hymba's 1024-token window past it
+(the decode kernel on a bf16 cache with its probabilities rounded, as the
+engine reads it, and on an f32 one), then each model at full width, 4
+layers, served through ``serve_modes`` (whole-prompt admission, a 2-token
+prompt among the requests) and judged by the oracle on bf16 and f32
+caches, hymba's 2-token prefill decoded on against the 3-token prefill,
+and the kernel launches of one admission printed.  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -238,9 +246,9 @@ def ptxas_summary(build_log: str) -> list:
             t = re.search(r"\d+(tlmm\w*_kernel)I((?:Li\d+E)+)E", name)
             f = re.search(r"flash_attn_kernelILi(\d+)EN5repro\d+"
                           r"(ContigKV|PagedKV)I(f|13__nv_bfloat16)E", name)
-            da = re.search(r"decode_attn_kernelILi(\d+)ELb([01])EN5repro\d+"
-                           r"(ContigKV|PagedKV)I(f|13__nv_bfloat16|a)EE(\w)",
-                           name)
+            da = re.search(r"decode_attn_kernelILi(\d+)ELb([01])ELb([01])E"
+                           r"N5repro\d+(ContigKV|PagedKV)I(f|13__nv_bfloat16|a)"
+                           r"EE(\w)", name)
             rq = re.search(r"rmsnorm_quant_kernelI(f|13__nv_bfloat16)"
                            r"(f|13__nv_bfloat16|S\d*_)Lb([01])ELb([01])E",
                            name)
@@ -251,10 +259,10 @@ def ptxas_summary(build_log: str) -> list:
                 kv = "float" if f.group(3) == "f" else "bf16"
                 name = f"flash_attn_kernel<{f.group(1)}, {f.group(2)}<{kv}>>"
             elif da:
-                kv = {"f": "float", "a": "int8"}.get(da.group(4), "bf16")
-                qt = "float" if da.group(5) == "f" else "bf16"
+                kv = {"f": "float", "a": "int8"}.get(da.group(5), "bf16")
+                qt = "float" if da.group(6) == "f" else "bf16"
                 name = (f"decode_attn_kernel<{da.group(1)}, WIN={da.group(2)}, "
-                        f"{da.group(3)}<{kv}>, q {qt}>")
+                        f"RP={da.group(3)}, {da.group(4)}<{kv}>, q {qt}>")
             elif rq:
                 tx, tw = ("f32" if g == "f" else "bf16" for g in rq.group(1, 2))
                 name = (f"rmsnorm_quant_kernel<x {tx}, w {tw}, "
@@ -396,7 +404,8 @@ def serve_modes(cfg, packed, label, requests, *, max_seq, checks, prof=True,
     ``same_tokens`` the device tokens must be the host ones, greedy (and,
     with ``sampled``, sampled), and only the host-driven engine may wait on
     a readback in steady state.  ``prof`` profiles a window of 4 requests
-    in each mode, held to ``checks`` (``profile_window``).  Returns
+    in each mode (``prof="device"``: the device-resident mode only), held
+    to ``checks`` (``profile_window``).  Returns
     {"host"/"device": {"engine", "reqs", "sampled", "counts", "mem",
     "stats", "profile"}}."""
     from repro_torch import kernels
@@ -416,7 +425,7 @@ def serve_modes(cfg, packed, label, requests, *, max_seq, checks, prof=True,
                    mem=torch.cuda.max_memory_allocated())
         engine_line(f"engine, {label}, {mode:6s}", eng.stats, run["mem"])
         log(f"  launches ({mode}): {run['counts']}")
-        if prof:
+        if prof is True or prof == mode:
             run["profile"] = profile_window(eng, f"{label}, {mode}",
                                             requests()[:4], checks)
         if sampled:
@@ -716,6 +725,252 @@ def phase9(dev, gen, requests, max_seq):
         add_counts()
     log(f"phase 9: {time.perf_counter() - t_9:.1f} s; launches {p9_counts}")
     return p9_counts, failures
+
+
+def phase10(dev, gen, max_seq):
+    """Phase 10: the recurrent kinds.  (a) The kernels at the shapes
+    hymba-1.5b and xlstm-350m give them: tlmm on every linear of both at
+    m = 1, 4, 128, bit for bit; flash_prefill at hymba's window of 1024 past
+    it (s = 1100, 1500, GQA 25/5, d 64); the decode kernel at lengths [1,
+    700, 1100, 1500] with the window, on a bf16 cache (its probabilities
+    rounded, as the engine reads it) and an f32 one.  (b) hymba-1.5b and
+    (c) xlstm-350m at full width, 4 layers each (random weights from a
+    seed), served by ``serve_modes`` on phase 4's 8 requests drawn over
+    the model's vocabulary plus a 2-token prompt (whole-prompt admission),
+    each token judged by the oracle on a bf16 and an f32 cache; hymba's
+    2-token prompt decoded on against the 3-token prefill; the launches of
+    one admission.  Returns (the kernels' launches in the phase, the
+    failures found)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import bitlinear, ternary
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.flash_prefill import ref as fp_ref
+    from repro_torch.kernels.tlmm import ops as tlmm_ops
+    from repro_torch.kernels.tlmm import ref as tlmm_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import reference_decode
+    from torch.profiler import ProfilerActivity, profile
+    failures = []
+    t_10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    p10_counts = {}
+
+    def add_counts():
+        for k, v in kernels.launch_counts().items():
+            p10_counts[k] = p10_counts.get(k, 0) + v
+        kernels.reset_launch_counts()
+
+    hcfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4)
+    xcfg = dataclasses.replace(get_config("xlstm-350m"), n_layers=4)
+
+    # -- (a) the kernels at the recurrent models' shapes ----------------------
+    g = hcfg.group_size
+    shapes = set()
+    for c in (hcfg, xcfg):
+        d, di = c.d_model, c.n_heads * c.hd
+        if c.block_kind == "hymba":
+            shapes |= {(d, c.q_dim), (d, c.kv_dim), (c.q_dim, d),
+                       (d, 2 * di), (d, 2 * c.ssm_state), (d, c.n_heads),
+                       (di, d), (d, c.d_ff), (c.d_ff, d)}
+        else:
+            shapes |= {(d, 3 * di), (d, 2 * c.n_heads), (d, di), (di, d),
+                       (d, 4 * di)}
+    parts = []
+    for n, k in sorted(shapes):
+        w = torch.randint(-1, 2, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        codes = ternary.pack_ternary(w, g, bitlinear.ROW_MULTIPLE)
+        for m in (1, 4, 128):
+            a = torch.randint(-127, 128, (m, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            got = tlmm_ops.tlmm(a, codes, g=g, n=n)
+            if not torch.equal(got, tlmm_ref.tlmm_ref(a, codes, g, n)):
+                failures.append(f"tlmm m={m} n={n} k={k}: kernel != plain")
+            ms = device_ms(lambda a=a, c=codes, n=n: tlmm_ops.tlmm(a, c, g=g,
+                                                                    n=n))
+            b_ms, _ = bound_ms(m * n + codes.numel() + m * k * 4,
+                               2.0 * m * n * k, INT8_OPS_PER_S)
+            parts.append(f"m={m} n={n} k={k} {ms:.4f} (bound {b_ms:.5f})")
+    log(f"  tlmm at hymba's and xLSTM's {len(shapes)} linear shapes, m = 1, "
+        f"4, 128: kernel == plain bit for bit; device_ms " + "; ".join(parts))
+
+    h, kv_h, d, win = hcfg.n_heads, hcfg.n_kv_heads, hcfg.hd, hcfg.swa_window
+    for s_ in (1100, 1500):
+        q, k, v = (torch.randn(1, s_, nh, d, generator=gen, device=dev
+                               ).transpose(1, 2) for nh in (h, kv_h, kv_h))
+        got = fp_ops.flash_prefill(q, k, v, window=win)
+        want = fp_ref.flash_prefill_ref(q, k, v, window=win)
+        err = (got - want).abs().max().item()
+        ms = device_ms(lambda q=q, k=k, v=v: fp_ops.flash_prefill(
+            q, k, v, window=win))
+        # the plain version takes ~850 launches a call at this length, past
+        # what the held stream of device_ms queues: timed by events
+        pms = event_ms(lambda q=q, k=k, v=v: fp_ref.flash_prefill_ref(
+            q, k, v, window=win), iters=2)
+        live = sum(min(i + 1, win) for i in range(s_))
+        b_ms, by = bound_ms(4 * (2 * s_ * h * d + 2 * s_ * kv_h * d),
+                            4.0 * live * h * d, F32_FLOPS_PER_S)
+        log(f"  flash_prefill q (1, {h}, {s_}, {d}) k/v (1, {kv_h}, {s_}, "
+            f"{d}) window {win}: max_abs_err {err:.3g} (limit {ATTN_ATOL}); "
+            f"device_ms {ms:.4f} plain_ms {pms:.4f} (events, host included) "
+            f"bound_ms {b_ms:.5f} ({by})")
+        if not err <= ATTN_ATOL:
+            failures.append(f"flash_prefill s={s_} window {win}: {err}")
+
+    lens = [1, 700, 1100, 1500]
+    b, S = len(lens), 1536
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).transpose(1, 2)
+    rows_ = [torch.randn(b, S, kv_h, d, generator=gen, device=dev)
+             for _ in range(2)]
+    live = sum(min(n, win) for n in lens)
+    for dt in (torch.bfloat16, torch.float32):
+        k, v = (x.to(dt).transpose(1, 2) for x in rows_)
+        rnd = dt == torch.bfloat16
+        plain = (da_ref.decode_attention_rounded_ref if rnd
+                 else da_ref.decode_attention_ref)
+        got = da_ops.decode_attention(q, k, v, cl, window=win)
+        err = (got - plain(q, k, v, cl, window=win)).abs().max().item()
+        ms = device_ms(lambda k=k, v=v: da_ops.decode_attention(
+            q, k, v, cl, window=win))
+        pms = event_ms(lambda k=k, v=v, plain=plain: plain(
+            q, k, v, cl, window=win), iters=2)
+        esz = 2 if dt == torch.bfloat16 else 4
+        b_ms, by = bound_ms(2 * b * h * d * 4 + 2 * live * kv_h * d * esz,
+                            4.0 * live * h * d, F32_FLOPS_PER_S)
+        log(f"  decode_attention q ({b}, {h}, 1, {d}) vs {dt} cache (S {S}, "
+            f"kv_h {kv_h}), lengths {lens}, window {win}, probabilities "
+            f"{'rounded to bf16' if rnd else 'f32'}: max_abs_err {err:.3g} "
+            f"(limit {ATTN_ATOL}); device_ms {ms:.4f} plain_ms {pms:.4f} "
+            f"(events, host included) bound_ms {b_ms:.5f} ({by})")
+        if not err <= ATTN_ATOL:
+            failures.append(f"decode_attention window {win} {dt}: {err}")
+    # (a)'s checks and timing loops are not the path's launches
+    kernels.reset_launch_counts()
+    log(f"  (a) kernels at the recurrent models' shapes: "
+        f"{time.perf_counter() - t_10:.1f} s")
+
+    # -- (b), (c) the models through the engine -------------------------------
+    def requests_of(vocab):
+        def requests():
+            r = np.random.default_rng(3)
+            reqs = [Request(prompt=r.integers(0, vocab,
+                                              size=int(r.integers(64, 129))),
+                            max_new_tokens=16 + 2 * i) for i in range(8)]
+            return reqs + [Request(prompt=np.asarray([7, 11]),
+                                   max_new_tokens=12)]
+        return requests
+
+    def admission_launches(eng, prompt):
+        """cudaLaunchKernel calls of one admission (a request that ends at
+        its first token), host-driven."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run([Request(prompt=prompt, max_new_tokens=1)])
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if is_launch(e.key))
+
+    for mcfg, checks in ((hcfg, DECODE_CHECK), (xcfg, {})):
+        t_m = time.perf_counter()
+        name = f"{mcfg.name} {mcfg.n_layers} layers"
+        torch.cuda.reset_peak_memory_stats()
+        mpacked = transformer.init_packed_params(
+            mcfg, torch.Generator(device=dev).manual_seed(10))
+        requests = requests_of(mcfg.vocab_size)
+        marks = [("draw", time.perf_counter())]
+        res = serve_modes(mcfg, mpacked, name, requests, max_seq=max_seq,
+                          checks=checks, prof="device")
+        marks.append(("serve_modes", time.perf_counter()))
+        for mode in ("host", "device"):
+            c = res[mode]["counts"]
+            if mcfg.block_kind == "hymba":
+                for kname in ("flash_prefill", "decode_attention"):
+                    if c[kname] <= 0:
+                        failures.append(f"{name} engine ({mode}) did not "
+                                        f"launch {kname}")
+            elif sum(c.values()):
+                failures.append(f"{name} engine ({mode}) launched attention "
+                                f"or other port kernels: {c}")
+        breqs = res["device"]["reqs"]
+        del res
+        torch.cuda.empty_cache()
+        for r in breqs:
+            if not (r.done and len(r.output) == r.max_new_tokens
+                    and ((r.output >= 0) & (r.output < mcfg.vocab_size)).all()):
+                failures.append(f"{name}: engine output wrong: {r.output}")
+        gaps16 = [max(reference_decode(mcfg, mpacked, Ctx(), r.prompt,
+                                       len(r.output), max_seq,
+                                       torch.bfloat16, follow=r.output)[1])
+                  for r in breqs]
+        marks.append(("bf16 oracle", time.perf_counter()))
+        eng = ServingEngine(mcfg, mpacked, max_seq=max_seq, batch_slots=4,
+                            decode_block=8, cache_dtype=torch.float32)
+        reqs32 = eng.run(requests())
+        engine_line(f"engine, {name}, f32 cache, device", eng.stats,
+                    torch.cuda.max_memory_allocated())
+        gaps32 = [max(reference_decode(mcfg, mpacked, Ctx(), r.prompt,
+                                       len(r.output), max_seq, torch.float32,
+                                       follow=r.output)[1]) for r in reqs32]
+        marks.append(("f32 engine and oracle", time.perf_counter()))
+        log(f"  {name}: largest oracle gap per request, bf16 cache "
+            f"{[round(x, 5) for x in gaps16]}, f32 cache "
+            f"{[round(x, 5) for x in gaps32]} (limit {TOKEN_GAP})")
+        if max(gaps16 + gaps32) > TOKEN_GAP:
+            failures.append(f"{name}: engine token off the oracle by "
+                            f"{max(gaps16 + gaps32)}")
+        # the launches of one admission, at the longest and the shortest
+        # prompt (host-driven; counted once, not as the path's)
+        heng = ServingEngine(mcfg, mpacked, max_seq=max_seq, batch_slots=4,
+                             decode_block=8, device_sched=False)
+        heng.run([Request(prompt=np.asarray([1, 2, 3]), max_new_tokens=1)])
+        longest = max(requests()[:8], key=lambda r: len(r.prompt)).prompt
+        n_long = admission_launches(heng, longest)
+        n_short = admission_launches(heng, np.asarray([7, 11]))
+        log(f"  {name}: one admission takes {n_long} kernel launches at a "
+            f"{len(longest)}-token prompt, {n_short} at a 2-token one")
+        del heng, eng
+        marks.append(("admission launches", time.perf_counter()))
+        # a prompt shorter than the conv ring, decoded on: the 2-token
+        # prefill then a decode step against the 3-token prefill (f32)
+        p = torch.tensor([[7, 11, 13]], device=dev)
+        cache = transformer.init_cache(mcfg, 1, max_seq, torch.float32, dev)
+        transformer.prefill_step(mcfg, mpacked, p[:, :2], Ctx(), cache)
+        ring_ok = True
+        if mcfg.block_kind == "hymba":
+            ring_ok = bool((cache["ssm"]["conv"][:, :, 0] == 0).all())
+        step, _ = transformer.decode_step(mcfg, mpacked, p[:, 2:], Ctx(),
+                                          cache, 2)
+        longer, _ = transformer.prefill_step(
+            mcfg, mpacked, p, Ctx(),
+            transformer.init_cache(mcfg, 1, max_seq, torch.float32, dev))
+        diff = (step - longer).abs().max().item()
+        gated = mcfg.block_kind == "hymba"
+        log(f"  {name}: prefill of 2 tokens, then a decode step, vs the "
+            f"prefill of 3, f32 cache: max |diff| {diff:.3g} "
+            + (f"(limit {LOGIT_TOL_EXACT}); the ring's leading row zero: "
+               f"{ring_ok}" if gated else "(a diagnostic)"))
+        if gated and not (diff <= LOGIT_TOL_EXACT and ring_ok):
+            failures.append(f"{name}: short prompt decode vs prefill {diff}, "
+                            f"zero-padded ring {ring_ok}")
+        if not (torch.isfinite(step).all() and step.shape == (
+                1, mcfg.vocab_size)):
+            failures.append(f"{name}: logits not finite or misshapen")
+        del mpacked, cache
+        torch.cuda.empty_cache()
+        add_counts()
+        marks.append(("short prompt", time.perf_counter()))
+        log(f"  {name}: {time.perf_counter() - t_m:.1f} s (" + ", ".join(
+            f"{what} {t - t0:.1f}" for (_, t0), (what, t) in zip(
+                [("", t_m)] + marks[:-1], marks)) + ")")
+    log(f"phase 10: {time.perf_counter() - t_10:.1f} s; launches {p10_counts}")
+    return p10_counts, failures
 
 
 def main() -> int:
@@ -2183,11 +2438,20 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    log(f"-- phase 10 at {time.perf_counter() - t_main:.1f} s")
+    p10_counts, p10_failures = phase10(dev, gen, max_seq)
+    failures += p10_failures
+    for name in ("tlmm", "flash_prefill", "decode_attention"):
+        if p10_counts.get(name, 0) <= 0:
+            failures.append(f"phase 10 did not launch {name}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
             robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
-            bf16_counts, ffn_wide_counts, p9_counts))
+            bf16_counts, ffn_wide_counts, p9_counts, p10_counts))
 
     log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -1,8 +1,8 @@
 """Model configuration dataclass (the port's own copy of the JAX package's).
 
 Every field keeps the JAX name and default so a configuration reads the
-same in both packages; the port runs ``block_kind="attn"`` models (dense
-or MoE, token or embed frontend) and refuses the recurrent kinds.
+same in both packages; the port runs every block kind: ``"attn"`` (dense
+or MoE, token or embed frontend), ``"hymba"`` and ``"xlstm_pair"``.
 """
 
 from __future__ import annotations

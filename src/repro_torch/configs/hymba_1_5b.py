@@ -4,8 +4,8 @@
 Each block runs attention heads and Mamba(SSD) heads in parallel on the same
 normalized input and averages the outputs.  Sliding-window attention (1024,
 per the Hymba recipe for all-but-a-few layers; simplified to all layers here)
-+ SSM state make long_500k runnable.  Registered, not yet run by the port's
-model (ROADMAP A13a part 2).
++ SSM state make long_500k runnable.  The port's engine admits its prompts
+whole (the SSM state cannot resume chunk to chunk).
 """
 
 from repro_torch.configs.base import ModelConfig

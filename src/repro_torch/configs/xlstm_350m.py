@@ -3,8 +3,8 @@
 24L d_model=1024 4H (kv=4) d_ff=0 vocab=50304.  d_ff=0: no separate FFN —
 the xLSTM blocks carry their own projections.  Attention-free: the paper's
 RPA/DA attention units are inapplicable; ternary BitLinear
-projections apply throughout.  Runs long_500k (O(1) recurrent state).  Registered, not yet run by the
-port's model (ROADMAP A13a part 2).
+projections apply throughout.  Runs long_500k (O(1) recurrent state).  The
+port's engine admits its prompts whole.
 """
 
 from repro_torch.configs.base import ModelConfig

@@ -5,7 +5,11 @@ pack_params`` returns (layer leaves stacked along a leading L axis), with
 every leaf already converted to a numpy array by the caller, and builds the
 port's packed parameters — so both packages compute on the same codes,
 gammas, biases, norms, routers, expert banks (``{gate,up,down}_{codes,
-gamma}`` stacked (L, E, ...)), embeddings and LM heads.  ``packed_from_jax`` does the same for
+gamma}`` stacked (L, E, ...)), hymba's SSM (packed ``in_proj``,
+``bc_proj``, ``dt_proj``, ``out_proj``; dense ``conv_w``, ``conv_b``,
+``A_log``, ``D``, ``dt_bias``), an xLSTM pair's mLSTM (``qkv``, ``gates``,
+``ogate``, ``out``) and sLSTM (``wx``, ``out``; dense ``r``), stacked over
+``n_layers // 2`` pairs, embeddings and LM heads.  ``packed_from_jax`` does the same for
 one packed linear (``repro.core.bitlinear.pack``'s dict).  This module never
 imports JAX.
 """
@@ -18,8 +22,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitlinear import Linear, PackedLinear
-from repro_torch.models.layers import MoE, Embedding, RMSNorm
-from repro_torch.models.transformer import require_servable
+from repro_torch.models import ssm, xlstm
+from repro_torch.models.layers import MoE, Embedding, Params, RMSNorm
+from repro_torch.models.transformer import n_scan_layers
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -37,8 +42,6 @@ def packed_from_jax(d: dict, g: int, device: str | torch.device = "cuda"
 
 def from_jax_packed(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> nn.ModuleDict:
-    require_servable(cfg)
-
     def t(a):
         return _tensor(a, device)
 
@@ -50,14 +53,26 @@ def from_jax_packed(cfg: ModelConfig, tree: dict,
         pick = (lambda a: a) if i is None else (lambda a: a[i])
         return Linear(t(pick(d["w"])), t(pick(d["b"])) if "b" in d else None)
 
+    def sub(d, i, linears):
+        """One sub-layer: its packed linears and, as they are, the rest."""
+        return Params(**{n: packed(v, i) if n in linears else t(v[i])
+                         for n, v in d.items()})
+
     lay = tree["layers"]
     blocks = nn.ModuleList()
-    for i in range(cfg.n_layers):
+    for i in range(n_scan_layers(cfg)):
         block = nn.ModuleDict({
             "ln1": RMSNorm(t(lay["ln1"]["w"][i])),
-            "ln2": RMSNorm(t(lay["ln2"]["w"][i])),
-            "attn": nn.ModuleDict({n: packed(lay["attn"][n], i)
-                                   for n in ("q", "k", "v", "o")})})
+            "ln2": RMSNorm(t(lay["ln2"]["w"][i]))})
+        if "mlstm" in lay:
+            block["mlstm"] = sub(lay["mlstm"], i, xlstm.MLSTM_LINEARS)
+            block["slstm"] = sub(lay["slstm"], i, xlstm.SLSTM_LINEARS)
+            blocks.append(block)
+            continue
+        block["attn"] = nn.ModuleDict({n: packed(lay["attn"][n], i)
+                                       for n in ("q", "k", "v", "o")})
+        if "ssm" in lay:
+            block["ssm"] = sub(lay["ssm"], i, ssm.LINEARS)
         if "moe" in lay:
             m = lay["moe"]
             block["moe"] = MoE(dense(m["router"], i), {

@@ -10,6 +10,10 @@
 // < cache_len[slot] only (and, with a sliding window, >= cache_len[slot] -
 // window), online softmax in f32 with the JAX kernels' constants (masked
 // score -1e30, denominator floor 1e-30, scale = d**-0.5 from the wrapper).
+// A windowed contiguous bf16 cache is read as the JAX model reads it there
+// (its XLA decode, the Pallas kernel taking no window): the probabilities
+// against the row's maximum, rounded to bf16 before P.V (the RP
+// instantiation below).
 // The paged forms read key j of slot b from pool page bt[b, j / ps], row
 // j % ps; the int8 form dequantizes each value as f32(bf16(f32(int8) *
 // bf16(scale))), the rounding of the JAX paged int8 kernel and of a bf16
@@ -227,8 +231,15 @@ __device__ __forceinline__ void stage_tile(int kt, int n_keys, int lo,
 // WIN: a sliding window is set.  A separate instantiation, so the
 // windowless kernel keeps its code (a compare per key cost the first
 // design 12-17 % on an H100 at 700 W).  QT: the query and output type.
+// RP (a contiguous bf16 cache with a window, always): the probabilities are
+// taken against the row's global maximum and rounded to bf16 before P.V,
+// the denominator summing them unrounded: the JAX model's windowed decode
+// read (attention.decode_attention_xla, p.astype(v.dtype)).  A first pass
+// over the row's tiles finds the maximum (each warp its own tiles, then
+// the block); the second pass is the loop below with the maximum fixed, so
+// alpha is 1 and the warps merge at one maximum.
 // Grid (h, b); W = blockDim.x / 32 warps a block.
-template <int D, bool WIN, typename Src, typename QT>
+template <int D, bool WIN, bool RP, typename Src, typename QT>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 decode_attn_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
                    Src k, Src v, QT* __restrict__ out,
@@ -272,15 +283,9 @@ decode_attn_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
   for (int e = tid; e < D; e += blockDim.x) q_s[e] = repro::to_float(qb[e]);
   __syncthreads();
 
-  float m = NEG_INF, l = 0.f, acc[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
-
-  while (kt < kt_end) {
-    if (vec) cp_async_wait<0>();
-    __syncwarp();   // every lane's copies and zero rows are visible
-    const int k0 = kt * TK, key = k0 + lane;
-    // scores: lane j dots key j's row with the query
+  // the score of lane j's key in the staged tile t (NEG_INF when dead):
+  // key j's row dotted with the query
+  auto score = [&](int t) {
     float a[4] = {0.f, 0.f, 0.f, 0.f};
     const unsigned char* kr = k_s + lane * RB;
 #pragma unroll 4
@@ -296,14 +301,46 @@ decode_attn_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
         a[3] = fmaf(qv.w, x[i + 3], a[3]);
       }
     }
+    const int key = t * TK + lane;
     const bool live = key < n_keys && (!WIN || key >= lo);
-    const float s = live ? ((a[0] + a[1]) + (a[2] + a[3])) * scale : NEG_INF;
-    const float m_new = fmaxf(m, repro::warp_max(s));
+    return live ? ((a[0] + a[1]) + (a[2] + a[3])) * scale : NEG_INF;
+  };
+
+  float m = NEG_INF, l = 0.f, acc[EPL];
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+
+  if constexpr (RP) {   // the first pass: the row's maximum score
+    float mw = NEG_INF;
+    for (int t = kt; t < kt_end; t += W) {
+      if (t != kt)
+        stage_tile<D, WIN, KV>(t, n_keys, lo, k_rows, v_rows, k_s, v_s, src,
+                               vsc_s, ksc, vec);
+      if (vec) cp_async_wait<0>();
+      __syncwarp();
+      mw = fmaxf(mw, repro::warp_max(score(t)));
+    }
+    if (lane == 0) st[warp] = mw;
+    __syncthreads();
+    for (int w = 0; w < W; ++w) m = fmaxf(m, st[w]);
+    __syncthreads();   // st is written again only by the merge
+    if (kt + W < kt_end)   // the warp staged later tiles: its first again
+      stage_tile<D, WIN, KV>(kt, n_keys, lo, k_rows, v_rows, k_s, v_s, src,
+                             vsc_s, ksc, vec);
+  }
+
+  while (kt < kt_end) {
+    if (vec) cp_async_wait<0>();
+    __syncwarp();   // every lane's copies and zero rows are visible
+    const int k0 = kt * TK, key = k0 + lane;
+    const bool live = key < n_keys && (!WIN || key >= lo);
+    const float s = score(kt);
+    const float m_new = RP ? m : fmaxf(m, repro::warp_max(s));
     const float p = live ? expf(s - m_new) : 0.f;
-    const float alpha = expf(m - m_new);
+    const float alpha = RP ? 1.f : expf(m - m_new);
     l = l * alpha + repro::warp_sum(p);
     m = m_new;
-    p_s[lane] = p;
+    p_s[lane] = RP ? round_bf16(p) : p;
     __syncwarp();
     // P.V over the tile's rows up to its last live key, in key order
     const int jn = min(TK, n_keys - k0);
@@ -351,13 +388,13 @@ decode_attn_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
   }
 }
 
-template <int D, bool WIN, typename Src, typename QT>
+template <int D, bool WIN, bool RP, typename Src, typename QT>
 int launch_kernel(int b, int h, int warps, cudaStream_t stream,
                   const QT* q, const int64_t* qs, Src k, Src v, QT* out,
                   const int* cache_len, int kv_h, int S, float scale,
                   int window, bool vec) {
   using KV = typename Src::value_type;
-  auto kernel = decode_attn_kernel<D, WIN, Src, QT>;
+  auto kernel = decode_attn_kernel<D, WIN, RP, Src, QT>;
   static bool smem_set = false;   // once per instantiation
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -380,10 +417,12 @@ int launch_d(int b, int h, int warps, cudaStream_t stream,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = repro::aligned16(k) && repro::aligned16(v);
   if (window < 0)
-    return launch_kernel<D, false>(b, h, warps, stream, q, qs, k, v, out,
-                                   cache_len, kv_h, S, scale, window, vec);
-  return launch_kernel<D, true>(b, h, warps, stream, q, qs, k, v, out,
-                                cache_len, kv_h, S, scale, window, vec);
+    return launch_kernel<D, false, false>(b, h, warps, stream, q, qs, k, v,
+                                          out, cache_len, kv_h, S, scale,
+                                          window, vec);
+  constexpr bool RP = std::is_same_v<Src, repro::ContigKV<__nv_bfloat16>>;
+  return launch_kernel<D, true, RP>(b, h, warps, stream, q, qs, k, v, out,
+                                    cache_len, kv_h, S, scale, window, vec);
 }
 
 template <typename Src, typename QT>
@@ -432,9 +471,11 @@ repro::PagedKV<KV> paged(const void* p, const int64_t* st, const void* sc,
 // (batch, head); k, v: (b, kv_h, S, d) bf16 (kv_bf16 = 1) or f32 with
 // strides (batch, head, row), last dims contiguous; cache_len: (b,) int32
 // live lengths.  out: (b, h, d) contiguous in q's type.  window: sliding
-// window (keys at positions >= cache_len - window), or -1 for none.  warps:
-// the plan (kernels/decode_attention/plan.py), W warps a block for each
-// (slot, head).
+// window (keys at positions >= cache_len - window), or -1 for none; a
+// window on a bf16 cache rounds the probabilities to bf16 against the
+// row's maximum before P.V (the RP instantiation).  warps: the plan
+// (kernels/decode_attention/plan.py), W warps a block for each (slot,
+// head).
 REPRO_API int decode_attn_launch(const void* q, const int64_t* qs,
                                  const void* k, const int64_t* ks,
                                  const void* v, const int64_t* vs, void* out,

@@ -48,7 +48,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (b, h, 1, d) f32 or bf16; k, v: (b, kv_h, S, d) bf16 or f32;
     cache_len: (b,) int32, all on the card -> (b, h, 1, d) in q's dtype.
     With ``window`` only the last ``window`` live keys of each row are
-    read."""
+    read; on a bf16 cache the probabilities are then taken against each
+    row's maximum and rounded to bf16 before P.V, the kernel's RP
+    instantiation (``ref.decode_attention_rounded_ref``)."""
     _check_query("decode_attention", q, cache_len)
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:

@@ -38,10 +38,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-token GQA attention against a partially filled cache.
     q: (b, h, 1, d); k, v: (b, kv_h, S, d); cache_len: int or (b,) live
     lengths (ragged continuous batch); with ``window``, only the last
-    ``window`` live positions of each row are attended."""
+    ``window`` live positions of each row are attended, and on a bf16
+    cache the probabilities are rounded to bf16 before P.V: the JAX
+    model's windowed contiguous read (its XLA decode, the Pallas kernel
+    taking no window)."""
     cl = per_row(cache_len, q)
     if on_card(q, "decode_attention"):
         return kernel.decode_attention_cuda(q, k, v, cl, window=window)
+    if window is not None and v.dtype == torch.bfloat16:
+        return ref.decode_attention_rounded_ref(q, k, v, cl, window=window)
     return ref.decode_attention_ref(q, k, v, cl, window=window)
 
 

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_prefill.ref import masked_attention
+from repro_torch.kernels.flash_prefill.ref import NEG_INF, masked_attention
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -23,6 +23,34 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (pos[None, :] >= cl - window)
     return masked_attention(q, k, v, mask[:, None, None, None, :])
+
+
+def decode_attention_rounded_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, cache_len: torch.Tensor, *,
+                                 window: int | None = None) -> torch.Tensor:
+    """The JAX model's windowed decode read on a bf16 cache
+    (``repro/models/attention.py::decode_attention_xla``): scores against
+    the row's maximum over its live keys, probabilities rounded to the
+    cache dtype before P.V, the denominator summing them unrounded, the
+    output divided by max(l, 1e-30).  Shapes as
+    :func:`decode_attention_ref`."""
+    b, h, _, d = q.shape
+    kv_h, S = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kv_h, h // kv_h, d)
+    sc = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * (
+        1.0 / float(d) ** 0.5)
+    pos = torch.arange(S, device=q.device)
+    cl = cache_len.to(q.device).long()[:, None, None, None]
+    mask = pos < cl
+    if window is not None:
+        mask = mask & (pos >= cl - window)
+    sc = torch.where(mask, sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, h, 1, d).to(q.dtype)
 
 
 def gather_pages_ref(pool: torch.Tensor, block_tables: torch.Tensor

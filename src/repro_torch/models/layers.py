@@ -73,9 +73,47 @@ class Ctx:
             raise ValueError(f"Ctx.attn {self.attn!r} not one of {ATTNS}")
 
 
+class Params(nn.Module):
+    """Named linears (submodules) and dense tensors (buffers) of one
+    sub-layer, read as ``p[name]`` like the JAX package's dict."""
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, v in items.items():
+            if isinstance(v, nn.Module):
+                self.add_module(name, v)
+            else:
+                self.register_buffer(name, v)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules or name in self._buffers
+
+    def items(self):
+        return list(self._modules.items()) + list(self._buffers.items())
+
+
 # ---------------------------------------------------------------------------
 # Linear dispatch
 # ---------------------------------------------------------------------------
+
+def linear_init(generator: torch.Generator, n_in: int, n_out: int, *,
+                bias: bool = False, pack_g: int | None = None) -> nn.Module:
+    """A master linear (``bitlinear.init``), or with ``pack_g`` that linear
+    packed as soon as it is drawn."""
+    m = bitlinear.init(generator, n_in, n_out, bias=bias)
+    return m if pack_g is None else bitlinear.pack(m, pack_g)
+
+
+def predecode_all(p: Params) -> Params:
+    """Every packed linear of a sub-layer decoded on its own
+    (``bitlinear.predecode``); its other linears and dense tensors pass
+    through (JAX's ``predecode_packed`` walk)."""
+    return Params(**{n: bitlinear.predecode(v) if isinstance(v, PackedLinear)
+                     else v for n, v in p.items()})
+
 
 def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     if isinstance(p, PredecodedLinear):   # serving engine's hot path

@@ -1,31 +1,42 @@
-"""Decoder-only model for ``block_kind="attn"`` (dense SwiGLU or top-k MoE
-FFN; token ids or, ``frontend="embed"``, precomputed embeddings in):
-parameters and the three serving entry points.
+"""Decoder-only model for every block kind: ``attn`` (dense SwiGLU or
+top-k MoE FFN; token ids or, ``frontend="embed"``, precomputed embeddings
+in), ``hymba`` (attention and SSM heads in parallel, averaged, then the
+FFN) and ``xlstm_pair`` (an mLSTM and an sLSTM block a pair of layers, no
+attention, no FFN): parameters and the three serving entry points.
 
-Counterpart of ``repro/models/transformer.py`` (attention blocks,
-contiguous caches):
+Counterpart of ``repro/models/transformer.py`` (contiguous or paged
+caches):
 
-  * ``prefill_step``  — full prompt -> last-token logits + filled KV cache
+  * ``prefill_step``  — full prompt -> last-token logits + filled cache
+    (KV, and for the recurrent kinds the state after the prompt)
   * ``prefill_chunk`` — one admission wave: per-slot prompt chunks written
     in place at per-row offsets of the shared multi-slot cache, each
-    attending its already-written prefix
+    attending its already-written prefix (``attn`` only, as in JAX)
   * ``decode_step``   — one token per row + cache + live lengths -> next
     logits
 
 Parameters are an ``nn.ModuleDict`` shaped like the JAX pytree —
-``layers`` (one ``ModuleDict`` per layer instead of a stacked axis, its
-FFN ``mlp`` or, with experts, ``moe``), ``final_norm``, ``embed`` (token
+``layers`` (one ``ModuleDict`` per block instead of a stacked axis: its
+``attn``, hymba's ``ssm``, its FFN ``mlp`` or, with experts, ``moe``; or an
+xLSTM pair's ``mlstm`` and ``slstm``), ``final_norm``, ``embed`` (token
 frontend only) and, untied or embed frontend, ``lm_head`` — whose leaves
-are the modules of ``core.bitlinear`` and ``models.layers``.  An embed
-model takes (b, s, d_model) inputs where a token model takes (b, s) ids.  The KV cache keeps the
-JAX layouts: contiguous ``{"k", "v"}`` of shape (L, b, S, kv_h, hd)
-(``init_cache``), or a page pool of shape (L, num_pages, page_size, kv_h,
-hd) read through a (b, n_pages) block table (``init_paged_cache``,
-``page_table=`` of ``prefill_chunk`` and ``decode_step``); with int8 KV
-(``kv_quant=True``) the K/V planes are int8 and ``{"k_scale", "v_scale"}``
-hold their per-(token, head) f32 scales, the same shapes without hd.  The
-cache is updated IN PLACE: every entry point returns the cache dict it was
-given.
+are the modules of ``core.bitlinear`` and ``models.layers`` (a sub-layer's
+linears and dense tensors in a ``layers.Params``).  An embed model takes
+(b, s, d_model) inputs where a token model takes (b, s) ids.  The cache
+keeps the JAX layouts and names: contiguous ``{"k", "v"}`` of shape
+(L, b, S, kv_h, hd) (``init_cache``), or a page pool of shape (L,
+num_pages, page_size, kv_h, hd) read through a (b, n_pages) block table
+(``init_paged_cache``, ``page_table=`` of ``prefill_chunk`` and
+``decode_step``; ``attn`` only); with int8 KV (``kv_quant=True``) the K/V
+planes are int8 and ``{"k_scale", "v_scale"}`` hold their per-(token,
+head) f32 scales, the same shapes without hd.  hymba's cache adds
+``"ssm": {"h": (L, b, H, N, hd) f32, "conv": (L, b, ssm_conv - 1, H * hd)
+in the cache dtype}``; an xLSTM cache is ``{"mlstm": {"C": (L/2, b, H, hd,
+hd), "n": (L/2, b, H, hd), "m": (L/2, b, H)}, "slstm": {"c", "n", "h",
+"m": (L/2, b, H, hd)}}``, all f32, every ``m`` starting at -1e30.  The
+cache is updated IN PLACE, state planes included (a prompt's state
+replaces the rows' state; a decode step advances it): every entry point
+returns the cache dict it was given.
 """
 
 from __future__ import annotations
@@ -38,18 +49,23 @@ from repro_torch.core import bitlinear
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import dequant_bf16
 from repro_torch.kernels.flash_prefill import ops as fp_ops
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm, xlstm
 from repro_torch.models.layers import Ctx, Embedding, RMSNorm
 
 
-def require_servable(cfg: ModelConfig) -> None:
-    """Raise for the recurrent block kinds, which the port does not run
-    yet (ROADMAP A13a part 2)."""
+def n_scan_layers(cfg: ModelConfig) -> int:
+    """Blocks in the stack: one a layer, or one a pair of layers for
+    ``xlstm_pair``."""
+    if cfg.block_kind == "xlstm_pair":
+        assert cfg.n_layers % 2 == 0
+        return cfg.n_layers // 2
+    return cfg.n_layers
+
+
+def _refuse_recurrent(cfg: ModelConfig, what: str) -> None:
     if cfg.block_kind != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: block_kind={cfg.block_kind!r} (hymba and "
-            "xlstm_pair) is not ported yet (ROADMAP A13a part 2); the port "
-            "runs block_kind='attn' models, dense or MoE")
+            f"{what} requires block_kind='attn' (got {cfg.block_kind!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -60,23 +76,34 @@ def _draw(cfg: ModelConfig, generator: torch.Generator,
           pack_g: int | None) -> nn.ModuleDict:
     """Random weights, drawn from ``generator`` on its device (normal/
     sqrt(n_in) linears, zero biases, unit norms, 0.02 embeddings, expert
-    banks normal/sqrt(d_model)), in one fixed order: each layer's Q, K, V,
-    O, then its FFN (gate, up, down; or the router and the gate, up and
-    down banks), then the embedding and the LM head.  With ``pack_g`` every
-    ternary linear and bank is packed as soon as it is drawn, so no two
-    float banks are held at once; the result equals packing the masters."""
-    require_servable(cfg)
+    banks normal/sqrt(d_model); the SSM's and sLSTM's dense tensors at
+    JAX's scales), in one fixed order: each block's Q, K, V, O, then (hymba)
+    its SSM, then its FFN (gate, up, down; or the router and the gate, up
+    and down banks); an ``xlstm_pair`` block its mLSTM, then its sLSTM;
+    then the embedding and the LM head.  With ``pack_g`` every ternary
+    linear and bank is packed as soon as it is drawn, so no two float banks
+    are held at once; the result equals packing the masters."""
     dev = generator.device
 
     def lin(n_in, n_out, bias=False):
-        m = bitlinear.init(generator, n_in, n_out, bias=bias)
-        return m if pack_g is None else bitlinear.pack(m, pack_g)
+        return layers.linear_init(generator, n_in, n_out, bias=bias,
+                                  pack_g=pack_g)
 
     def norm():
         return RMSNorm(torch.ones(cfg.d_model, device=dev))
 
     blocks = nn.ModuleList()
-    for _ in range(cfg.n_layers):
+    for _ in range(n_scan_layers(cfg)):
+        if cfg.block_kind == "xlstm_pair":
+            blocks.append(nn.ModuleDict({
+                "ln1": norm(),
+                "mlstm": xlstm.mlstm_init(generator, cfg.d_model,
+                                          cfg.n_heads, cfg.hd, pack_g=pack_g),
+                "ln2": norm(),
+                "slstm": xlstm.slstm_init(generator, cfg.d_model,
+                                          cfg.n_heads, cfg.hd,
+                                          pack_g=pack_g)}))
+            continue
         block = nn.ModuleDict({
             "ln1": norm(), "ln2": norm(),
             "attn": nn.ModuleDict({
@@ -84,6 +111,10 @@ def _draw(cfg: ModelConfig, generator: torch.Generator,
                 "k": lin(cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
                 "v": lin(cfg.d_model, cfg.kv_dim, cfg.qkv_bias),
                 "o": lin(cfg.q_dim, cfg.d_model)})})
+        if cfg.block_kind == "hymba":
+            block["ssm"] = ssm.ssm_init(generator, cfg.d_model, cfg.n_heads,
+                                        cfg.hd, cfg.ssm_state, cfg.ssm_conv,
+                                        pack_g=pack_g)
         if cfg.n_experts:
             block["moe"] = layers.moe_init(generator, cfg.d_model, cfg.d_ff,
                                            cfg.n_experts, pack_g=pack_g)
@@ -120,15 +151,21 @@ def init_packed_params(cfg: ModelConfig,
 
 def pack_params(cfg: ModelConfig, params: nn.ModuleDict) -> nn.ModuleDict:
     """Offline stage: base-3 pack every ternary linear and expert bank
-    (norms, the router, embedding and the dense LM head are shared with
-    ``params``)."""
+    (norms, the router, the SSM's and sLSTM's dense tensors, embedding and
+    the dense LM head are shared with ``params``)."""
     g = cfg.group_size
     blocks = nn.ModuleList()
     for p in params["layers"]:
-        block = nn.ModuleDict({
-            "ln1": p["ln1"], "ln2": p["ln2"],
-            "attn": nn.ModuleDict({n: bitlinear.pack(m, g)
-                                   for n, m in p["attn"].items()})})
+        block = nn.ModuleDict({"ln1": p["ln1"], "ln2": p["ln2"]})
+        if "mlstm" in p:
+            block["mlstm"] = xlstm.mlstm_pack(p["mlstm"], g)
+            block["slstm"] = xlstm.slstm_pack(p["slstm"], g)
+            blocks.append(block)
+            continue
+        block["attn"] = nn.ModuleDict({n: bitlinear.pack(m, g)
+                                       for n, m in p["attn"].items()})
+        if "ssm" in p:
+            block["ssm"] = ssm.ssm_pack(p["ssm"], g)
         if "moe" in p:
             block["moe"] = layers.moe_pack(p["moe"], g)
         if "mlp" in p:
@@ -143,17 +180,25 @@ def pack_params(cfg: ModelConfig, params: nn.ModuleDict) -> nn.ModuleDict:
 def predecode_packed(cfg: ModelConfig, params: nn.ModuleDict) -> nn.ModuleDict:
     """Decode every layer's packed codes into dense ternary matrices, fusing
     Q|K|V and gate|up into one matrix each (one activation quant and one
-    GEMM per projection group).  Outputs equal the packed path's exactly
-    (see ``bitlinear.predecode``).  Expert banks stay packed, as in JAX:
-    the MoE runs them through ``tlmm`` an expert at a time."""
+    GEMM per projection group); the SSM's, mLSTM's and sLSTM's linears are
+    decoded one by one and their dense tensors pass through, as in JAX.
+    Outputs equal the packed path's exactly (see ``bitlinear.predecode``).
+    Expert banks stay packed, as in JAX: the MoE runs them through
+    ``tlmm`` an expert at a time."""
     blocks = nn.ModuleList()
     for p in params["layers"]:
+        block = nn.ModuleDict({"ln1": p["ln1"], "ln2": p["ln2"]})
+        if "mlstm" in p:
+            block["mlstm"] = layers.predecode_all(p["mlstm"])
+            block["slstm"] = layers.predecode_all(p["slstm"])
+            blocks.append(block)
+            continue
         a = p["attn"]
-        block = nn.ModuleDict({
-            "ln1": p["ln1"], "ln2": p["ln2"],
-            "attn": nn.ModuleDict({
-                "qkv": bitlinear.predecode_fused([a["q"], a["k"], a["v"]]),
-                "o": bitlinear.predecode(a["o"])})})
+        block["attn"] = nn.ModuleDict({
+            "qkv": bitlinear.predecode_fused([a["q"], a["k"], a["v"]]),
+            "o": bitlinear.predecode(a["o"])})
+        if "ssm" in p:
+            block["ssm"] = layers.predecode_all(p["ssm"])
         if "moe" in p:
             block["moe"] = p["moe"]
         if "mlp" in p:
@@ -192,9 +237,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda", *,
                kv_quant: bool = False) -> dict:
     """Contiguous cache: K/V (L, batch, max_len, kv_h, hd) in ``dtype``, or
-    int8 with (L, batch, max_len, kv_h) f32 scale planes (``kv_quant``)."""
-    return _kv_planes((cfg.n_layers, batch, max_len, cfg.n_kv_heads), cfg.hd,
-                      dtype, kv_quant, device)
+    int8 with (L, batch, max_len, kv_h) f32 scale planes (``kv_quant``).
+    hymba adds ``{"ssm": {"h", "conv"}}``: the SSM state (L, batch, H, N,
+    hd) in f32 and the conv ring (L, batch, ssm_conv - 1, H * hd) in
+    ``dtype``.  ``xlstm_pair`` keeps no K/V: ``{"mlstm": {"C", "n", "m"},
+    "slstm": {"c", "n", "h", "m"}}`` over its L / 2 blocks, all f32, each
+    ``m`` at -1e30 (``max_len`` unused)."""
+    n_scan = n_scan_layers(cfg)
+
+    def stack(state: dict) -> dict:
+        return {k: v[None].repeat((n_scan,) + (1,) * v.ndim)
+                for k, v in state.items()}
+
+    if cfg.block_kind == "xlstm_pair":
+        return {"mlstm": stack(xlstm.mlstm_init_state(
+                    batch, cfg.n_heads, cfg.hd, device=device)),
+                "slstm": stack(xlstm.slstm_init_state(
+                    batch, cfg.n_heads, cfg.hd, device=device))}
+    cache = _kv_planes((n_scan, batch, max_len, cfg.n_kv_heads), cfg.hd,
+                       dtype, kv_quant, device)
+    if cfg.block_kind == "hymba":
+        cache["ssm"] = stack(ssm.ssm_init_state(
+            batch, cfg.n_heads, cfg.hd, cfg.ssm_state, cfg.ssm_conv,
+            cfg.n_heads * cfg.hd, dtype, device))
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -205,8 +271,9 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     K/V (L, num_pages, page_size, kv_h, hd), shared by every slot through
     block tables (``attention.paged_update_kv_cache``); page 0 is the null
     page.  With ``kv_quant`` the pools are int8 and the scale planes
-    (L, num_pages, page_size, kv_h) ride the same page axis."""
-    require_servable(cfg)
+    (L, num_pages, page_size, kv_h) ride the same page axis.  Attention
+    blocks only: recurrent state is O(1) a slot, with nothing to page."""
+    _refuse_recurrent(cfg, "paged KV cache")
     return _kv_planes((cfg.n_layers, num_pages, page_size, cfg.n_kv_heads),
                       cfg.hd, dtype, kv_quant, device)
 
@@ -357,11 +424,59 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
     return layers.linear_apply(p["o"], o, ctx)
 
 
+def _write_state(planes: dict, state: dict) -> None:
+    """Copy a sub-layer's new recurrent state into its cache planes in
+    place (casting to the plane's dtype), as the KV is written: the
+    captured decode block replays on the same planes."""
+    for name, plane in planes.items():
+        plane.copy_(state[name])
+
+
+def _xlstm_pair_apply(cfg, ctx, x, p, cache, phase):
+    """mLSTM then sLSTM, each pre-normed and residual.  "full" runs both
+    scans over the sequence (writing the state after it into ``cache``
+    when one is given); "step" advances the state by one token."""
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.hd)
+    for norm, name, forward, step, extra in (
+            ("ln1", "mlstm", xlstm.mlstm_forward, xlstm.mlstm_step,
+             {"chunk": cfg.ssm_chunk or 128}),
+            ("ln2", "slstm", xlstm.slstm_forward, xlstm.slstm_step, {})):
+        h = layers.rmsnorm(p[norm], x, cfg.norm_eps)
+        if phase == "full":
+            out = forward(p[name], h, ctx, return_state=cache is not None,
+                          **kw, **extra)
+            if cache is not None:
+                out, state = out
+                _write_state(cache[name], state)
+        else:
+            out, state = step(p[name], h, cache[name], ctx, **kw)
+            _write_state(cache[name], state)
+        x = x + out
+    return x
+
+
 def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
                  chunk_mask=None, page_table=None):
+    if cfg.block_kind == "xlstm_pair":
+        return _xlstm_pair_apply(cfg, ctx, x, p, cache, phase)
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + _attn_apply(cfg, ctx, p["attn"], h, cache, positions, phase,
-                        cache_len, chunk_mask, page_table)
+    attn_out = _attn_apply(cfg, ctx, p["attn"], h, cache, positions, phase,
+                           cache_len, chunk_mask, page_table)
+    if cfg.block_kind == "hymba":
+        # attention and SSM heads in parallel on the same input, averaged
+        kw = dict(n_heads=cfg.n_heads, head_dim=cfg.hd, state=cfg.ssm_state)
+        if phase == "full":
+            ssm_out = ssm.ssm_forward(p["ssm"], h, ctx, chunk=cfg.ssm_chunk,
+                                      return_state=cache is not None, **kw)
+            if cache is not None:
+                ssm_out, state = ssm_out
+                _write_state(cache["ssm"], state)
+        else:
+            ssm_out, state = ssm.ssm_step(p["ssm"], h, cache["ssm"], ctx,
+                                          **kw)
+            _write_state(cache["ssm"], state)
+        attn_out = 0.5 * (attn_out + ssm_out.to(attn_out.dtype))
+    x = x + attn_out
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
         b, t, d = h.shape
@@ -374,13 +489,19 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
     return x
 
 
+def _layer_cache(cache, i: int):
+    """Layer i's views of every cache plane, nested as the cache is."""
+    if cache is None:
+        return None
+    return {name: (_layer_cache(plane, i) if isinstance(plane, dict)
+                   else plane[i]) for name, plane in cache.items()}
+
+
 def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
                 chunk_mask=None, page_table=None):
     for i, p in enumerate(params["layers"]):
-        layer_cache = (None if cache is None
-                       else {name: plane[i] for name, plane in cache.items()})
-        x = _block_apply(cfg, ctx, x, p, layer_cache, positions, phase,
-                         cache_len, chunk_mask, page_table)
+        x = _block_apply(cfg, ctx, x, p, _layer_cache(cache, i), positions,
+                         phase, cache_len, chunk_mask, page_table)
     return x
 
 
@@ -414,7 +535,6 @@ def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
     ``lengths`` ((b,) int) row i's logits are taken at position
     lengths[i] - 1 of a right-padded batch.  An embed model takes
     (b, s, d_model) embeddings."""
-    require_servable(cfg)
     x = _embed_in(cfg, params, inputs, ctx)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
@@ -440,8 +560,10 @@ def prefill_chunk(cfg: ModelConfig, params: nn.ModuleDict,
     real prompt token, whose logits are returned.  With ``page_table``
     ((b, n_pages) int32) the cache is a page pool (``init_paged_cache``):
     row i's positions resolve through its table row, and masked rows'
-    writes land in the null page."""
-    require_servable(cfg)
+    writes land in the null page.  Attention blocks only: a recurrent
+    state cannot resume chunk to chunk (the engine prefills those kinds
+    whole)."""
+    _refuse_recurrent(cfg, "chunked prefill")
     x = _embed_in(cfg, params, inputs, ctx)
     b, c = x.shape[:2]
     dev = x.device
@@ -464,7 +586,6 @@ def decode_step(cfg: ModelConfig, params: nn.ModuleDict,
     own [0, cache_len[i]] prefix.  With ``page_table`` ((b, n_pages) int32)
     the cache is a page pool and row i appends through its table row.  An
     embed model takes (b, 1, d_model) embeddings."""
-    require_servable(cfg)
     x = _embed_in(cfg, params, inputs, ctx)
     cl = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device)
     positions = cl[..., None] + torch.arange(1, device=x.device)

@@ -13,6 +13,13 @@ Counterpart of ``repro/serving/engine.py``:
     ``max_seq``; its leading overlap rewrites positions the previous chunk
     already wrote, with the same tokens at the same positions.  Rows whose
     prompt ends in the wave sample their first token on the device.
+  * **whole-prompt admission** (``hymba``, ``xlstm_pair``: a recurrent
+    state cannot resume chunk to chunk) — one admission a wave:
+    ``transformer.prefill_step`` on a one-row cache of the prompt's
+    length, then the adopt step copies it into the slot's rows (K/V rows
+    [0, plen) and every state plane whole) and samples the first token.
+    Idle lanes' decode ticks integrate their padding token into their
+    state, which the next adopt step overwrites, as in JAX.
   * **decode blocks** — ``decode_block`` single-token ticks per block with
     per-slot sampling, cache writes and ``cache_len``/``emitted``
     bookkeeping on the device; the host reads the block's tokens and emit
@@ -581,14 +588,39 @@ def reference_decode(cfg: ModelConfig, params: nn.ModuleDict, ctx: Ctx,
     return toks, margins
 
 
-def check_mesh(mesh, device: torch.device) -> tuple:
-    """A serving mesh's (data, model) sizes, after checking its axis names
-    (the JAX engine's message) and that its process groups can run on
-    ``device``: NCCL on the card, gloo on the CPU."""
+def _check_mesh_names(mesh) -> None:
     names = tuple(mesh.mesh_dim_names or ())
     if names != ("data", "model"):
         raise ValueError("ServingEngine mesh must have axis_names "
                          f"('data', 'model'); got {names}")
+
+
+def _refuse_recurrent(cfg: ModelConfig, mesh, paged: bool,
+                      kv_quant: bool) -> None:
+    """What the recurrent kinds cannot serve, with the JAX engine's
+    messages and in its order: a mesh, int8 KV, a paged cache."""
+    kind = cfg.block_kind
+    if mesh is not None:
+        _check_mesh_names(mesh)
+        raise ValueError(
+            "multi-device serving requires block_kind='attn' (recurrent "
+            f"kinds keep the single-device engine); got {kind!r}")
+    if kv_quant:
+        raise ValueError(
+            "kv_quant=True (int8 KV + per-(token, head) scales) requires "
+            f"block_kind='attn'; got {kind!r}")
+    if paged:
+        raise ValueError(
+            "paged KV cache requires block_kind='attn' (recurrent kinds "
+            f"keep O(1) state per slot); got {kind!r}")
+
+
+def check_mesh(mesh, device: torch.device) -> tuple:
+    """A serving mesh's (data, model) sizes, after checking its axis names
+    (the JAX engine's message) and that its process groups can run on
+    ``device``: NCCL on the card, gloo on the CPU."""
+    _check_mesh_names(mesh)
+    names = tuple(mesh.mesh_dim_names)
     want = "nccl" if device.type == "cuda" else "gloo"
     for axis in names:
         backend = dist.get_backend(mesh.get_group(axis))
@@ -599,14 +631,31 @@ def check_mesh(mesh, device: torch.device) -> tuple:
     return mesh.size(0), mesh.size(1)
 
 
+def _adopt(cache: dict, one: dict, i: int) -> None:
+    """Copy a one-row cache into row ``i`` of ``cache`` in place, each plane
+    at (layer 0, row i, 0, ...) over the one-row plane's extent: K/V rows
+    [0, plen) and every state plane whole (JAX's adopt step)."""
+    for name, plane in cache.items():
+        src = one[name]
+        if isinstance(plane, dict):
+            _adopt(plane, src, i)
+            continue
+        region = (slice(None), slice(i, i + 1)) + tuple(
+            slice(0, n) for n in src.shape[2:])
+        plane[region].copy_(src)
+
+
 class ServingEngine:
     """Token-level continuous batching over ``batch_slots`` lanes of up to
     ``max_seq`` positions.  ``params`` are packed parameters
     (``transformer.pack_params`` or ``convert.from_jax_packed``) on
     ``device``; the engine runs on the card unless ``device="cpu"``.  It
-    serves token-frontend attention-block models, dense or MoE (whose
-    expert banks stay packed and run through ``tlmm``); an MoE config runs
-    on one rank only.
+    serves token-frontend models of every block kind: attention blocks,
+    dense or MoE (whose expert banks stay packed and run through ``tlmm``;
+    an MoE config runs on one rank only), and the recurrent hymba and
+    xLSTM, whose prompts are admitted whole, one a wave, on a contiguous
+    bf16 or f32 cache on one rank (no paged cache, int8 KV or mesh, as in
+    JAX).
 
     ``device_sched`` (default True) keeps the scheduler state on the device
     and, on a CUDA device, replays each decode block as one captured CUDA
@@ -657,7 +706,8 @@ class ServingEngine:
                  on_block: Optional[Callable] = None,
                  on_token: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
-        transformer.require_servable(cfg)
+        if cfg.block_kind != "attn":
+            _refuse_recurrent(cfg, mesh, paged, kv_quant)
         if cfg.frontend != "token":
             raise ValueError(
                 f"ServingEngine serves token ids; {cfg.name} takes "
@@ -682,6 +732,8 @@ class ServingEngine:
         self.max_seq = max_seq
         self.slots = batch_slots
         self.prefill_chunk = max(1, min(prefill_chunk, max_seq))
+        # chunked admission waves; the recurrent kinds admit whole prompts
+        self._chunked = cfg.block_kind == "attn"
         self.decode_block = max(1, decode_block)
         self.cache_dtype = cache_dtype
         self.kv_quant = bool(kv_quant)
@@ -1199,7 +1251,8 @@ class ServingEngine:
         prompt = np.asarray(self._eff_prompt(req))
         plen = len(prompt)
         req.attempts += 1
-        n_chunks = -(-(plen - base) // self.prefill_chunk)
+        n_chunks = (-(-(plen - base) // self.prefill_chunk) if self._chunked
+                    else 1)
         self.stats["prefill_chunk_rows"] += n_chunks
         return {"slot": i, "req": req, "prompt": prompt,
                 "carried": self._carried(req), "plen": plen, "next": 0,
@@ -1212,6 +1265,9 @@ class ServingEngine:
         retry carries (0 for a fresh request)."""
         self.stats["prefill_chunks"] += 1
         self._sched_epoch += 1
+        if not self._chunked:
+            self._prefill_whole(pending, slots)
+            return
         n, c = self.slots, self.prefill_chunk
         toks = np.zeros((n, c), np.int64)
         offs = np.zeros((n,), np.int32)
@@ -1271,6 +1327,39 @@ class ServingEngine:
         ft = self._gather_slots(first)[0].cpu().numpy()
         for i in completing:
             self._finish_admission(slots, pending.pop(i), int(ft[i]))
+
+    def _prefill_whole(self, pending: dict, slots) -> None:
+        """Whole-prompt admission (the recurrent kinds: a state cannot
+        resume chunk to chunk), one admission a wave: ``prefill_step`` on a
+        one-row cache of the prompt's length, then the adopt step copies
+        that cache into the slot's rows (K/V rows [0, plen) and the whole
+        state), and the first token is sampled at emit index = the tokens a
+        retry carries.  A retry prefills its prompt plus those tokens."""
+        i = next(iter(pending))
+        adm = pending.pop(i)
+        req, plen = adm["req"], adm["plen"]
+        one = transformer.init_cache(self.cfg, 1, plen, self.cache_dtype,
+                                     self.device)
+        logits, one = transformer.prefill_step(
+            self.cfg, self.params,
+            self._upload(np.asarray(adm["prompt"], np.int64)[None]),
+            self.ctx, one)
+        _adopt(self._cache, one, i)
+        k = len(adm["carried"])
+        up = self._upload
+        first = sample(logits, up(np.asarray([req.seed], np.int64)),
+                       up(np.asarray([k], np.int64)),
+                       up(np.asarray([req.temperature], np.float32)))
+        if self._dev_active:
+            n = self.slots
+            seeds = np.zeros((n,), np.int64)
+            temps = np.zeros((n,), np.float32)
+            seeds[i], temps[i] = req.seed, req.temperature
+            first_all = torch.zeros((n,), dtype=first.dtype,
+                                    device=self.device)
+            first_all[i] = first[0]
+            self._merge_admissions([adm], first_all, up(seeds), up(temps))
+        self._finish_admission(slots, adm, int(first.cpu()[0]))
 
     def _merge_admissions(self, admits, first, seeds, temps) -> None:
         """Fold completed admissions into the device state in place (this

@@ -54,6 +54,28 @@ PAGE_SIZES = (4, 5, 16)
 WINDOWS = (None, 33)   # 33: the first live key falls inside a 32-key tile
 
 
+def _assert_contiguous_decode_close(got, q, k, v, cl, window):
+    """The contiguous decode read against its plain version: with a window
+    on a bf16 cache (the kernel's RP instantiation) the rounded plain read,
+    within 1e-3 and 2e-5 on average, the most one probability rounding to
+    the other bf16 neighbour moves an output (the kernel's scores differ by
+    ULPs); else the plain read within TOL."""
+    if window is not None and v.dtype == torch.bfloat16:
+        want = da_ref.decode_attention_rounded_ref(q, k, v, cl, window=window)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+        assert (got - want).abs().mean() < 2e-5
+    else:
+        torch.testing.assert_close(got, da_ref.decode_attention_ref(
+            q, k, v, cl, window=window), **TOL)
+
+
+def _unrounded(x, window):
+    """A contiguous cache the decode read takes without rounding its
+    probabilities, as the paged reads take theirs: a windowed bf16 cache
+    as f32 (the same values, read in the same order)."""
+    return x.float() if window is not None and x.dtype == torch.bfloat16 else x
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -166,10 +188,27 @@ def test_decode_kernel_matches_plain(cuda, kv_dtype, b, h, kv_h, S, d, lens):
     cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
     for window in WINDOWS:
         got = da_ops.decode_attention(q, k, v, cl, window=window)
-        torch.testing.assert_close(
-            got, da_ref.decode_attention_ref(q, k, v, cl, window=window),
-            **TOL)
+        _assert_contiguous_decode_close(got, q, k, v, cl, window)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv_h,S,d,lens,window", [
+    (4, 24, 24, 256, 64, [1, 77, 200, 257], 33),
+    (3, 8, 2, 48, 32, [0, 17, 48], 16),
+    (2, 25, 5, 1600, 64, [1100, 1500], 1024)])
+def test_decode_kernel_rounded_probs_matches_plain(cuda, b, h, kv_h, S, d,
+                                                   lens, window):
+    """The RP instantiation (a windowed contiguous bf16 cache, probabilities
+    rounded to bf16 against the row's maximum) against its plain version,
+    at hymba's window and GQA among others."""
+    gen = torch.Generator(device=cuda).manual_seed(S + d + 1)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, S, kv_h, d, generator=gen, device=cuda
+                        ).bfloat16().transpose(1, 2) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = da_ops.decode_attention(q, k, v, cl, window=window)
+    _assert_contiguous_decode_close(got, q, k, v, cl, window)
 
 
 def _paged(rows, ps, gen, garbage):
@@ -215,7 +254,8 @@ def test_paged_decode_kernel_matches_plain_and_contiguous(
         torch.testing.assert_close(got, da_ref.paged_decode_attention_ref(
             q, kp, vp, bt, cl, window=window), **TOL)
         assert torch.equal(got, da_ops.decode_attention(
-            q, k.transpose(1, 2), v.transpose(1, 2), cl, window=window))
+            q, _unrounded(k, window).transpose(1, 2),
+            _unrounded(v, window).transpose(1, 2), cl, window=window))
 
 
 @pytest.mark.gpu
@@ -252,7 +292,8 @@ def test_paged_int8_decode_kernel_matches_plain_and_contiguous(
             got, da_ref.paged_decode_attention_quant_ref(
                 q, kp, vp, ksp, vsp, bt, cl, window=window), **TOL)
         assert torch.equal(got, da_ops.decode_attention(
-            q, kd.transpose(1, 2), vd.transpose(1, 2), cl, window=window))
+            q, _unrounded(kd, window).transpose(1, 2),
+            _unrounded(vd, window).transpose(1, 2), cl, window=window))
 
 
 @pytest.mark.gpu
@@ -538,8 +579,13 @@ def test_decode_kernels_never_read_dead_keys(cuda, ps):
             q, kd.transpose(1, 2), vd.transpose(1, 2), cl, window=window)
         for name, out in got.items():
             assert torch.isfinite(out).all(), (name, window)
-            torch.testing.assert_close(
-                out, want_int8 if name == "paged int8" else want, **TOL)
+            if name == "contiguous":
+                _assert_contiguous_decode_close(
+                    out, q, kz.transpose(1, 2), vz.transpose(1, 2), cl,
+                    window)
+            else:
+                torch.testing.assert_close(
+                    out, want_int8 if name == "paged int8" else want, **TOL)
 
 
 @pytest.mark.gpu
@@ -566,9 +612,8 @@ def test_decode_kernels_take_misaligned_operands(cuda, kv_dtype):
         assert torch.equal(got, da_ops.decode_attention(
             q.contiguous(), k.contiguous().transpose(1, 2),
             v.contiguous().transpose(1, 2), cl, window=window))
-        torch.testing.assert_close(got, da_ref.decode_attention_ref(
-            q, k.transpose(1, 2), v.transpose(1, 2), cl, window=window),
-            **TOL)
+        _assert_contiguous_decode_close(got, q, k.transpose(1, 2),
+                                        v.transpose(1, 2), cl, window)
     junk = _float_garbage(gen, kv_dtype, cuda)
     (kp, bt), (vp, _) = _paged(k.contiguous(), ps, gen, junk), _paged(
         v.contiguous(), ps, gen, junk)
@@ -993,6 +1038,45 @@ def test_captured_engine_equals_host_driven(cuda, mode, temperature):
     if "paged" in extra:
         assert st["admissions_deferred_pages"] > 0
         assert st["kv_pages_in_use"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_captured_recurrent_engine_equals_host_driven(cuda, name,
+                                                      cache_dtype):
+    """Reduced hymba and xLSTM on the card (whole-prompt admission, the
+    state planes written in place by the replayed block): the captured
+    engine emits the host-driven engine's tokens, greedy and sampled, 1-
+    and 2-token prompts among the requests; hymba's decode launches are
+    counted, replays included (blocks x ticks x layers)."""
+    cfg = get_config(name).reduced(n_layers=4)
+    packed = transformer.init_packed_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    kw = dict(max_seq=32, batch_slots=3, decode_block=4, device="cuda",
+              cache_dtype=cache_dtype)
+
+    def requests(temperature):
+        reqs = _card_requests(cfg, temperature)
+        reqs[0].prompt, reqs[-1].prompt = np.asarray([5, 9]), np.asarray([3])
+        return reqs
+
+    for temperature in (0.0, 0.8):
+        host = ServingEngine(cfg, packed, device_sched=False, **kw).run(
+            requests(temperature))
+        eng = ServingEngine(cfg, packed, **kw)
+        eng.run(requests(temperature)[:1])   # capture the block
+        reset_launch_counts()
+        dev = eng.run(requests(temperature))
+        torch.cuda.synchronize()
+        assert eng._graph is not None
+        for h, d in zip(host, dev):
+            assert d.done and d.output.tolist() == h.output.tolist()
+        if cfg.block_kind == "hymba":
+            assert launch_counts()["decode_attention"] == (
+                eng.stats["decode_blocks"] * eng.decode_block * cfg.n_layers)
+        else:
+            assert sum(launch_counts().values()) == 0
 
 
 @pytest.mark.gpu

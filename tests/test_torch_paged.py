@@ -354,7 +354,8 @@ def test_paged_engine_refuses_what_cannot_run(served):
     with pytest.raises(ValueError, match="null page"):
         ServingEngine(cfg, ours, max_seq=32, paged=True, kv_pages=1,
                       device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="paged KV cache requires "
+                       "block_kind='attn'"):
         ServingEngine(dataclasses.replace(cfg, block_kind="hymba"), ours,
                       max_seq=32, paged=True, device="cpu")
     with pytest.raises(ValueError, match="paged"):
