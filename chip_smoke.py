@@ -65,7 +65,17 @@ engine reads it, and on an f32 one), then each model at full width, 4
 layers, served through ``serve_modes`` (whole-prompt admission, a 2-token
 prompt among the requests) and judged by the oracle on bf16 and f32
 caches, hymba's 2-token prefill decoded on against the 3-token prefill,
-and the kernel launches of one admission printed.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+and the kernel launches of one admission printed.  Phase 11 trains
+bitnet-0.73b with QAT on the card (``make_train_step``: STE linears, the
+flash backward, the chunked loss, AdamW): 8 steps at full width and depth
+whose loss, and that of a batch they never see, must fall; the trained
+masters packed and served by the engine, judged by the packed oracle, whose
+prefill logits are held to the QAT forward's; at 2 layers, one step on the
+card against the CPU (the CPU also replaying the card's quantized values,
+and a TF32 control that must fail that gradient gate), a checkpointed and
+resumed run against a straight one bit for bit, and a compressed
+data-parallel step on phase 4f's NCCL world of one (which the script ends
+on its way out).  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -84,10 +94,12 @@ when there is no CUDA device or any phase fails.  Never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -973,7 +985,408 @@ def phase10(dev, gen, max_seq):
     return p10_counts, failures
 
 
+# Phase 11's gates.  (a) and (b)'s first three and (c)-(e) were fixed
+# before the phase's first run; (a)'s held batch and (b)'s pinned gradients
+# were added after (b)'s first parameter gate failed (PERF.md section 6).
+# (a): the loss of one batch the steps never see, before and after the 8
+# steps, must fall by TRAIN_HELD_DROP: no batch noise, and a run that does
+# not train leaves it where it was to the last bit.  (b): the card and the
+# CPU run the same f32 step (TF32 off) with their sums in other orders, a
+# few ULPs a product, which can move an int8 activation code by one; a
+# moved code moves the next linear's output by a whole quantization step,
+# and so more codes after it (the CPU tests' finding): the loss within
+# TRAIN_LOSS_RTOL of itself, the gradient norm within TRAIN_GNORM_RTOL, and
+# every parameter within TRAIN_PARAM_LR_BOUND * lr (AdamW's first update is
+# +-lr an element wherever |g| >> eps).  The gradients themselves are held
+# with the quantizers pinned (``pinned_quantizers``): the CPU replays the
+# card's fake-quantized activations and weights, so the two differ in their
+# sums alone, and every leaf's gradient must lie within TRAIN_GRAD_RTOL of
+# its largest element.  A control run of the card with TF32 on must fail
+# that limit, so the gate can fail.
+# (d): the packed oracle's prefill logits against the QAT
+# forward's on the same masters: the same math up to association (integer
+# sums scaled once against products of dequantized values), so int8 codes
+# move as between two softmax orders: LOGIT_TOL_PERTURBED.
+TRAIN_HELD_DROP = 0.005
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-2
+TRAIN_PARAM_LR_BOUND = 2.2
+# the geometric mean of a calibration run's worst leaves (NVIDIA H100 80GB
+# HBM3, 700 W): 1.9e-6 pinned f32, 1.0e-3 the TF32 control (PERF.md)
+TRAIN_GRAD_RTOL = 4e-5
+
+
+@contextlib.contextmanager
+def pinned_quantizers(tape: list, replay: bool):
+    """Record each QAT quantizer's forward value, in call order, into
+    ``tape`` (on the CPU); with ``replay``, give the recorded values back in
+    that order instead.  Two devices that replay one tape run the same int8
+    and ternary codes, and differ only in the order of their sums."""
+    from repro_torch.core import ternary
+    saved = ternary.absmax_quant_ste, ternary.ternarize_ste
+    played = iter(list(tape)) if replay else None
+
+    def pin(fn):
+        def pinned(x, *args, **kw):
+            if replay:
+                v = next(played, None)
+                if v is None:
+                    raise AssertionError("pinned replay ran out of values")
+                return x + (v.to(x.device, x.dtype) - x).detach()
+            out = fn(x, *args, **kw)
+            tape.append(out.detach().cpu())
+            return out
+        return pinned
+
+    ternary.absmax_quant_ste, ternary.ternarize_ste = map(pin, saved)
+    try:
+        yield tape
+    finally:
+        ternary.absmax_quant_ste, ternary.ternarize_ste = saved
+        if replay and next(played, None) is not None:
+            raise AssertionError("pinned replay left recorded values unused")
+
+
+def leaf_grad_errors(got: dict, ref: dict) -> dict:
+    """{leaf: max |got - ref| / max |ref|} over the gradient leaves."""
+    return {n: ((got[n] - g).abs().max() / g.abs().max()).item()
+            for n, g in ref.items()}
+
+
+def phase11(dev, requests, max_seq, smi):
+    """Phase 11: QAT training on the card, bitnet-0.73b, seed 11.  (a) At
+    full width and depth, batch 8 x seq 128 from the synthetic stream, lr
+    3e-4 with the launcher's warmup, loss chunk 128: 8 steps of
+    ``make_train_step``; the last loss below the first, and the loss of a
+    batch never trained on lower after than before; s/step, tokens/s and
+    ``max_memory_allocated``.  (d) Those trained masters packed and
+    served (phase 4's 8 requests, device-resident engine), every token
+    judged by the packed oracle on the engine's history (TOKEN_GAP); the
+    oracle's prefill logits against the QAT forward's on the masters.
+    At full width with 2 layers: (b) one step on the card against the same
+    step on the CPU from the same weights and batch, then with the CPU
+    replaying the card's quantized values, and a TF32 control; (c) under
+    ``torch.use_deterministic_algorithms``, 2 steps, a checkpoint saved and
+    restored, 2 more, equal bit for bit to 4 straight steps; (e) a
+    compressed data-parallel step on the NCCL world of one phase 4f set up,
+    its gradients equal to ``compress_decompress`` of the single-device
+    gradients bit for bit.  Returns (the kernels' launches in the phase,
+    the failures found)."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import bitlinear, ternary
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.optim import adamw, compression
+    from repro_torch.optim.adamw import apply_updates, trainable
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import reference_decode
+    from repro_torch.training import (loss_and_grads, make_train_step,
+                                      make_train_step_ddp, softmax_xent)
+    failures = []
+    t_11 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    cfg = get_config("bitnet-0.73b")
+    batch, seq, lr, chunk = 8, 128, 3e-4, 128
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=seq, attn_kv_chunk=seq)
+
+    def optimizer(steps):   # the launcher's schedule
+        return adamw(lr=lr, warmup_steps=min(100, steps // 10 + 1))
+
+    # -- (a) 8 steps at full width and depth -------------------------------
+    mem_before = torch.cuda.memory_allocated()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(11))
+    data = SyntheticLMDataset(cfg, batch=batch, seq_len=seq, seed=11,
+                              device=dev)
+    held = data.batch_at(8)   # the stream's next batch: never trained on
+
+    def held_loss(p):
+        with torch.no_grad():
+            return float(softmax_xent(transformer.forward(
+                cfg, p, held["inputs"], ctx), held["labels"]))
+
+    held_before = held_loss(params)
+    torch.cuda.reset_peak_memory_stats()
+    opt = optimizer(8)
+    state = opt.init(params)
+    step = make_train_step(cfg, ctx, opt, loss_chunk=chunk)
+    losses, secs = [], []
+    for i in range(8):
+        b = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    held_after = held_loss(params)
+    s_step = sum(secs[1:]) / len(secs[1:])
+    # the untrained logits' variance costs ~ excess nats over the uniform
+    # ln vocab; the stream's map (31 x + 7 mod vocab) has 32000 entries,
+    # too many for 8 steps to learn, so only this excess can fall yet
+    excess = held_before - math.log(cfg.vocab_size)
+    n_params = sum(t.numel() for t in trainable(params).values())
+    log(f"  (a) bitnet-0.73b L={cfg.n_layers} d={cfg.d_model} "
+        f"{n_params / 1e6:.1f}M f32 masters, batch {batch} x seq {seq}, lr "
+        f"{lr}, loss chunk {chunk}: losses {[round(x, 5) for x in losses]}; "
+        f"held batch's loss {held_before:.6f} -> {held_after:.6f} (fall "
+        f"{held_before - held_after:.6f}, gate {TRAIN_HELD_DROP}; its excess "
+        f"over ln vocab {excess:.6f}, of which 8 steps of +-lr on the 0.02 "
+        f"tied embeddings can take ~{excess * (1 - (1 - 8 * lr / 0.02) ** 2):.4f}"
+        f"); s/step "
+        f"{[round(x, 4) for x in secs]} (steps 1-7 mean {s_step:.4f} "
+        f"s, {batch * seq / s_step:.1f} tokens/s); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({mem_before / 2**30:.3f} GiB held before "
+        f"the phase); {smi}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        failures.append(f"(a) losses {losses}: not finite or the last not "
+                        "below the first")
+    if not held_before - held_after >= TRAIN_HELD_DROP:
+        failures.append(f"(a) held batch's loss {held_before} -> "
+                        f"{held_after}: fell less than {TRAIN_HELD_DROP}")
+    if any(kernels.launch_counts().values()):
+        failures.append(f"(a) training launched a port kernel: "
+                        f"{kernels.launch_counts()}")
+    del state, step, opt, m
+
+    # -- (d) the trained masters packed and served --------------------------
+    t_d = time.perf_counter()
+    with torch.no_grad():
+        packed = transformer.pack_params(cfg, params)
+        gaps_logits = []
+        for r in requests()[:4]:
+            prompt = torch.as_tensor(r.prompt, device=dev)[None]
+            qat = transformer.forward(cfg, params, prompt, ctx)[:, -1]
+            ora, _ = transformer.prefill_step(
+                cfg, packed, prompt, Ctx(), transformer.init_cache(
+                    cfg, 1, max_seq, torch.float32, dev))
+            gaps_logits.append((qat - ora).abs().max().item())
+    del params
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                        prefill_chunk=32, decode_block=8)
+    eng.run(requests()[:2])   # warm-up: eager block, capture
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reqs = eng.run(requests())
+    torch.cuda.synchronize()
+    p11_counts = kernels.launch_counts()
+    st = eng.stats
+    del eng
+    kernels.reset_launch_counts()
+    gaps = []
+    for r in reqs:
+        if not (r.done and len(r.output) == r.max_new_tokens):
+            failures.append(f"(d) request not served: {r.output}")
+            continue
+        _, g_r = reference_decode(cfg, packed, Ctx(), r.prompt,
+                                  len(r.output), max_seq, torch.bfloat16,
+                                  follow=r.output)
+        gaps.append(max(g_r))
+    torch.cuda.synchronize()
+    for k, v in kernels.launch_counts().items():
+        p11_counts[k] = p11_counts.get(k, 0) + v
+    engine_line("  (d) engine, contiguous bf16, device, on the trained "
+                "masters packed", st)
+    log(f"  (d) tokens {[r.output.tolist() for r in reqs]}; oracle gap per "
+        f"request {[round(g, 5) for g in gaps]} (limit {TOKEN_GAP}); QAT "
+        f"forward vs oracle prefill logits, 4 prompts: "
+        f"{[round(g, 5) for g in gaps_logits]} (limit "
+        f"{LOGIT_TOL_PERTURBED}); {time.perf_counter() - t_d:.1f} s")
+    if not gaps or max(gaps) > TOKEN_GAP:
+        failures.append(f"(d) engine token off the oracle's by {gaps}")
+    if max(gaps_logits) > LOGIT_TOL_PERTURBED:
+        failures.append(f"(d) QAT forward vs oracle logits {gaps_logits}")
+    for name in ("flash_chunk_prefill", "decode_attention", "tlmm",
+                 "flash_prefill"):
+        if p11_counts.get(name, 0) <= 0:
+            failures.append(f"(d) did not launch {name}")
+    del packed, reqs
+    torch.cuda.empty_cache()
+
+    # -- (b) the card against the CPU, full width, 2 layers ------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    master2 = transformer.init_params(cfg2, torch.Generator().manual_seed(12))
+    data2 = SyntheticLMDataset(cfg2, batch=batch, seq_len=seq, seed=12,
+                               device="cpu")
+    batch2 = data2.batch_at(0)
+    t_b = time.perf_counter()
+
+    def one_step(where, tape=None, replay=False, tf32=False):
+        """One step from master2 on batch2: (loss, grad norm, updated
+        params, grads, int8 input codes of each QAT linear), all on the
+        CPU.  With ``tape`` the quantizers are recorded or replayed."""
+        p = copy.deepcopy(master2).to(where)
+        b = {k: v.to(where) for k, v in batch2.items()}
+        codes, apply_qat = [], bitlinear.apply_qat
+
+        def recording(lin, x, **kw):
+            codes.append(ternary.absmax_quant(x.detach(),
+                                              reciprocal=True)[0].cpu())
+            return apply_qat(lin, x, **kw)
+
+        bitlinear.apply_qat = recording
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        pin = (pinned_quantizers(tape, replay) if tape is not None
+               else contextlib.nullcontext())
+        try:
+            with pin:
+                loss, grads = loss_and_grads(cfg2, ctx, p, b, chunk)
+        finally:
+            bitlinear.apply_qat = apply_qat
+            torch.backends.cuda.matmul.allow_tf32 = False
+        gnorm = torch.sqrt(sum(g.float().square().sum()
+                               for g in grads.values()))
+        opt = optimizer(1)
+        upd, _ = opt.update(grads, opt.init(p), p)
+        p = apply_updates(p, upd)
+        return (float(loss), float(gnorm),
+                {n: t.cpu() for n, t in trainable(p).items()},
+                {n: g.cpu() for n, g in grads.items()}, codes)
+
+    tape32, tape_tf32 = [], []
+    l_c, g_c, p_c, gr_c, codes_c = one_step(dev, tape32)
+    l_h, g_h, p_h, gr_h, codes_h = one_step("cpu")
+    _, _, p_pin, gr_pin, _ = one_step("cpu", tape32, replay=True)
+    gr_tf32 = one_step(dev, tape_tf32, tf32=True)[3]
+    gr_tf32_pin = one_step("cpu", tape_tf32, replay=True)[3]
+    del tape32, tape_tf32
+    moved = [int((a != b_).sum()) for a, b_ in zip(codes_c, codes_h)]
+    err_free = leaf_grad_errors(gr_c, gr_h)
+    err_pin = leaf_grad_errors(gr_c, gr_pin)
+    err_tf32 = leaf_grad_errors(gr_tf32, gr_tf32_pin)
+    worst_pin = max(err_pin, key=err_pin.get)
+    worst_tf32 = max(err_tf32.values())
+    # the card's gradients through AdamW on the CPU: the update alone
+    p_ref = copy.deepcopy(master2)
+    opt = optimizer(1)
+    upd, _ = opt.update(gr_c, opt.init(p_ref), p_ref)
+    p_ref = trainable(apply_updates(p_ref, upd))
+    worst, n_off, n_off_pin, n_off_same, n_all = 0.0, 0, 0, 0, 0
+    for n, t in p_h.items():
+        d = (p_c[n] - t).abs()
+        worst = max(worst, d.max().item())
+        n_off += int((d > 1e-6 * t.abs().max()).sum())
+        n_off_pin += int(((p_c[n] - p_pin[n]).abs()
+                          > 1e-6 * p_pin[n].abs().max()).sum())
+        n_off_same += int(((p_c[n] - p_ref[n]).abs()
+                           > 1e-6 * t.abs().max()).sum())
+        n_all += t.numel()
+    log(f"  (b) one step, card vs CPU (2 layers, TF32 off): loss {l_c:.7f} "
+        f"vs {l_h:.7f}, grad norm {g_c:.6f} vs {g_h:.6f}; int8 activation "
+        f"codes moved, QAT linear inputs in call order (forward, then the "
+        f"remat recompute): {moved} of {codes_h[0].numel()} each; params: "
+        f"largest difference {worst:.3g} ({worst / lr:.3f} lr), {n_off} of "
+        f"{n_all} elements past 1e-6 of their tensor's largest ({n_off_pin} "
+        f"with the quantizers pinned); the card's gradients through AdamW on "
+        f"the CPU: {n_off_same} elements past that from the card's update")
+    log(f"  (b) gradients, max |card - CPU| / max |CPU| a leaf: quantizers "
+        f"free, worst {max(err_free.values()):.3g} "
+        f"({max(err_free, key=err_free.get)}); pinned, worst "
+        f"{err_pin[worst_pin]:.3g} ({worst_pin}, gate {TRAIN_GRAD_RTOL}); "
+        f"TF32 control pinned, least {min(err_tf32.values()):.3g}, worst "
+        f"{worst_tf32:.3g} (must exceed the gate); per leaf, pinned f32 / "
+        f"TF32: " + ", ".join(f"{n} {err_pin[n]:.2g}/{err_tf32[n]:.2g}"
+                              for n in err_pin)
+        + f"; {time.perf_counter() - t_b:.1f} s")
+    if not (abs(l_c - l_h) <= TRAIN_LOSS_RTOL * abs(l_h)
+            and abs(g_c - g_h) <= TRAIN_GNORM_RTOL * g_h
+            and worst <= TRAIN_PARAM_LR_BOUND * lr and n_off_same == 0):
+        failures.append("(b) card and CPU steps differ past the gates")
+    if not err_pin[worst_pin] <= TRAIN_GRAD_RTOL < worst_tf32:
+        failures.append(f"(b) pinned gradients: worst leaf "
+                        f"{err_pin[worst_pin]}, TF32 control {worst_tf32}, "
+                        f"gate {TRAIN_GRAD_RTOL}")
+    del gr_h, gr_pin, gr_tf32, gr_tf32_pin, p_pin
+
+    # -- (c) checkpoint resume and (e) compressed DDP, deterministic ---------
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "phase11_ckpt")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    t_c = time.perf_counter()
+    try:
+        opt = optimizer(4)
+        step = make_train_step(cfg2, ctx, opt, loss_chunk=chunk)
+        batches = [{k: v.to(dev) for k, v in data2.batch_at(i).items()}
+                   for i in range(4)]
+        p1 = copy.deepcopy(master2).to(dev)
+        s1 = opt.init(p1)
+        for b in batches:
+            p1, s1, _ = step(p1, s1, b)
+        p2 = copy.deepcopy(master2).to(dev)
+        s2 = opt.init(p2)
+        for b in batches[:2]:
+            p2, s2, _ = step(p2, s2, b)
+        mgr = CheckpointManager(ckpt_dir)
+        mgr.save(2, {"params": p2, "opt": s2})
+        restored = mgr.restore(None, {"params": p2, "opt": s2})
+        del p2, s2
+        p3, s3 = restored["params"], restored["opt"]
+        for b in batches[2:]:
+            p3, s3, _ = step(p3, s3, b)
+        same = all(torch.equal(a, b) for a, b in zip(
+            trainable(p1).values(), trainable(p3).values())) and all(
+            torch.equal(s1.m[n], s3.m[n]) and torch.equal(s1.v[n], s3.v[n])
+            for n in s1.m) and int(s1.step) == int(s3.step) == 4
+        log(f"  (c) 2 steps + save + restore + 2 steps == 4 straight steps, "
+            f"bit for bit (deterministic algorithms): {same}; "
+            f"{time.perf_counter() - t_c:.1f} s")
+        if not same:
+            failures.append("(c) resumed training differs from 4 straight "
+                            "steps")
+        del p1, s1, p3, s3, restored, step
+
+        t_e = time.perf_counter()
+        p = copy.deepcopy(master2).to(dev)
+        _, grads = loss_and_grads(cfg2, ctx, p, batches[0], chunk)
+        zero = compression.init_error_state(trainable(p))
+        ddp = make_train_step_ddp(cfg2, ctx, optimizer(1), compress=True,
+                                  loss_chunk=chunk, return_grads=True)
+        _, _, err, m = ddp(p, optimizer(1).init(p), zero, batches[0])
+        exact = all(torch.equal(m["grads"][n], compression.compress_decompress(
+            g, zero[n])[0]) and torch.equal(err[n], compression
+                                              .compress_decompress(
+                                                  g, zero[n])[1])
+            for n, g in grads.items())
+        log(f"  (e) compressed DDP step, NCCL world of "
+            f"{dist.get_world_size()} ({dist.get_backend()}): gradients == "
+            f"compress_decompress of the single-device gradients, and the "
+            f"errors, bit for bit: {exact}; {time.perf_counter() - t_e:.1f} s")
+        if not exact:
+            failures.append("(e) compressed DDP gradients differ from "
+                            "compress_decompress")
+        del p, grads, m, err
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t_11:.1f} s; launches "
+        f"{p11_counts}")
+    if time.perf_counter() - t_11 > 90:
+        failures.append(f"phase 11 took {time.perf_counter() - t_11:.1f} s "
+                        "(gate 90 s)")
+    return p11_counts, failures
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:   # phase 4f's NCCL group, on every path out
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run() -> int:
     t_main = time.perf_counter()
     # -- 1. card -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2145,31 +2558,29 @@ def main() -> int:
     dist.init_process_group(
         "nccl", store=dist.HashStore(), rank=0, world_size=1,
         device_id=torch.device("cuda", torch.cuda.current_device()))
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
-                            prefill_chunk=32, decode_block=8, mesh=mesh)
-        eng.run(requests()[:2])
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        mreqs = eng.run(requests())
-        torch.cuda.synchronize()
-        for k, v in kernels.launch_counts().items():
-            splitk_counts[k] += v
-        engine_line("engine, contiguous bf16, mesh (1, 1)", eng.stats)
-        if [r.output.tolist() for r in mreqs] != [r.output.tolist()
-                                                   for r in reqs]:
-            raise AssertionError("mesh (1, 1) tokens differ from the "
-                                 "single-device engine's")
-        if not (eng._graph is not None and eng.mesh_shape == (1, 1)
-                and eng.stats["steady_state_syncs_per_block"] == 0.0):
-            raise AssertionError(f"mesh (1, 1): {eng.stats}")
-        log(f"  mesh (1, 1), NCCL world of one: tokens == single-device "
-            f"engine's; graph launches a replay {eng._graph.launches}")
-        del eng
-    finally:
-        dist.destroy_process_group()
+    mesh = init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("data", "model"))
+    eng = ServingEngine(cfg, packed, max_seq=max_seq, batch_slots=4,
+                        prefill_chunk=32, decode_block=8, mesh=mesh)
+    eng.run(requests()[:2])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mreqs = eng.run(requests())
+    torch.cuda.synchronize()
+    for k, v in kernels.launch_counts().items():
+        splitk_counts[k] += v
+    engine_line("engine, contiguous bf16, mesh (1, 1)", eng.stats)
+    if [r.output.tolist() for r in mreqs] != [r.output.tolist()
+                                               for r in reqs]:
+        raise AssertionError("mesh (1, 1) tokens differ from the "
+                             "single-device engine's")
+    if not (eng._graph is not None and eng.mesh_shape == (1, 1)
+            and eng.stats["steady_state_syncs_per_block"] == 0.0):
+        raise AssertionError(f"mesh (1, 1): {eng.stats}")
+    log(f"  mesh (1, 1), NCCL world of one: tokens == single-device "
+        f"engine's; graph launches a replay {eng._graph.launches}")
+    del eng
+    # the group stays up for phase 11's data-parallel step; main() ends it
     torch.cuda.empty_cache()
 
     # the Fig. 6b baselines: the live-tile and the every-tile scans (plain
@@ -2447,11 +2858,17 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    log(f"-- phase 11 at {time.perf_counter() - t_main:.1f} s")
+    p11_counts, p11_failures = phase11(dev, requests, max_seq, smi)
+    failures += p11_failures
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
             robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
-            bf16_counts, ffn_wide_counts, p9_counts, p10_counts))
+            bf16_counts, ffn_wide_counts, p9_counts, p10_counts, p11_counts))
 
     log(f"-- all phases done at {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -10,8 +10,15 @@ gamma}`` stacked (L, E, ...)), hymba's SSM (packed ``in_proj``,
 ``A_log``, ``D``, ``dt_bias``), an xLSTM pair's mLSTM (``qkv``, ``gates``,
 ``ogate``, ``out``) and sLSTM (``wx``, ``out``; dense ``r``), stacked over
 ``n_layers // 2`` pairs, embeddings and LM heads.  ``packed_from_jax`` does the same for
-one packed linear (``repro.core.bitlinear.pack``'s dict).  This module never
-imports JAX.
+one packed linear (``repro.core.bitlinear.pack``'s dict).
+
+``from_jax_params`` takes the float master tree of ``transformer.
+init_params`` (attention blocks: norms, Q/K/V/O with their biases, the
+SwiGLU ``mlp`` or the MoE router and banks; embedding, LM head) and builds
+the port's master parameters; ``named_from_jax`` flattens any tree shaped
+like it (gradients, AdamW moments) to the port's buffer names, so
+``adamw_state_from_jax`` carries an optimizer state across.  This module
+never imports JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from repro_torch.core.bitlinear import Linear, PackedLinear
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import MoE, Embedding, Params, RMSNorm
 from repro_torch.models.transformer import n_scan_layers
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -92,3 +100,78 @@ def from_jax_packed(cfg: ModelConfig, tree: dict,
     if "lm_head" in tree:
         params["lm_head"] = dense(tree["lm_head"])
     return params
+
+
+def named_from_jax(cfg: ModelConfig, tree: dict,
+                   device: str | torch.device = "cuda") -> dict:
+    """A tree shaped like the JAX master params (numpy leaves; layer leaves
+    stacked on axis 0, as JAX's scan holds them) -> {port buffer name:
+    tensor}, e.g. ``layers.3.attn.q.w`` for ``tree["layers"]["attn"]["q"]
+    ["w"][3]``."""
+    out = {}
+
+    def walk(d, path, layer):
+        for k, v in d.items():
+            name = f"{path}.{k}" if path else k
+            if isinstance(v, dict):
+                walk(v, name, layer)
+            elif layer is None:
+                out[name] = _tensor(v, device)
+            else:
+                out[name.replace("layers.", f"layers.{layer}.", 1)] = (
+                    _tensor(v[layer], device))
+
+    for i in range(n_scan_layers(cfg)):
+        walk({"layers": tree["layers"]}, "", i)
+    walk({k: v for k, v in tree.items() if k != "layers"}, "", None)
+    return out
+
+
+def from_jax_params(cfg: ModelConfig, tree: dict,
+                    device: str | torch.device = "cuda") -> nn.ModuleDict:
+    """The JAX float master tree (numpy leaves) -> the port's master
+    parameters on ``device``, shaped as ``transformer.init_params`` draws
+    them.  Attention blocks only (dense or MoE FFN); the recurrent kinds'
+    masters wait for their training."""
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(
+            f"master weights of block_kind={cfg.block_kind!r} are not "
+            "converted (ROADMAP A13b part 2)")
+    named = named_from_jax(cfg, tree, device)
+
+    def lin(prefix):
+        return Linear(named[f"{prefix}.w"], named.get(f"{prefix}.b"))
+
+    blocks = nn.ModuleList()
+    for i in range(n_scan_layers(cfg)):
+        pre = f"layers.{i}"
+        block = nn.ModuleDict({
+            "ln1": RMSNorm(named[f"{pre}.ln1.w"]),
+            "ln2": RMSNorm(named[f"{pre}.ln2.w"]),
+            "attn": nn.ModuleDict({n: lin(f"{pre}.attn.{n}")
+                                   for n in ("q", "k", "v", "o")})})
+        if f"{pre}.moe.gate_w" in named:
+            block["moe"] = MoE(lin(f"{pre}.moe.router"), {
+                f"{n}_w": named[f"{pre}.moe.{n}_w"] for n in MoE.BANKS})
+        elif f"{pre}.mlp.gate.w" in named:
+            block["mlp"] = nn.ModuleDict({n: lin(f"{pre}.mlp.{n}")
+                                          for n in ("gate", "up", "down")})
+        blocks.append(block)
+    params = nn.ModuleDict({"layers": blocks,
+                            "final_norm": RMSNorm(named["final_norm.w"])})
+    if "embed.tok" in named:
+        params["embed"] = Embedding(named["embed.tok"])
+    if "lm_head.w" in named:
+        params["lm_head"] = lin("lm_head")
+    return params
+
+
+def adamw_state_from_jax(cfg: ModelConfig, state,
+                         device: str | torch.device = "cuda") -> AdamWState:
+    """A JAX ``AdamWState`` (numpy leaves) -> the port's: the step count
+    and the moments keyed by the port's buffer names."""
+    return AdamWState(
+        step=torch.as_tensor(np.asarray(state.step), dtype=torch.int32,
+                             device=device),
+        m=named_from_jax(cfg, state.m, device),
+        v=named_from_jax(cfg, state.v, device))

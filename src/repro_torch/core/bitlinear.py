@@ -1,4 +1,4 @@
-"""BitLinear — the paper's ternary linear layer, inference half.
+"""BitLinear — the paper's ternary linear layer: QAT training and inference.
 
 Three forms of one linear, each an ``nn.Module`` holding its tensors as
 buffers (counterpart of the dict pytrees of ``repro/core/bitlinear.py``):
@@ -6,6 +6,9 @@ buffers (counterpart of the dict pytrees of ``repro/core/bitlinear.py``):
 * :class:`Linear`           — float master weights ``w`` (n_in, n_out) and an
                               optional bias ``b``; also the dense (unquantized)
                               layers such as an untied LM head.
+                              :func:`apply_qat` is its training forward:
+                              fake-quant ternary W and int8 x with
+                              straight-through estimators.
 * :class:`PackedLinear`     — base-3 packed uint8 ``codes`` (rows, n_out), the
                               per-tensor scale ``gamma``, ``b`` and the pack
                               group ``g`` the codes were made with: the
@@ -79,6 +82,63 @@ def pack(p: Linear, g: int = ternary.DEFAULT_G,
     wt, gamma = ternary.ternarize(p.w)
     return PackedLinear(ternary.pack_ternary(wt, g, row_multiple), gamma, p.b,
                         g=g)
+
+
+def apply_qat(p: Linear, x: torch.Tensor, *,
+              int8_fwd: bool = False) -> torch.Tensor:
+    """Training forward: fake-quant W (absmean ternary) and x (absmax int8),
+    each with a straight-through estimator, then a dense product.  With
+    ``int8_fwd`` the forward contraction runs on integer values
+    (:class:`Int8STEMatmul`) and the backward stays the float STE one."""
+    if int8_fwd:
+        y = Int8STEMatmul.apply(x, p.w)
+    else:
+        w = ternary.ternarize_ste(p.w)
+        x = ternary.absmax_quant_ste(x)
+        y = x @ w.to(x.dtype)
+    if p.b is not None:
+        y = y + p.b.to(y.dtype)
+    return y
+
+
+# An f32 product of integer values is exact while every partial sum stays
+# below 2^24: int8 activations (|q| <= 127) times ternary weights.
+_EXACT_F32_REDUCTION = (1 << 24) // 127
+
+
+class Int8STEMatmul(torch.autograd.Function):
+    """(..., n) x (n, k): the QAT forward on the integer path, STE backward.
+
+    Forward: absmax int8 x, absmean ternary w, their exact integer product
+    (integer-valued f32 operands, exact while n * 127 < 2^24, asserted),
+    then ``acc * x_scale * gamma``.  Backward, straight through both
+    quantizers as the reference's ``_int8_bwd``: dx = g (gamma W_t)^T,
+    dW = x_hat^T g, with x_hat the dequantized int8 activations.  The
+    reference computes both with ``jnp.dot`` outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        n = x.shape[-1]
+        assert n < _EXACT_F32_REDUCTION, (
+            f"reduction {n} too long for an exact f32 integer product")
+        xq, xs = ternary.absmax_quant(x.reshape(-1, n), reciprocal=True)
+        wt, gamma = ternary.ternarize(w)
+        acc = xq.float() @ wt.float()
+        y = (acc * xs * gamma).to(x.dtype)
+        ctx.save_for_backward(x, w)
+        return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        wt, gamma = ternary.ternarize(w)
+        w_deq = (wt.float() * gamma).to(x.dtype)
+        xq, xs = ternary.absmax_quant(x, reciprocal=True)
+        x_deq = (xq.float() * xs).to(x.dtype)
+        dx = g @ w_deq.t()
+        dw = (x_deq.reshape(-1, x.shape[-1]).t()
+              @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return dx, dw
 
 
 def apply_packed(p: PackedLinear, x: torch.Tensor, *, matmul: str = "tlmm",

@@ -51,6 +51,16 @@ def ternarize(w: torch.Tensor, eps: float = 1e-5
     return wt.to(torch.int8), gamma
 
 
+def ternarize_ste(w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Fake-quant ternarization with a straight-through estimator (the
+    training path): forward ``w + (gamma * W_t - w)``, which in f32 is not
+    always bit-equal to ``gamma * W_t``; backward the identity to ``w``."""
+    gamma = absmean_scale(w, eps)
+    wt = (torch.clamp(torch.round(w.float() / gamma), -1.0, 1.0)
+          * gamma).to(w.dtype)
+    return w + (wt - w).detach()
+
+
 # ---------------------------------------------------------------------------
 # INT8 activation quantization (per-token absmax)
 # ---------------------------------------------------------------------------
@@ -82,6 +92,18 @@ def absmax_quant(x: torch.Tensor, dim: int = -1, eps: float = 1e-5, *,
     as in :func:`absmax_quant_values`."""
     q, scale = absmax_quant_values(x, dim, eps, reciprocal=reciprocal)
     return q.to(torch.int8), scale
+
+
+def absmax_quant_ste(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
+                     ) -> torch.Tensor:
+    """Fake-quant absmax int8 with a straight-through estimator (the
+    training path): forward ``x + (q * scale - x)``, backward the identity.
+    The scale is ``amax * f32(1/127)``: the reference's training step runs
+    jitted, where XLA turns its ``/ 127.0`` into that product, and so does
+    ATen's division on the card."""
+    q, scale = absmax_quant(x, dim, eps, reciprocal=True)
+    xq = (q.float() * scale).to(x.dtype)
+    return x + (xq - x).detach()
 
 
 # ---------------------------------------------------------------------------

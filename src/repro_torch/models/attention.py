@@ -7,6 +7,8 @@ Counterpart of ``repro/models/attention.py``:
   PyTorch on (q-chunk, kv-chunk) tiles (``Ctx.attn="skip"``/``"naive"``):
   only the causally live tiles, or every tile with the mask applied
   afterwards (2x the useful FLOPs), each an online softmax over its tiles;
+  the live-tile one carries the flash backward (``FlashSkip``) training
+  differentiates through;
 * ``splitk_decode_attention`` and its paged and paged-int8 variants — the
   decode reads of ``Ctx.kv_splits`` (gather the pages, then split-K);
 
@@ -95,9 +97,11 @@ def _tile_step(carry, qg_blk, k_blk, v_blk, q_start, k_start, scale, causal,
     return acc, m_new, l
 
 
-def _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window):
+def _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window,
+                 with_lse=False):
     """Online softmax of every q tile over its kv tiles in ``pairs``
-    order: (b, h, s, d) out in q's dtype."""
+    order: (b, h, s, d) out in q's dtype (and, ``with_lse``, the f32
+    log-sum-exp (b, kv_h, g, s, 1) of each query's scores)."""
     b, h, s, d = q.shape
     qg = q.to(torch.float32).reshape(b, k.shape[1], h // k.shape[1], s, d)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
@@ -116,9 +120,85 @@ def _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window):
                                 vf[:, :, ks:ks + kv_chunk], qs, ks, scale,
                                 causal, window)
     out = qg.new_zeros(qg.shape)
-    for i, (acc, _, l) in carries.items():
-        out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = acc / l.clamp_min(1e-30)
-    return out.reshape(b, h, s, d).to(q.dtype)
+    lse = qg.new_full(qg.shape[:4] + (1,), NEG_INF)
+    for i, (acc, m, l) in carries.items():
+        l_safe = l.clamp_min(1e-30)
+        out[:, :, :, i * q_chunk:(i + 1) * q_chunk] = acc / l_safe
+        lse[:, :, :, i * q_chunk:(i + 1) * q_chunk] = m + torch.log(l_safe)
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    return (out, lse) if with_lse else out
+
+
+class FlashSkip(torch.autograd.Function):
+    """The live-tile attention with the reference's flash VJP
+    (``_make_flash`` in ``repro/models/attention.py``): the forward saves
+    only (q, k, v, out, logsumexp), never a score matrix, and the backward
+    recomputes each live tile in ``pairs`` order (FlashAttention-2):
+    p = exp(s - lse), dV += p^T dO, dP = dO V^T, dS = p (dP - D) scale with
+    D = rowsum(dO * O), dS cast to q's dtype before dQ += dS K and
+    dK += dS^T Q; dQ, dK, dV accumulate in f32.  The reference's
+    ``_data_entangled`` and ``optimization_barrier`` only steer XLA's
+    buffer planning (no stacked masks, no hoisted tiles) and change no
+    value, so they have no counterpart here."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pairs, q_chunk, kv_chunk, causal, window):
+        out, lse = _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal,
+                                window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geom = (pairs, q_chunk, kv_chunk, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        pairs, q_chunk, kv_chunk, causal, window = ctx.geom
+        b, h, s, d = q.shape
+        kv_h = k.shape[1]
+        gsz = h // kv_h
+        scale = 1.0 / float(d) ** 0.5
+        qg = q.reshape(b, kv_h, gsz, s, d)
+        dog = dout.reshape(b, kv_h, gsz, s, d)
+        dmat = (dog.float() * out.reshape(b, kv_h, gsz, s, d).float()
+                ).sum(dim=-1, keepdim=True)
+        dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        dev = q.device
+        for i, j in pairs:
+            qs, ks = i * q_chunk, j * kv_chunk
+            q_blk = qg[:, :, :, qs:qs + q_chunk]
+            k_blk = k[:, :, None, ks:ks + kv_chunk]
+            v_blk = v[:, :, None, ks:ks + kv_chunk]
+            do_blk = dog[:, :, :, qs:qs + q_chunk]
+            l_blk = lse[:, :, :, qs:qs + q_chunk]
+            d_blk = dmat[:, :, :, qs:qs + q_chunk]
+            q_ids = qs + torch.arange(q_chunk, device=dev)[:, None]
+            k_ids = ks + torch.arange(kv_chunk, device=dev)[None, :]
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (k_ids <= q_ids)
+            if window is not None:
+                mask = mask & (k_ids > q_ids - window)
+            sc = (q_blk.float() @ k_blk.float().transpose(-1, -2)) * scale
+            p = torch.where(mask, torch.exp(sc - l_blk), 0.0)
+            # (b, kv_h, g, qc, kc) -> sums over the group and its queries
+            pm = p.to(do_blk.dtype).reshape(b, kv_h, gsz * q_chunk, kv_chunk)
+            dv_j = pm.transpose(-1, -2).float() @ do_blk.reshape(
+                b, kv_h, gsz * q_chunk, d).float()
+            dp = do_blk.float() @ v_blk.float().transpose(-1, -2)
+            ds = p * (dp - d_blk) * scale
+            ds_c = ds.to(q.dtype)
+            dq_i = ds_c.float() @ k_blk.float()
+            dk_j = ds_c.reshape(b, kv_h, gsz * q_chunk, kv_chunk).transpose(
+                -1, -2).float() @ q_blk.reshape(
+                b, kv_h, gsz * q_chunk, d).float()
+            dq[:, :, :, qs:qs + q_chunk] += dq_i
+            dk[:, :, ks:ks + kv_chunk] += dk_j
+            dv[:, :, ks:ks + kv_chunk] += dv_j
+        return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None)
 
 
 def attention_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -126,11 +206,12 @@ def attention_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    kv_chunk: int = 512) -> torch.Tensor:
     """Causal-skip attention: one online softmax over only the live tiles
     (``live_tile_pairs``).  q: (b, h, s, d); k, v: (b, kv_h, s, d) ->
-    (b, h, s, d); GQA grouped.  The forward of JAX's
-    ``attention_xla_skip`` (its custom VJP waits for training)."""
+    (b, h, s, d); GQA grouped.  JAX's ``attention_xla_skip``, with its
+    flash VJP (:class:`FlashSkip`): differentiable in O(s d) memory."""
     q_chunk, kv_chunk, n_q, n_kv = _tiles(q.shape[2], q_chunk, kv_chunk)
     pairs = live_tile_pairs(n_q, n_kv, q_chunk, kv_chunk, causal, window)
-    return _flash_tiles(q, k, v, pairs, q_chunk, kv_chunk, causal, window)
+    return FlashSkip.apply(q, k, v, pairs, q_chunk, kv_chunk, causal,
+                           window)
 
 
 def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

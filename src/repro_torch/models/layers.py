@@ -21,6 +21,9 @@ from repro_torch.kernels.tlmm import ops as tlmm_ops
 
 # whole-prompt attention of Ctx.attn: the kernel and the two Fig. 6b baselines
 ATTNS = ("kernel", "skip", "naive")
+# what a master (float) linear computes: fake-quant training, or unquantized
+MODES = ("qat", "packed", "dense")
+REMAT_POLICIES = ("nothing", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +57,19 @@ class Ctx:
     ``moe_token_chunk`` = C > 0 dispatches an MoE layer's tokens C at a
     time when there are more than C of them and C divides their count, as
     JAX's scan over token chunks does: capacity then counts a chunk.
+
+    ``mode`` says what a master (float) ``Linear`` computes, as in JAX:
+    ``"qat"`` (the default) fake-quantizes its weights and activations
+    (``bitlinear.apply_qat``; with ``qat_int8_fwd`` the forward product runs
+    on integer values), ``"packed"`` and ``"dense"`` apply it unquantized.
+    A linear the model marks dense (``ternary_w=False``: the untied LM head
+    unless ``cfg.ternary_head``, the MoE router) is dense in every mode;
+    packed and pre-decoded linears ignore ``mode``.  ``remat_policy`` is
+    what a training forward keeps of each block for the backward:
+    ``"nothing"`` (every block recomputed) or ``"dots"`` (its linear
+    products kept, the rest recomputed).  Training runs attention on
+    ``attn="skip"`` (JAX's default ``attn_impl="xla"``), whose backward is
+    the flash recomputation; the attention kernel has no backward.
     """
     act_dtype: torch.dtype = torch.float32
     matmul: str = "tlmm"
@@ -64,6 +80,9 @@ class Ctx:
     kv_group: object = None
     kv_group_size: int = 1
     moe_token_chunk: int = 0
+    mode: str = "qat"
+    qat_int8_fwd: bool = False
+    remat_policy: str = "nothing"
 
     def __post_init__(self):
         if self.matmul not in bitlinear.MATMULS:
@@ -71,6 +90,11 @@ class Ctx:
                              f"{bitlinear.MATMULS}")
         if self.attn not in ATTNS:
             raise ValueError(f"Ctx.attn {self.attn!r} not one of {ATTNS}")
+        if self.mode not in MODES:
+            raise ValueError(f"Ctx.mode {self.mode!r} not one of {MODES}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"Ctx.remat_policy {self.remat_policy!r} not "
+                             f"one of {REMAT_POLICIES}")
 
 
 class Params(nn.Module):
@@ -115,13 +139,16 @@ def predecode_all(p: Params) -> Params:
                      else v for n, v in p.items()})
 
 
-def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx, *,
+                 ternary_w: bool = True) -> torch.Tensor:
     if isinstance(p, PredecodedLinear):   # serving engine's hot path
         return bitlinear.apply_predecoded(p, x, out_dtype=x.dtype)
     if isinstance(p, PackedLinear):       # packed inference params
         return bitlinear.apply_packed(p, x, matmul=ctx.matmul,
                                       out_dtype=x.dtype)
-    if isinstance(p, Linear):             # dense layer (untied LM head)
+    if isinstance(p, Linear) and ctx.mode == "qat" and ternary_w:
+        return bitlinear.apply_qat(p, x, int8_fwd=ctx.qat_int8_fwd)
+    if isinstance(p, Linear):             # dense: unquantized master
         y = x @ p.w.to(x.dtype)
         return y + p.b.to(y.dtype) if p.b is not None else y
     raise TypeError(f"not a linear: {type(p).__name__}")
@@ -303,7 +330,7 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
     and "capacity"."""
     n = x.shape[0]
     n_experts = p.n_experts
-    logits = linear_apply(p.router, x, Ctx()).float()
+    logits = linear_apply(p.router, x, Ctx(), ternary_w=False).float()
     gates, idx = torch.topk(logits, top_k, dim=-1)
     gates = torch.softmax(gates, dim=-1)
     capacity = max(int(n * top_k / n_experts * capacity_factor), top_k)

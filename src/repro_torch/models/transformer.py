@@ -2,7 +2,8 @@
 top-k MoE FFN; token ids or, ``frontend="embed"``, precomputed embeddings
 in), ``hymba`` (attention and SSM heads in parallel, averaged, then the
 FFN) and ``xlstm_pair`` (an mLSTM and an sLSTM block a pair of layers, no
-attention, no FFN): parameters and the three serving entry points.
+attention, no FFN): parameters, the three serving entry points, and the
+QAT training forward of attention blocks with dense FFNs.
 
 Counterpart of ``repro/models/transformer.py`` (contiguous or paged
 caches):
@@ -14,6 +15,10 @@ caches):
     attending its already-written prefix (``attn`` only, as in JAX)
   * ``decode_step``   — one token per row + cache + live lengths -> next
     logits
+  * ``forward`` / ``forward_features`` — every position's logits / final
+    hidden states, no cache (training, each block recomputed in the
+    backward), and ``lm_head_loss_chunked``, the loss a sequence chunk at a
+    time
 
 Parameters are an ``nn.ModuleDict`` shaped like the JAX pytree —
 ``layers`` (one ``ModuleDict`` per block instead of a stacked axis: its
@@ -40,6 +45,8 @@ returns the cache dict it was given.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -334,6 +341,10 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 attention.update_kv_cache(cache["k_scale"], cache["v_scale"],
                                           ks, vs, 0)
         if ctx.attn == "kernel":
+            if torch.is_grad_enabled() and qt.requires_grad:
+                raise NotImplementedError(
+                    "the flash prefill kernel has no backward (nor has the "
+                    "reference's Pallas one): train on Ctx(attn='skip')")
             o = fp_ops.flash_prefill(qt, kt, vt, window=window)
         else:   # the Fig. 6b baselines, plain PyTorch
             fn = (attention.attention_skip if ctx.attn == "skip"
@@ -497,11 +508,44 @@ def _layer_cache(cache, i: int):
                    else plane[i]) for name, plane in cache.items()}
 
 
+def _remat_context(ctx: Ctx):
+    """``context_fn`` of a block's checkpoint: keep nothing, or, with
+    ``remat_policy="dots"``, the outputs of the linears' products (matrix
+    products without batch dimensions, JAX's
+    ``dots_with_no_batch_dims_saveable``) and recompute the rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+    if ctx.remat_policy != "dots":
+        return noop_context_fn
+    aten = torch.ops.aten
+
+    def policy(_, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in (aten.mm.default,
+                                                     aten.addmm.default)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
-                chunk_mask=None, page_table=None):
+                chunk_mask=None, page_table=None, remat=False):
+    """Every block in order.  With ``remat`` (a training forward) each
+    block runs under ``torch.utils.checkpoint``, so the backward recomputes
+    what ``ctx.remat_policy`` does not keep, as JAX's scanned
+    ``jax.checkpoint`` body does."""
+    remat = remat and torch.is_grad_enabled()
+    context_fn = _remat_context(ctx) if remat else None
     for i, p in enumerate(params["layers"]):
-        x = _block_apply(cfg, ctx, x, p, _layer_cache(cache, i), positions,
-                         phase, cache_len, chunk_mask, page_table)
+        layer_cache = _layer_cache(cache, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block_apply, cfg, ctx, x, p, layer_cache, positions, phase,
+                cache_len, chunk_mask, page_table, use_reentrant=False,
+                context_fn=context_fn)
+        else:
+            x = _block_apply(cfg, ctx, x, p, layer_cache, positions, phase,
+                             cache_len, chunk_mask, page_table)
     return x
 
 
@@ -521,12 +565,82 @@ def _lm_head(cfg, params, x, ctx):
     if cfg.tie_embeddings and "embed" in params:
         return torch.einsum("btd,vd->btv", x,
                             params["embed"].tok.to(x.dtype))
-    return layers.linear_apply(params["lm_head"], x, ctx)
+    return layers.linear_apply(params["lm_head"], x, ctx,
+                               ternary_w=cfg.ternary_head)
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+def _refuse_untrainable(cfg: ModelConfig) -> None:
+    if cfg.block_kind != "attn" or cfg.n_experts:
+        raise NotImplementedError(
+            "the training forward runs attention blocks with dense FFNs; "
+            f"{cfg.name} ({cfg.block_kind}, {cfg.n_experts} experts) waits "
+            "for the QAT training of MoE, hymba and xLSTM (ROADMAP A13b "
+            "part 2)")
+
+
+def forward_features(cfg: ModelConfig, params: nn.ModuleDict,
+                     inputs: torch.Tensor, ctx: Ctx,
+                     remat: bool = True) -> torch.Tensor:
+    """Backbone only: final hidden states (b, s, d_model) of every
+    position, no cache.  With ``remat`` and gradients on, each block is
+    recomputed in the backward (``_run_layers``)."""
+    _refuse_untrainable(cfg)
+    x = _embed_in(cfg, params, inputs, ctx)
+    positions = torch.arange(x.shape[1], device=x.device)
+    return _run_layers(cfg, ctx, params, x, None, positions, "full",
+                       remat=remat)
+
+
+def forward(cfg: ModelConfig, params: nn.ModuleDict, inputs: torch.Tensor,
+            ctx: Ctx, remat: bool = True) -> torch.Tensor:
+    """Training/eval forward: logits of every position (b, s, vocab)."""
+    x = forward_features(cfg, params, inputs, ctx, remat)
+    return _lm_head(cfg, params, x, ctx)
+
+
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels] position by position, by advanced indexing: its
+    backward accumulates through ``index_put_``, which has a deterministic
+    CUDA implementation (``torch.use_deterministic_algorithms``)."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    rows = torch.arange(flat.shape[0], device=logits.device)
+    return flat[rows, labels.reshape(-1).long()].reshape(labels.shape)
+
+
+def _chunk_loss(cfg, params, ctx, x, labels):
+    logits = _lm_head(cfg, params, x, ctx).float()
+    return (torch.logsumexp(logits, dim=-1) - gold_logits(logits, labels)
+            ).sum()
+
+
+def lm_head_loss_chunked(cfg: ModelConfig, params: nn.ModuleDict,
+                         x: torch.Tensor, labels: torch.Tensor, ctx: Ctx,
+                         chunk: int = 512) -> torch.Tensor:
+    """Final norm, unembedding and mean cross-entropy over sequence chunks
+    of ``chunk`` positions (the whole sequence where it does not divide
+    it), each chunk under a checkpoint: its (b, chunk, vocab) logits are
+    recomputed in the backward and the (b, s, vocab) logits never exist.
+    The chunks' sums add in order from 0, then divide by b * s, as JAX's
+    scan does."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        xc, lc = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if torch.is_grad_enabled():
+            part = torch.utils.checkpoint.checkpoint(
+                _chunk_loss, cfg, params, ctx, xc, lc, use_reentrant=False)
+        else:
+            part = _chunk_loss(cfg, params, ctx, xc, lc)
+        total = total + part
+    return total / (b * s)
+
 
 def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
                  inputs: torch.Tensor, ctx: Ctx, cache: dict,

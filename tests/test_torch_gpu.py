@@ -21,6 +21,8 @@ the engine, a retry) the surviving and retried requests with the
 fault-free tokens.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1428,3 +1430,128 @@ def test_moe_captured_replay_equals_eager(cuda):
             assert launch_counts()["tlmm"] == before   # a replay counts nothing here
             eager = layers.moe_apply(moe, new, **kw)
             assert torch.equal(out, eager), (cf, seed)
+
+
+# ---------------------------------------------------------------------------
+# QAT training on the card against the same call on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_vjp_on_the_card_matches_the_cpu(cuda, window):
+    """The live-tile attention and its flash backward (plain PyTorch, f32,
+    TF32 off) on the card against the CPU: other summation orders, within
+    TOL of outputs and gradients of order one."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(21)
+    q = torch.randn(2, 4, 40, 16, generator=gen)
+    k, v = (torch.randn(2, 2, 40, 16, generator=gen) for _ in range(2))
+    do = torch.randn(2, 4, 40, 16, generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = attention.attention_skip(*ins, window=window, q_chunk=8,
+                                       kv_chunk=8)
+        grads = torch.autograd.grad(out, ins, do.to(dev))
+        outs.append([out.detach().cpu()] + [g.cpu() for g in grads])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, **TOL)
+
+
+# A leaf's gradient on the card against the CPU's with the quantizers
+# pinned: both run the same int8 and ternary codes, so they differ in the
+# order of their f32 sums alone.  The geometric mean of a calibration run's
+# worst leaves on an H100 (6.7e-7 f32, 8.7e-4 TF32, which must exceed it;
+# PERF.md section 6).
+TRAIN_GRAD_RTOL = 2e-5
+
+
+@contextlib.contextmanager
+def _pinned_quantizers(tape, replay):
+    """Record each QAT quantizer's forward value into ``tape`` in call
+    order, or with ``replay`` give the recorded values back instead
+    (chip_smoke.py's ``pinned_quantizers``)."""
+    saved = ternary.absmax_quant_ste, ternary.ternarize_ste
+    played = iter(list(tape))
+
+    def pin(fn):
+        def pinned(x, *args, **kw):
+            if replay:
+                return x + (next(played).to(x.device, x.dtype) - x).detach()
+            out = fn(x, *args, **kw)
+            tape.append(out.detach().cpu())
+            return out
+        return pinned
+
+    ternary.absmax_quant_ste, ternary.ternarize_ste = map(pin, saved)
+    try:
+        yield
+    finally:
+        ternary.absmax_quant_ste, ternary.ternarize_ste = saved
+    assert not replay or next(played, None) is None
+
+
+@pytest.mark.gpu
+def test_qat_train_step_on_the_card_matches_the_cpu(cuda):
+    """One QAT step of reduced bitnet-0.73b from the same masters and batch
+    on the card and on the CPU, with chip_smoke.py phase 11 (b)'s gates:
+    the loss within 1e-3 of itself, the gradient norm within 1e-2, every
+    parameter within 2.2 lr (AdamW's first update is +-lr an element, so a
+    gradient that ULPs or a moved int8 code take across zero moves an
+    element by up to 2 lr), the update itself (the card's gradients
+    through AdamW on the CPU give the card's parameters within 1e-6 of each
+    tensor's largest), and every leaf's gradient within TRAIN_GRAD_RTOL of
+    its largest element against the CPU replaying the card's quantized
+    values, which a TF32 run of the card must fail."""
+    import copy
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import apply_updates, trainable
+    from repro_torch.training import loss_and_grads
+    cfg = get_config("bitnet-0.73b").reduced()
+    master = transformer.init_params(cfg, torch.Generator().manual_seed(22))
+    batch = SyntheticLMDataset(cfg, batch=4, seq_len=32, seed=2,
+                               device="cpu").batch_at(0)
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=16, attn_kv_chunk=16)
+    lr = 1e-3
+    opt = adamw(lr=lr)
+
+    def one_step(dev, tape=None, replay=False, tf32=False):
+        p = copy.deepcopy(master).to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with (_pinned_quantizers(tape, replay) if tape is not None
+                  else contextlib.nullcontext()):
+                loss, grads = loss_and_grads(cfg, ctx, p, b, 16)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        gnorm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+        upd, _ = opt.update(grads, opt.init(p), p)
+        p = apply_updates(p, upd)
+        return (float(loss), float(gnorm),
+                {n: t.cpu() for n, t in trainable(p).items()},
+                {n: g.cpu() for n, g in grads.items()})
+
+    def leaf_errors(got, ref):
+        return {n: ((got[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in ref.items()}
+
+    tape32, tape_tf32 = [], []
+    l_c, g_c, p_c, gr_c = one_step(cuda, tape32)
+    l_h, g_h, p_h, _ = one_step("cpu")
+    err32 = leaf_errors(gr_c, one_step("cpu", tape32, replay=True)[3])
+    err_tf32 = leaf_errors(one_step(cuda, tape_tf32, tf32=True)[3],
+                           one_step("cpu", tape_tf32, replay=True)[3])
+    print(f"pinned gradients, worst leaf: f32 {max(err32.values()):.3g}, "
+          f"TF32 {max(err_tf32.values()):.3g}")
+    assert abs(l_c - l_h) <= 1e-3 * abs(l_h)
+    assert abs(g_c - g_h) <= 1e-2 * g_h
+    p_ref = copy.deepcopy(master)
+    upd, _ = opt.update(gr_c, opt.init(p_ref), p_ref)
+    p_ref = trainable(apply_updates(p_ref, upd))
+    for n, t in p_h.items():
+        assert (p_c[n] - t).abs().max() <= 2.2 * lr, n
+        assert (p_c[n] - p_ref[n]).abs().max() <= 1e-6 * t.abs().max(), n
+    assert max(err32.values()) <= TRAIN_GRAD_RTOL, err32
+    assert max(err_tf32.values()) > TRAIN_GRAD_RTOL, err_tf32
