@@ -69,10 +69,13 @@ def _unflatten(like, leaves):
 
 
 def _to_host(x) -> np.ndarray:
+    """A host copy of a leaf that owns its memory (a CPU tensor's
+    ``.cpu()`` is the tensor itself, so every branch copies): the training
+    step updates masters and moments in place after an async save."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy().view(np.uint16)
+            return x.view(torch.int16).numpy().view(np.uint16).copy()
         return x.numpy().copy()
     return np.array(x)
 

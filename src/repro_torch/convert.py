@@ -13,12 +13,12 @@ gamma}`` stacked (L, E, ...)), hymba's SSM (packed ``in_proj``,
 one packed linear (``repro.core.bitlinear.pack``'s dict).
 
 ``from_jax_params`` takes the float master tree of ``transformer.
-init_params`` (attention blocks: norms, Q/K/V/O with their biases, the
-SwiGLU ``mlp`` or the MoE router and banks; embedding, LM head) and builds
-the port's master parameters; ``named_from_jax`` flattens any tree shaped
-like it (gradients, AdamW moments) to the port's buffer names, so
-``adamw_state_from_jax`` carries an optimizer state across.  This module
-never imports JAX.
+init_params`` (norms, Q/K/V/O with their biases, the SwiGLU ``mlp`` or the
+MoE router and banks, hymba's ``ssm``, an xLSTM pair's ``mlstm`` and
+``slstm``; embedding, LM head) and builds the port's master parameters;
+``named_from_jax`` flattens any tree shaped like it (gradients, AdamW
+moments) to the port's buffer names, so ``adamw_state_from_jax`` carries an
+optimizer state across.  This module never imports JAX.
 """
 
 from __future__ import annotations
@@ -131,25 +131,32 @@ def from_jax_params(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> nn.ModuleDict:
     """The JAX float master tree (numpy leaves) -> the port's master
     parameters on ``device``, shaped as ``transformer.init_params`` draws
-    them.  Attention blocks only (dense or MoE FFN); the recurrent kinds'
-    masters wait for their training."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(
-            f"master weights of block_kind={cfg.block_kind!r} are not "
-            "converted (ROADMAP A13b part 2)")
+    them, for every block kind."""
     named = named_from_jax(cfg, tree, device)
 
     def lin(prefix):
         return Linear(named[f"{prefix}.w"], named.get(f"{prefix}.b"))
 
+    def sub(prefix, linears, dense):
+        """One sub-layer: its master linears, then its dense tensors."""
+        return Params(**{n: lin(f"{prefix}.{n}") for n in linears},
+                      **{n: named[f"{prefix}.{n}"] for n in dense})
+
     blocks = nn.ModuleList()
     for i in range(n_scan_layers(cfg)):
         pre = f"layers.{i}"
-        block = nn.ModuleDict({
-            "ln1": RMSNorm(named[f"{pre}.ln1.w"]),
-            "ln2": RMSNorm(named[f"{pre}.ln2.w"]),
-            "attn": nn.ModuleDict({n: lin(f"{pre}.attn.{n}")
-                                   for n in ("q", "k", "v", "o")})})
+        block = nn.ModuleDict({"ln1": RMSNorm(named[f"{pre}.ln1.w"])})
+        if cfg.block_kind == "xlstm_pair":
+            block["mlstm"] = sub(f"{pre}.mlstm", xlstm.MLSTM_LINEARS, ())
+            block["ln2"] = RMSNorm(named[f"{pre}.ln2.w"])
+            block["slstm"] = sub(f"{pre}.slstm", xlstm.SLSTM_LINEARS, ("r",))
+            blocks.append(block)
+            continue
+        block["ln2"] = RMSNorm(named[f"{pre}.ln2.w"])
+        block["attn"] = nn.ModuleDict({n: lin(f"{pre}.attn.{n}")
+                                       for n in ("q", "k", "v", "o")})
+        if cfg.block_kind == "hymba":
+            block["ssm"] = sub(f"{pre}.ssm", ssm.LINEARS, ssm.DENSE)
         if f"{pre}.moe.gate_w" in named:
             block["moe"] = MoE(lin(f"{pre}.moe.router"), {
                 f"{n}_w": named[f"{pre}.moe.{n}_w"] for n in MoE.BANKS})

@@ -51,14 +51,23 @@ def ternarize(w: torch.Tensor, eps: float = 1e-5
     return wt.to(torch.int8), gamma
 
 
-def ternarize_ste(w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def ternarize_ste(w: torch.Tensor, eps: float = 1e-5,
+                  dims: Tuple[int, ...] | None = None) -> torch.Tensor:
     """Fake-quant ternarization with a straight-through estimator (the
     training path): forward ``w + (gamma * W_t - w)``, which in f32 is not
-    always bit-equal to ``gamma * W_t``; backward the identity to ``w``."""
-    gamma = absmean_scale(w, eps)
-    wt = (torch.clamp(torch.round(w.float() / gamma), -1.0, 1.0)
-          * gamma).to(w.dtype)
-    return w + (wt - w).detach()
+    always bit-equal to ``gamma * W_t``; backward the identity to ``w``.
+    ``dims`` are the axes of one absmean gamma: all of them by default,
+    ``(1, 2)`` for an (E, n_in, n_out) expert bank, a gamma an expert as
+    JAX's ``jax.vmap(ternarize_ste)``.  Built in place on one temporary (a
+    full-width expert bank is 3.2 GB)."""
+    with torch.no_grad():
+        a = w.float().abs()
+        gamma = torch.clamp_min(
+            a.mean() if dims is None else a.mean(dim=dims, keepdim=True), eps)
+        del a
+        d = w.float() / gamma
+        d = d.round_().clamp_(-1.0, 1.0).mul_(gamma).to(w.dtype).sub_(w)
+    return w + d
 
 
 # ---------------------------------------------------------------------------

@@ -307,6 +307,20 @@ def moe_pack(p: MoE, g: int) -> MoE:
     return MoE(p.router, banks, g=g)
 
 
+def _expert_matmul(w: torch.Tensor, x: torch.Tensor, ctx: Ctx
+                   ) -> torch.Tensor:
+    """Float master bank w (E, n_in, n_out), x (E, C, n_in) -> (E, C,
+    n_out) in x's dtype.  Under ``ctx.mode == "qat"`` each expert is
+    fake-quantized with its own gamma (``ternary.ternarize_ste`` over dims
+    (1, 2)) and x a row at a time (``absmax_quant_ste``: an empty capacity
+    slot is an all-zero row, scaled at the eps floor, and stays zero), then
+    one batched product: JAX's ``_expert_matmul``."""
+    if ctx.mode == "qat":
+        w = ternary.ternarize_ste(w, dims=(1, 2))
+        x = ternary.absmax_quant_ste(x)
+    return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
+
+
 def _expert_matmul_packed(codes: torch.Tensor, gamma: torch.Tensor,
                           n_in: int, g: int, x: torch.Tensor) -> torch.Tensor:
     """codes (E, rows, n_out), gamma (E,), x (E, C, n_in) float -> (E, C,
@@ -321,29 +335,37 @@ def _expert_matmul_packed(codes: torch.Tensor, gamma: torch.Tensor,
 
 def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float) -> dict:
-    """Top-k routing of (n, d) tokens: the router's f32 logits, the top
+    """Top-k routing of (n, d) tokens: the router's f32 logits (a dense
+    product in every mode, JAX's ``ternary_w=False``; under training the
+    gradient reaches it through the softmaxed top-k gates), the top
     ``top_k`` experts a token and the softmax of their logits, then each
     (token, slot) pair's position in its expert's buffer (an exclusive
     cumulative count in token-major order) and whether it fits the
     capacity ``max(int(n * top_k / E * capacity_factor), top_k)``.
-    Returns {"gates", "idx"} (n, k), {"pos", "keep", "flat_idx"} (n*k,),
-    and "capacity"."""
+    Returns {"logits"} (n, E), {"gates", "idx"} (n, k), {"pos", "keep",
+    "flat_idx"} (n*k,), and "capacity"."""
     n = x.shape[0]
-    n_experts = p.n_experts
     logits = linear_apply(p.router, x, Ctx(), ternary_w=False).float()
     gates, idx = torch.topk(logits, top_k, dim=-1)
     gates = torch.softmax(gates, dim=-1)
-    capacity = max(int(n * top_k / n_experts * capacity_factor), top_k)
+    capacity = max(int(n * top_k / p.n_experts * capacity_factor), top_k)
     flat_idx = idx.reshape(-1)
+    pos = route_positions(flat_idx, p.n_experts)
+    return {"logits": logits, "gates": gates, "idx": idx,
+            "flat_idx": flat_idx, "pos": pos, "keep": pos < capacity,
+            "capacity": capacity}
+
+
+def route_positions(flat_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, slot) pair's position in its expert's buffer: the
+    exclusive cumulative count of its expert in token-major order."""
     onehot = (flat_idx[:, None] == torch.arange(
-        n_experts, device=x.device)).to(torch.int32)
-    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
-    return {"gates": gates, "idx": idx, "flat_idx": flat_idx, "pos": pos,
-            "keep": pos < capacity, "capacity": capacity}
+        n_experts, device=flat_idx.device)).to(torch.int32)
+    return ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
 
 
-def _moe_apply_packed(p: MoE, x: torch.Tensor, *, top_k: int,
-                      capacity_factor: float) -> torch.Tensor:
+def _moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
+               capacity_factor: float, ctx: Ctx) -> torch.Tensor:
     n, d = x.shape
     r = moe_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
     cap, flat_idx, keep = r["capacity"], r["flat_idx"], r["keep"]
@@ -351,7 +373,8 @@ def _moe_apply_packed(p: MoE, x: torch.Tensor, *, top_k: int,
     # dispatch without a scatter-add: every kept (expert, position) pair is
     # unique, so each buffer row names the one (token, slot) pair that
     # fills it (dropped pairs are sent to a dump row past the buffer);
-    # empty rows read a zero row
+    # empty rows read a zero row.  Its backward adds each buffer row's
+    # gradient into its token's (an accumulating index put).
     nk = flat_idx.shape[0]
     dest = torch.where(keep, flat_idx * cap + r["pos"], n_experts * cap)
     src = torch.full((n_experts * cap + 1,), nk, dtype=torch.int64,
@@ -360,12 +383,18 @@ def _moe_apply_packed(p: MoE, x: torch.Tensor, *, top_k: int,
     rows = torch.cat([x[:, None].expand(n, top_k, d).reshape(n * top_k, d),
                       x.new_zeros((1, d))])
     buf = rows[src[:-1]].reshape(n_experts, cap, d)
-    g = p.g
-    h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)
-    h_u = _expert_matmul_packed(p.up_codes, p.up_gamma, d, g, buf)
-    h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
-    out_buf = _expert_matmul_packed(p.down_codes, p.down_gamma, h.shape[-1],
-                                    g, h).to(x.dtype)
+    if p.packed:
+        g = p.g
+        h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)
+        h_u = _expert_matmul_packed(p.up_codes, p.up_gamma, d, g, buf)
+        h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
+        out_buf = _expert_matmul_packed(p.down_codes, p.down_gamma,
+                                        h.shape[-1], g, h).to(x.dtype)
+    else:   # float masters: JAX's QAT (or unquantized) branch
+        h_g = _expert_matmul(p.gate_w, buf, ctx).float()
+        h_u = _expert_matmul(p.up_w, buf, ctx).float()
+        h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
+        out_buf = _expert_matmul(p.down_w, h, ctx)
     safe_pos = torch.where(keep, r["pos"], cap - 1)
     gathered = out_buf[flat_idx, safe_pos]
     gathered = torch.where(keep[:, None], gathered, 0)
@@ -381,18 +410,13 @@ def _moe_apply_packed(p: MoE, x: torch.Tensor, *, top_k: int,
 def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
               capacity_factor: float, ctx: Ctx) -> torch.Tensor:
     """Top-k MoE with capacity and dispatch, dropping on overflow, over
-    packed banks.  x: (n, d_model), the caller flattening (b, s).  With
-    ``ctx.moe_token_chunk`` dividing n (and below it) the tokens go a chunk
-    at a time."""
-    if not p.packed:
-        raise NotImplementedError(
-            "moe_apply runs packed banks (moe_pack); the float masters' "
-            "fake-quant forward belongs to training")
+    packed banks or float masters (fake-quantized under ``ctx.mode ==
+    "qat"``, the training path).  x: (n, d_model), the caller flattening
+    (b, s).  With ``ctx.moe_token_chunk`` dividing n (and below it) the
+    tokens go a chunk at a time, as JAX's scan over token chunks does."""
     tc = ctx.moe_token_chunk
     n = x.shape[0]
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, ctx=ctx)
     if tc and n > tc and n % tc == 0:
-        return torch.cat([_moe_apply_packed(
-            p, xc, top_k=top_k, capacity_factor=capacity_factor)
-            for xc in x.split(tc)])
-    return _moe_apply_packed(p, x, top_k=top_k,
-                             capacity_factor=capacity_factor)
+        return torch.cat([_moe_apply(p, xc, **kw) for xc in x.split(tc)])
+    return _moe_apply(p, x, **kw)

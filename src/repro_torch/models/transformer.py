@@ -3,7 +3,7 @@ top-k MoE FFN; token ids or, ``frontend="embed"``, precomputed embeddings
 in), ``hymba`` (attention and SSM heads in parallel, averaged, then the
 FFN) and ``xlstm_pair`` (an mLSTM and an sLSTM block a pair of layers, no
 attention, no FFN): parameters, the three serving entry points, and the
-QAT training forward of attention blocks with dense FFNs.
+QAT training forward of every kind.
 
 Counterpart of ``repro/models/transformer.py`` (contiguous or paged
 caches):
@@ -573,22 +573,14 @@ def _lm_head(cfg, params, x, ctx):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _refuse_untrainable(cfg: ModelConfig) -> None:
-    if cfg.block_kind != "attn" or cfg.n_experts:
-        raise NotImplementedError(
-            "the training forward runs attention blocks with dense FFNs; "
-            f"{cfg.name} ({cfg.block_kind}, {cfg.n_experts} experts) waits "
-            "for the QAT training of MoE, hymba and xLSTM (ROADMAP A13b "
-            "part 2)")
-
-
 def forward_features(cfg: ModelConfig, params: nn.ModuleDict,
                      inputs: torch.Tensor, ctx: Ctx,
                      remat: bool = True) -> torch.Tensor:
     """Backbone only: final hidden states (b, s, d_model) of every
-    position, no cache.  With ``remat`` and gradients on, each block is
-    recomputed in the backward (``_run_layers``)."""
-    _refuse_untrainable(cfg)
+    position, no cache, for every block kind (attention with a dense or
+    MoE FFN, hymba's attention and SSM heads, xLSTM pairs).  With ``remat``
+    and gradients on, each block is recomputed in the backward
+    (``_run_layers``)."""
     x = _embed_in(cfg, params, inputs, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     return _run_layers(cfg, ctx, params, x, None, positions, "full",

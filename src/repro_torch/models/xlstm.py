@@ -84,8 +84,10 @@ def mlstm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
         dmat = torch.where(tri[None, :, :, None], dmat, -torch.inf)
         # candidates from the carried state: m + cum_i
         inter_log = m[:, None, :] + cum                  # (b, Q, H)
+        # maximum and amax split a tie's gradient equally, as JAX's max
+        # and reduce_max do (clamp_min would give it all to m_row)
         m_row = torch.maximum(dmat.amax(dim=2), inter_log)
-        m_row = m_row.clamp_min(-1e30)
+        m_row = torch.maximum(m_row, torch.full_like(m_row, -1e30))
         w_intra = torch.exp(dmat - m_row[:, :, None, :])
         w_inter = torch.exp(inter_log - m_row)
         qk = torch.einsum("bihd,bjhd->bijh", qq, kk)     # (b, Q, Q, H)

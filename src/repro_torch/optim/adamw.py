@@ -9,6 +9,14 @@ leaf of rank >= 2 *as JAX holds it*: the port keeps one tensor a layer
 where JAX stacks the layers on a leading axis, so a per-layer norm
 (``layers.3.ln1.w``, rank 1 here, rank 2 there) and a QKV bias are
 decayed while ``final_norm.w`` is not (``jax_rank``).
+
+``update`` works in place: it scales the caller's gradients by the clip
+factor, updates the state's ``m`` and ``v`` tensors (the returned state
+holds the same tensors) and builds each leaf's update from one temporary,
+so a step holds the masters, the gradients, ``m``, ``v`` and one set of
+updates.  ``m.mul_(b1).add_((1 - b1) * g)`` rounds the same two products
+and sums them once, as ``b1 * m + (1 - b1) * g`` does.  A caller that needs
+its gradients or the previous state after a step copies them first.
 """
 
 from __future__ import annotations
@@ -47,6 +55,16 @@ def jax_rank(name: str, t: torch.Tensor) -> int:
     return t.dim() + (1 if name.startswith("layers.") else 0)
 
 
+def _sqrt_(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, in place where it can be: the
+    card's ``sqrtf`` and JAX's are; ATen's vectorised CPU ``sqrt`` is off by
+    an ULP in some 0.6 % of elements, so on the CPU the root goes through
+    f64, whose rounding to f32 is the correctly rounded f32 root."""
+    if x.device.type == "cpu":
+        return x.double().sqrt_().float()
+    return x.sqrt_()
+
+
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
           grad_clip: float | None = 1.0,
@@ -71,26 +89,27 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     def update(grads: dict, state: AdamWState, params):
         params = trainable(params)
         step = state.step + 1
+        grads = {n: g if g.dtype == torch.float32 else g.float()
+                 for n, g in grads.items()}
         if grad_clip is not None:
-            gnorm = torch.sqrt(sum(g.float().square().sum()
-                                   for g in grads.values()))
+            gnorm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
             scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9),
                                     1.0)
-            grads = {n: g.float() * scale for n, g in grads.items()}
-        else:
-            grads = {n: g.float() for n, g in grads.items()}
-        m = {n: b1 * state.m[n] + (1 - b1) * g for n, g in grads.items()}
-        v = {n: b2 * state.v[n] + (1 - b2) * g * g for n, g in grads.items()}
+            for g in grads.values():
+                g.mul_(scale)
+        for n, g in grads.items():
+            state.m[n].mul_(b1).add_((1 - b1) * g)
+            state.v[n].mul_(b2).add_((1 - b2) * g * g)
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
-        lr_t = schedule(step)
+        neg_lr = -schedule(step)
         updates = {}
         for n, p in params.items():
-            u = (m[n] / bc1) / (torch.sqrt(v[n] / bc2) + eps)
+            u = (state.m[n] / bc1).div_(_sqrt_(state.v[n] / bc2).add_(eps))
             if weight_decay and jax_rank(n, p) >= 2:  # matrices, not norms
-                u = u + weight_decay * p.float()
-            updates[n] = (-lr_t * u).to(p.dtype)
-        return updates, AdamWState(step=step, m=m, v=v)
+                u.add_(weight_decay * p.float())
+            updates[n] = u.mul_(neg_lr).to(p.dtype)
+        return updates, AdamWState(step=step, m=state.m, v=state.v)
 
     return Optimizer(init=init, update=update)
 

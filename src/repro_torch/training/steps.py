@@ -97,7 +97,8 @@ def make_train_step_ddp(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
     argument and result) or as the f32 mean.  The loss is the mean over
     ranks.  ``train_step(params, opt_state, err, batch) -> (params,
     opt_state, err, {"loss"[, "grads"]})``; with ``return_grads`` the
-    metrics carry the reduced gradients the update used."""
+    metrics carry a copy of the reduced gradients the update used, taken
+    before AdamW clips them in place."""
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
 
@@ -120,12 +121,11 @@ def make_train_step_ddp(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
             grads = out
         loss = loss.clone()
         dist.all_reduce(loss, group=group)
-        loss = loss / world
+        metrics = {"loss": loss / world}
+        if return_grads:
+            metrics["grads"] = {n: g.clone() for n, g in grads.items()}
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = apply_updates(params, updates)
-        metrics = {"loss": loss}
-        if return_grads:
-            metrics["grads"] = grads
         return params, opt_state, err, metrics
 
     return train_step

@@ -50,6 +50,8 @@ from repro_torch.models import layers, transformer
 from repro_torch.models.layers import Ctx
 from repro_torch.serving import (FaultInjector, Request, RequestStatus,
                                  ServingEngine)
+from repro_torch.testing import (leaf_grad_errors, pinned_quantizers,
+                                 pinned_routing)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 PAGE_SIZES = (4, 5, 16)
@@ -1466,31 +1468,6 @@ def test_flash_vjp_on_the_card_matches_the_cpu(cuda, window):
 TRAIN_GRAD_RTOL = 2e-5
 
 
-@contextlib.contextmanager
-def _pinned_quantizers(tape, replay):
-    """Record each QAT quantizer's forward value into ``tape`` in call
-    order, or with ``replay`` give the recorded values back instead
-    (chip_smoke.py's ``pinned_quantizers``)."""
-    saved = ternary.absmax_quant_ste, ternary.ternarize_ste
-    played = iter(list(tape))
-
-    def pin(fn):
-        def pinned(x, *args, **kw):
-            if replay:
-                return x + (next(played).to(x.device, x.dtype) - x).detach()
-            out = fn(x, *args, **kw)
-            tape.append(out.detach().cpu())
-            return out
-        return pinned
-
-    ternary.absmax_quant_ste, ternary.ternarize_ste = map(pin, saved)
-    try:
-        yield
-    finally:
-        ternary.absmax_quant_ste, ternary.ternarize_ste = saved
-    assert not replay or next(played, None) is None
-
-
 @pytest.mark.gpu
 def test_qat_train_step_on_the_card_matches_the_cpu(cuda):
     """One QAT step of reduced bitnet-0.73b from the same masters and batch
@@ -1521,37 +1498,123 @@ def test_qat_train_step_on_the_card_matches_the_cpu(cuda):
         b = {k: v.to(dev) for k, v in batch.items()}
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
-            with (_pinned_quantizers(tape, replay) if tape is not None
+            with (pinned_quantizers(tape, replay) if tape is not None
                   else contextlib.nullcontext()):
                 loss, grads = loss_and_grads(cfg, ctx, p, b, 16)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         gnorm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+        # a copy: AdamW clips the gradients in place
+        grads_cpu = {n: g.to("cpu", copy=True) for n, g in grads.items()}
         upd, _ = opt.update(grads, opt.init(p), p)
         p = apply_updates(p, upd)
         return (float(loss), float(gnorm),
-                {n: t.cpu() for n, t in trainable(p).items()},
-                {n: g.cpu() for n, g in grads.items()})
-
-    def leaf_errors(got, ref):
-        return {n: ((got[n] - g).abs().max() / g.abs().max()).item()
-                for n, g in ref.items()}
+                {n: t.cpu() for n, t in trainable(p).items()}, grads_cpu)
 
     tape32, tape_tf32 = [], []
     l_c, g_c, p_c, gr_c = one_step(cuda, tape32)
     l_h, g_h, p_h, _ = one_step("cpu")
-    err32 = leaf_errors(gr_c, one_step("cpu", tape32, replay=True)[3])
-    err_tf32 = leaf_errors(one_step(cuda, tape_tf32, tf32=True)[3],
-                           one_step("cpu", tape_tf32, replay=True)[3])
+    err32 = leaf_grad_errors(gr_c, one_step("cpu", tape32, replay=True)[3])
+    err_tf32 = leaf_grad_errors(one_step(cuda, tape_tf32, tf32=True)[3],
+                                one_step("cpu", tape_tf32, replay=True)[3])
     print(f"pinned gradients, worst leaf: f32 {max(err32.values()):.3g}, "
           f"TF32 {max(err_tf32.values()):.3g}")
     assert abs(l_c - l_h) <= 1e-3 * abs(l_h)
     assert abs(g_c - g_h) <= 1e-2 * g_h
     p_ref = copy.deepcopy(master)
-    upd, _ = opt.update(gr_c, opt.init(p_ref), p_ref)
+    upd, _ = opt.update({n: g.clone() for n, g in gr_c.items()},
+                        opt.init(p_ref), p_ref)
     p_ref = trainable(apply_updates(p_ref, upd))
     for n, t in p_h.items():
         assert (p_c[n] - t).abs().max() <= 2.2 * lr, n
         assert (p_c[n] - p_ref[n]).abs().max() <= 1e-6 * t.abs().max(), n
     assert max(err32.values()) <= TRAIN_GRAD_RTOL, err32
     assert max(err_tf32.values()) > TRAIN_GRAD_RTOL, err_tf32
+
+
+def _pinned_step_grads(cfg, master, batch, dev, tapes, replay, tf32=False):
+    """One QAT step's gradients (on the CPU) from ``master`` on ``dev``,
+    with the quantizers and the MoE routing recorded into ``tapes`` or
+    replayed from them."""
+    import copy
+    from repro_torch.training import loss_and_grads
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=16, attn_kv_chunk=16)
+    p = copy.deepcopy(master).to(dev)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with pinned_quantizers(tapes[0], replay), \
+                pinned_routing(tapes[1], replay):
+            loss, grads = loss_and_grads(cfg, ctx, p, b, 16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return float(loss), {n: g.to("cpu", copy=True) for n, g in grads.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "hymba-1.5b",
+                                  "xlstm-350m"])
+def test_qat_step_of_moe_and_recurrent_kinds_on_the_card(cuda, name):
+    """One QAT step of reduced mixtral-8x22b, hymba-1.5b and xlstm-350m on
+    the card against the CPU replaying the card's quantized values and, for
+    MoE, its top-k indices (a routing ULP flips an expert, which no
+    gradient tolerance describes): every gradient leaf within
+    TRAIN_GRAD_RTOL of its largest element, finite, and the loss within
+    1e-5 of itself; a TF32 run of the card replayed the same way must
+    exceed the limit."""
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    cfg = get_config(name).reduced()
+    master = transformer.init_params(cfg, torch.Generator().manual_seed(25))
+    batch = SyntheticLMDataset(cfg, batch=4, seq_len=32, seed=5,
+                               device="cpu").batch_at(0)
+    errs, losses = {}, {}
+    for tf32 in (False, True):
+        tapes = ([], [])
+        l_c, g_c = _pinned_step_grads(cfg, master, batch, cuda, tapes, False,
+                                      tf32)
+        l_h, g_h = _pinned_step_grads(cfg, master, batch, "cpu", tapes, True)
+        assert all(torch.isfinite(g).all() for g in g_c.values())
+        errs[tf32], losses[tf32] = leaf_grad_errors(g_c, g_h), (l_c, l_h)
+        if cfg.n_experts:
+            assert tapes[1], "no MoE routing recorded"
+    print(f"{name}: pinned gradients, worst leaf: f32 "
+          f"{max(errs[False].values()):.3g}, TF32 "
+          f"{max(errs[True].values()):.3g}; losses {losses}")
+    assert abs(losses[False][0] - losses[False][1]) <= 1e-5 * abs(
+        losses[False][1])
+    assert max(errs[False].values()) <= TRAIN_GRAD_RTOL, errs[False]
+    assert max(errs[True].values()) > TRAIN_GRAD_RTOL, errs[True]
+
+
+@pytest.mark.gpu
+def test_moe_qat_gradients_are_deterministic_on_the_card(cuda, monkeypatch):
+    """Reduced mixtral-8x22b's QAT loss and gradients, twice on the card
+    under ``torch.use_deterministic_algorithms`` (as the resumed run of
+    chip_smoke.py phase 11 (c) is), bit for bit: the MoE dispatch's
+    backward is an accumulating index put into the tokens' gradient, with
+    atomics on the card outside that mode."""
+    import copy
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.training import loss_and_grads
+    cfg = get_config("mixtral-8x22b").reduced()
+    assert cfg.n_experts
+    master = transformer.init_params(cfg, torch.Generator().manual_seed(25))
+    batch = SyntheticLMDataset(cfg, batch=4, seq_len=64, seed=5,
+                               device="cpu").batch_at(0)
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=16, attn_kv_chunk=16)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+    def grads():
+        p = copy.deepcopy(master).to(cuda)
+        b = {k: v.to(cuda) for k, v in batch.items()}
+        loss, g = loss_and_grads(cfg, ctx, p, b, 16)
+        return loss.detach().cpu(), {n: t.cpu() for n, t in g.items()}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        (l1, g1), (l2, g2) = grads(), grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(l1, l2)
+    assert all(torch.isfinite(t).all() for t in g1.values())
+    assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []

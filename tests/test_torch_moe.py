@@ -158,9 +158,3 @@ def test_moe_bf16_activations_match_jax():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want,
                                atol=2 ** -5 * np.abs(want).max())
-
-
-def test_moe_refuses_float_masters():
-    with pytest.raises(NotImplementedError, match="training"):
-        layers.moe_apply(_port_masters(_masters()), torch.zeros((2, 32)),
-                         top_k=2, capacity_factor=1.25, ctx=Ctx())

@@ -396,15 +396,6 @@ def test_remat_policies_change_no_gradient(policy):
         assert torch.equal(g_remat[n], g), n
 
 
-def test_training_refuses_moe_and_recurrent_kinds():
-    for name in ("mixtral-8x22b", "hymba-1.5b", "xlstm-350m"):
-        cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match="A13b part 2"):
-            transformer.forward_features(
-                cfg, torch.nn.ModuleDict(), torch.zeros(1, 4, dtype=torch.long),
-                CTX)
-
-
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
