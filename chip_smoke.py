@@ -84,8 +84,17 @@ against the CPU replaying the card's quantized values (xLSTM's with the
 sLSTM's first-position kinks taken out of the backward), a TF32 control
 past that limit; then each trained model packed and served on the
 device-resident engine, judged by the oracle, with B1 inside mixtral's
-captured block.  All phases must end
-within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+captured block; xLSTM's gradients are also held every element, with the
+CPU taking the card's pre-activations at the sLSTM kinks (C7's gate).
+Phase 13 trains bitnet-0.73b at full width under a training mesh
+(``make_train_step_sharded``): on a (1, 1) mesh in the NCCL world of one,
+``2d``, ``2d`` with FSDP and ``dpzero1`` equal to ``make_train_step`` bit
+for bit; on two gloo ranks on the one card, (1, 2) tensor-parallel, (2, 1)
+FSDP and (2, 1) ZeRO-1 steps against the single-device step (its quantized
+values replayed on each rank's blocks), the (1, 2) state saved and
+restored onto (2, 1) and one device (the elastic restart) bit for bit,
+and all 24 blocks in a 2-stage GPipe against the sequential stack.  All
+phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -1384,6 +1393,10 @@ TRAIN12 = {"mixtral-8x22b": (1, 4), "hymba-1.5b": (4, 8),
 # (``repro_torch.testing.slstm_kinks_excluded``, found from the recorded
 # quantized values, never from a gradient), at most SLSTM_KINKS_MAX of
 # them an sLSTM (8 x 1024 first-position input-gate pre-activations).
+# C7's gate, fixed before its first run: every element of every leaf
+# within TRAIN_GRAD_RTOL with the CPU taking the card's pre-activation
+# values at those kinks (``repro_torch.testing.slstm_kinks_pinned``),
+# nothing cut from the backward; a TF32 control past it.
 SLSTM_KINKS_MAX = 8
 # phase 12 as a whole, and every phase of the script
 PHASE12_S = 120
@@ -1400,7 +1413,10 @@ def phase12(dev, requests, max_seq, smi):
     tile pairs than causal.  (b) hymba and xLSTM at 2 layers (1 pair), one
     step, TF32 off: every gradient leaf within TRAIN_GRAD_RTOL of the CPU
     replaying the card's quantized values (xLSTM's with the sLSTM's
-    first-position kinks excluded), a TF32 control past it.  (c)
+    first-position kinks excluded), a TF32 control past it; xLSTM's also
+    every element with the CPU taking the card's pre-activations at those
+    kinks (C7's gate, a TF32 control past it), and every element as first
+    fixed, printed ungated.  (c)
     Each trained model packed and serving phase 4's 8 requests on the
     device-resident engine (mixtral drop-free), every token judged by the
     oracle on the engine's history (TOKEN_GAP; mixtral by phase 9's chunked
@@ -1422,7 +1438,7 @@ def phase12(dev, requests, max_seq, smi):
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import reference_decode
     from repro_torch.testing import (leaf_grad_errors, pinned_quantizers,
-                                     slstm_kinks_excluded)
+                                     slstm_kinks_excluded, slstm_kinks_pinned)
     from repro_torch.training import (loss_and_grads, make_train_step,
                                       softmax_xent)
     failures = []
@@ -1637,13 +1653,14 @@ def phase12(dev, requests, max_seq, smi):
                                 device="cpu").batch_at(0)
         xl = cfg2.block_kind == "xlstm_pair"
 
-        def grads_of(where, tape, replay, tf32=False, kinks=None):
+        def grads_of(where, tape, replay, tf32=False, kinks=None, pin=None):
             p = copy.deepcopy(master).to(where)
             bb = {k: v.to(where) for k, v in b2.items()}
             torch.backends.cuda.matmul.allow_tf32 = tf32
             excl = (slstm_kinks_excluded(tape, kinks[0], not replay,
                                          kinks[1]) if kinks is not None
-                    else contextlib.nullcontext())
+                    else slstm_kinks_pinned(tape, *pin, not replay)
+                    if pin is not None else contextlib.nullcontext())
             try:
                 with pinned_quantizers(tape, replay), excl:
                     loss, grads = loss_and_grads(cfg2, ctx, p, bb, chunk)
@@ -1662,12 +1679,22 @@ def phase12(dev, requests, max_seq, smi):
             errs[tf32], losses[tf32] = leaf_grad_errors(g_c, g_h), (l_c, l_h)
             kinks[tf32] = (masks, seen_c, seen_h)
             del tape, g_c, g_h
-        if xl:   # the gate as fixed before the first run: every element
-            tape = []
-            _, g_c = grads_of(dev, tape, False)
-            _, g_h = grads_of("cpu", tape, True)
-            standing = leaf_grad_errors(g_c, g_h)
-            del tape, g_c, g_h
+        if xl:
+            # every element; the card's run records its kink values (its
+            # forward unchanged), read twice on the CPU: as first fixed
+            # (ungated) and with the kinks given the card's values (C7)
+            c7 = {}
+            for tf32 in (False, True):
+                tape, pm, pv = [], [], []
+                _, g_c = grads_of(dev, tape, False, tf32, pin=(pm, pv))
+                if not tf32:
+                    _, g_h = grads_of("cpu", tape, True)
+                    standing = leaf_grad_errors(g_c, g_h)
+                    del g_h
+                _, g_k = grads_of("cpu", tape, True, pin=(pm, pv))
+                c7[tf32] = (leaf_grad_errors(g_c, g_k),
+                            [int(m.sum()) for m in pm])
+                del tape, g_c, g_k
         worst = max(errs[False], key=errs[False].get)
         worst_tf32 = max(errs[True].values())
         n_kinks = [int(m.sum()) for m in kinks[False][0]]
@@ -1687,12 +1714,29 @@ def phase12(dev, requests, max_seq, smi):
                f"{[v.tolist() for v in kinks[False][2][:1]]}; the gate as "
                f"fixed before the first run (every element, not met there, "
                f"not gated): worst {max(standing.values()):.3g} "
-               f"({max(standing, key=standing.get)})" if xl else "")
+               f"({max(standing, key=standing.get)}); C7, every element with "
+               f"the kinks given the card's pre-activations: worst "
+               f"{max(c7[False][0].values()):.3g} "
+               f"({max(c7[False][0], key=c7[False][0].get)}, gate "
+               f"{TRAIN_GRAD_RTOL}), TF32 control worst "
+               f"{max(c7[True][0].values()):.3g} (must exceed the gate), "
+               f"kinks pinned an sLSTM call {c7[False][1]} (TF32 run "
+               f"{c7[True][1]})" if xl else "")
             + f"; {time.perf_counter() - t_b:.1f} s")
         if not errs[False][worst] <= TRAIN_GRAD_RTOL < worst_tf32:
             failures.append(f"(b) {name}: pinned gradients worst "
                             f"{errs[False][worst]}, TF32 control {worst_tf32}"
                             f", gate {TRAIN_GRAD_RTOL}")
+        if xl and not (max(c7[False][0].values()) <= TRAIN_GRAD_RTOL
+                       < max(c7[True][0].values())):
+            failures.append(f"(b) {name}: C7's gate, every element with the "
+                            f"kinks pinned: worst "
+                            f"{max(c7[False][0].values())}, TF32 control "
+                            f"{max(c7[True][0].values())}, gate "
+                            f"{TRAIN_GRAD_RTOL}")
+        if xl and not (c7[False][1] and max(c7[False][1]) <= SLSTM_KINKS_MAX):
+            failures.append(f"(b) {name}: sLSTM kinks pinned {c7[False][1]} "
+                            f"(at most {SLSTM_KINKS_MAX})")
         if xl and not (n_kinks and max(n_kinks) <= SLSTM_KINKS_MAX):
             failures.append(f"(b) {name}: sLSTM kinks excluded {n_kinks} "
                             f"(at most {SLSTM_KINKS_MAX})")
@@ -1703,6 +1747,419 @@ def phase12(dev, requests, max_seq, smi):
     if took > PHASE12_S:
         failures.append(f"phase 12 took {took:.1f} s (gate {PHASE12_S} s)")
     return p12_counts, failures
+
+
+# phase 13: QAT training under a mesh, fixed before its first run
+PHASE13_S = 90
+TRAIN13 = dict(batch=8, seq=128, lr=3e-4, chunk=128, layers=2, seed=13)
+# (b)'s three setups: (name, mesh, layout, fsdp)
+SETUPS13 = (("(1, 2) 2d", (1, 2), "2d", False),
+            ("(2, 1) 2d fsdp", (2, 1), "2d", True),
+            ("(2, 1) dpzero1", (2, 1), "dpzero1", False))
+PIPE13 = dict(stages=2, micro=4, rows=2)
+PHASE13_RANK_S = 75   # the two ranks' share of the phase
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _phase13_setup(dev, n_layers=None):
+    """bitnet-0.73b at full width (``n_layers`` deep, else its 24), its
+    training context, masters from seed 13 and the synthetic batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    t = TRAIN13
+    cfg = get_config("bitnet-0.73b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=t["seq"],
+              attn_kv_chunk=t["seq"])
+    full = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(t["seed"]))
+    data = SyntheticLMDataset(cfg, batch=t["batch"], seq_len=t["seq"],
+                              seed=t["seed"], device=dev)
+    return cfg, ctx, full, data
+
+
+def _sharded_state(mesh, full, layout, fsdp, opt):
+    from repro_torch.runtime import sharding
+    p = sharding.shard_params(mesh, full, fsdp=fsdp,
+                              layout="dp" if layout == "dpzero1" else "2d")
+    z = sharding.Zero1(mesh, p) if layout == "dpzero1" else None
+    return p, opt.init(p, zero1=z), z
+
+
+def _phase13_rank(rank, world, port, workdir, device="cuda"):
+    """One of phase 13's two gloo ranks on the one card: (b), (c), (d).
+    Writes its readings to ``workdir/rank{rank}.json``."""
+    import hashlib
+    import shutil
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import layers, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWState, trainable
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.collectives import TrainMesh
+    from repro_torch.runtime.pipeline import (pipeline_forward,
+                                              split_layers_into_stages)
+    from repro_torch.testing import leaf_grad_errors, pinned_quantizers
+    from repro_torch.training import loss_and_grads, make_train_step_sharded
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    dev = torch.device(device, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True)
+    out = {"rank": rank}
+    t = TRAIN13
+    lr = t["lr"]
+    try:
+        cfg, ctx, full, data = _phase13_setup(dev, t["layers"])
+        batch = data.batch_at(0)
+        opt = adamw(lr=lr)
+        # -- (b) the single-device step on the card, its quantized values
+        # recorded; each setup replays its block of them
+        t_b = time.perf_counter()
+        tape = []
+        ref = copy.deepcopy(full)
+        with pinned_quantizers(tape, replay=False):
+            l_ref, g_ref = loss_and_grads(cfg, ctx, ref, batch, t["chunk"])
+        g_ref = {n: g.clone() for n, g in g_ref.items()}
+        st_ref = opt.init(ref)
+        upd, _ = opt.update({n: g.clone() for n, g in g_ref.items()},
+                            st_ref, ref)
+        p_ref = {n: p + upd[n] for n, p in trainable(ref).items()}
+        del ref, st_ref, upd
+        digest = hashlib.sha256()
+        for v in tape:
+            digest.update(v.numpy().tobytes()[:1 << 16])
+        digests = [None] * world
+        dist.all_gather_object(digests, digest.hexdigest())
+        out["tapes_equal"] = len(set(digests)) == 1
+        out["b"] = {}
+        saved = None
+        for name, shape, layout, fsdp in SETUPS13:
+            mesh = TrainMesh(shape)
+            p, st, z = _sharded_state(mesh, full, layout, fsdp, opt)
+            step = make_train_step_sharded(
+                cfg, ctx, opt, mesh, global_batch=t["batch"], layout=layout,
+                zero1=z, loss_chunk=t["chunk"], return_grads=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with pinned_quantizers(tape, replay=True):
+                p, st, m = step(p, st, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            specs = sharding.tree_specs(p)
+            grads = {n: mesh.full_part(g, specs[n])
+                     for n, g in m["grads"].items()}
+            errs = leaf_grad_errors(grads, g_ref)
+            worst = max(errs, key=errs.get)
+            p_err = max(((mesh.full_part(v, specs[n]) - p_ref[n]).abs().max()
+                         ).item() for n, v in trainable(p).items())
+            loss = float(m["loss"])
+            out["b"][name] = dict(
+                loss=loss, loss_ref=float(l_ref),
+                loss_rel=abs(loss - float(l_ref)) / abs(float(l_ref)),
+                grad_worst=errs[worst], grad_worst_leaf=worst,
+                param_err_lr=p_err / lr, s_step=secs,
+                tokens_s=t["batch"] * t["seq"] / secs, peak_gib=peak / 2**30)
+            if name == "(1, 2) 2d":
+                saved = (mesh, p, st)
+            del p, st, m, grads, step
+        del tape
+        out["b_s"] = time.perf_counter() - t_b
+
+        # -- (c) the elastic restore -------------------------------------
+        t_c = time.perf_counter()
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        mesh12, p12, st12 = saved
+        sp12 = sharding.tree_specs(p12)
+        whole = {"p": {n: mesh12.full_part(v, sp12[n])
+                       for n, v in p12.named_buffers()},
+                 "m": {n: mesh12.full_part(v, sp12[n])
+                       for n, v in st12.m.items()},
+                 "v": {n: mesh12.full_part(v, sp12[n])
+                       for n, v in st12.v.items()}}
+
+        def shardings(mesh, p):
+            parts = sharding.tree_parts(mesh, sharding.tree_specs(p))
+            return (parts, AdamWState(step=None, m=parts, v=parts))
+
+        ckpt = CheckpointManager(ckpt_dir)
+        ckpt.save(1, (p12, st12), shardings=shardings(mesh12, p12))
+        del saved, p12, st12
+        mesh21 = TrainMesh((2, 1))
+        like, like_st, _ = _sharded_state(mesh21, full, "2d", True, opt)
+        rp, rs = ckpt.restore(1, (like, like_st), shardings(mesh21, like))
+        sp21 = sharding.tree_specs(rp)
+
+        def equal_to_whole(mesh, p, s, specs):
+            return (all(torch.equal(v, mesh.local_part(whole["p"][n],
+                                                       specs[n]))
+                        for n, v in p.named_buffers())
+                    and all(torch.equal(s.m[n], mesh.local_part(
+                        whole["m"][n], specs[n])) and torch.equal(
+                        s.v[n], mesh.local_part(whole["v"][n], specs[n]))
+                        for n in whole["m"]) and int(s.step) == 1)
+
+        out["c_restored_2x1"] = equal_to_whole(mesh21, rp, rs, sp21)
+        if rank == 0:
+            one_p, one_s = ckpt.restore(1, (full, opt.init(full)))
+            out["c_restored_one"] = (
+                all(torch.equal(v, whole["p"][n])
+                    for n, v in one_p.named_buffers())
+                and all(torch.equal(one_s.m[n], whole["m"][n])
+                        and torch.equal(one_s.v[n], whole["v"][n])
+                        for n in whole["m"]))
+            del one_p, one_s
+        direct = sharding.map_buffers(
+            like, lambda n, v: mesh21.local_part(whole["p"][n],
+                                                 sp21[n]).clone())
+        dstate = AdamWState(
+            step=torch.ones((), dtype=torch.int32, device=dev),
+            m={n: mesh21.local_part(v, sp21[n]).clone()
+               for n, v in whole["m"].items()},
+            v={n: mesh21.local_part(v, sp21[n]).clone()
+               for n, v in whole["v"].items()})
+        step21 = make_train_step_sharded(cfg, ctx, opt, mesh21,
+                                         global_batch=t["batch"],
+                                         loss_chunk=t["chunk"])
+        b1 = data.batch_at(1)
+        a, a_s, a_m = step21(rp, rs, b1)
+        b, b_s, b_m = step21(direct, dstate, b1)
+        out["c_step_after_restore"] = (
+            torch.equal(a_m["loss"], b_m["loss"])
+            and all(torch.equal(x, y) for x, y in zip(a.buffers(),
+                                                      b.buffers()))
+            and all(torch.equal(a_s.m[n], b_s.m[n])
+                    and torch.equal(a_s.v[n], b_s.v[n]) for n in a_s.m))
+        del a, a_s, b, b_s, rp, rs, like, like_st, direct, dstate, whole
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        out["c_s"] = time.perf_counter() - t_c
+        del full
+        torch.cuda.empty_cache()
+
+        # -- (d) GPipe: every block in 2 stages, the quantizers pinned ----
+        t_d = time.perf_counter()
+        pc = PIPE13
+        cfg24, ctx24, full24, data24 = _phase13_setup(dev)
+        with torch.no_grad():
+            x = layers.embed_apply(full24["embed"], data24.batch_at(0)[
+                "inputs"]).reshape(pc["micro"], pc["rows"], t["seq"],
+                                   cfg24.d_model)
+            stages = split_layers_into_stages(full24["layers"], pc["stages"])
+            tape, seq = [], []
+            for i in range(pc["micro"]):
+                h = x[i]
+                for s_, blocks in enumerate(stages):
+                    with (pinned_quantizers(tape, replay=False)
+                          if s_ == rank else contextlib.nullcontext()):
+                        h = transformer.apply_blocks(cfg24, blocks, h, ctx24)
+                seq.append(h)
+            seq = torch.stack(seq)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with pinned_quantizers(tape, replay=True):
+                y = pipeline_forward(
+                    lambda p, v: transformer.apply_blocks(cfg24, p, v, ctx24),
+                    None, stages[rank], x)
+            torch.cuda.synchronize()
+            out["d_pipeline_s"] = time.perf_counter() - t0
+            out["d_err"] = ((y - seq).abs().max() / seq.abs().max()).item()
+            out["d_finite"] = bool(torch.isfinite(y).all())
+        del tape, full24
+        out["d_s"] = time.perf_counter() - t_d
+        out["ok"] = True
+    finally:
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def phase13(dev, smi):
+    """Phase 13: QAT training under a mesh, seed 13, bitnet-0.73b at full
+    width, batch 8 x 128, TF32 off, deterministic algorithms.  (a) on the
+    NCCL world of one (phase 4f's), 2 layers: ``make_train_step_sharded``
+    on a (1, 1) mesh in ``2d``, ``2d`` with FSDP and ``dpzero1``, 2 steps
+    each, equal to ``make_train_step`` bit for bit (loss, every parameter,
+    m and v).  (b)-(d) on two gloo ranks on the one card (spawned; CUDA
+    tensors staged through host memory around each collective): (b) 2
+    layers, one step in each of SETUPS13 against the single-device step on
+    the card whose quantized values each rank replays on its blocks: loss
+    within 1e-5 relative, every gathered gradient leaf within
+    TRAIN_GRAD_RTOL of its largest, every parameter after AdamW within
+    TRAIN_PARAM_LR_BOUND lr; (c) (b)'s (1, 2) state saved (gathered, rank
+    0 writing) and restored onto (2, 1) and one device, every leaf equal to
+    the saved tree, and a step after the restore on (2, 1) equal to a step
+    from the saved tree sharded directly onto (2, 1), bit for bit; (d) all
+    24 blocks in 2 pipeline stages, 4 microbatches of 2 x 128, the
+    quantizers pinned: the features within 1e-5 of the largest against the
+    sequential stack on the card.  The phase within PHASE13_S.  s/step,
+    tokens/s and ``max_memory_allocated`` per rank printed, ungated.
+    Returns the failures found."""
+    import shutil
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.optim import adamw
+    from repro_torch.training import (make_train_step,
+                                      make_train_step_sharded)
+    from repro_torch.runtime.collectives import TrainMesh
+    failures = []
+    t_13 = time.perf_counter()
+    t = TRAIN13
+    tokens = t["batch"] * t["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # -- (a) a (1, 1) mesh on the NCCL world of one ----------------------
+        cfg, ctx, full, data = _phase13_setup(dev, t["layers"])
+        batches = [data.batch_at(i) for i in range(2)]
+        opt = adamw(lr=t["lr"])
+        ref = copy.deepcopy(full)
+        ref_st = opt.init(ref)
+        step = make_train_step(cfg, ctx, opt, loss_chunk=t["chunk"])
+        ref_losses = []
+        for b in batches:
+            ref, ref_st, m = step(ref, ref_st, b)
+            ref_losses.append(m["loss"].clone())
+        mesh = TrainMesh((1, 1))
+        for layout, fsdp in (("2d", False), ("2d", True), ("dpzero1", False)):
+            p, st, z = _sharded_state(mesh, full, layout, fsdp, opt)
+            sstep = make_train_step_sharded(
+                cfg, ctx, opt, mesh, global_batch=t["batch"], layout=layout,
+                zero1=z, loss_chunk=t["chunk"])
+            torch.cuda.reset_peak_memory_stats()
+            same, secs = True, []
+            for b, want in zip(batches, ref_losses):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, st, m = sstep(p, st, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                same &= torch.equal(m["loss"], want)
+            same &= all(torch.equal(x, y) for x, y in zip(
+                ref.buffers(), p.buffers()))
+            same &= all(torch.equal(ref_st.m[n], st.m[n])
+                        and torch.equal(ref_st.v[n], st.v[n])
+                        for n in ref_st.m)
+            label = layout + (" fsdp" if fsdp else "")
+            log(f"  (a) (1, 1) mesh, {dist.get_backend()} world of "
+                f"{dist.get_world_size()}, bitnet-0.73b {t['layers']} layers"
+                f", {label}: 2 steps == make_train_step bit for bit (loss, "
+                f"parameters, m, v): {same}; s/step "
+                f"{[round(x, 4) for x in secs]} (the second: "
+                f"{tokens / secs[-1]:.1f} tokens/s); max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {smi}")
+            if not same:
+                failures.append(f"(a) {label}: the (1, 1) mesh step differs "
+                                "from make_train_step")
+            del p, st, sstep
+        del ref, ref_st, full, step
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter() - t_13
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # -- (b)-(d): two gloo ranks on the one card -----------------------------
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase13")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t_r = time.perf_counter()
+    procs = mp.spawn(_phase13_rank, args=(2, _free_port(), workdir),
+                     nprocs=2, join=False)
+    deadline = time.perf_counter() + PHASE13_RANK_S + 60
+    try:
+        while not procs.join(timeout=2):
+            if time.perf_counter() > deadline:
+                raise TimeoutError("phase 13's ranks did not finish")
+    except Exception as e:   # a rank that fails fails the phase
+        failures.append(f"(b)-(d) ranks: {type(e).__name__}: "
+                        f"{str(e)[-2000:]}")
+    finally:
+        for p_ in procs.processes:
+            if p_.is_alive():
+                p_.kill()
+            p_.join()
+    ranks = []
+    for r in range(2):
+        path = os.path.join(workdir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    shutil.rmtree(workdir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_r
+    if not all(r.get("ok") for r in ranks):
+        failures.append(f"(b)-(d): a rank did not finish: {ranks}")
+    else:
+        lr = t["lr"]
+        for name, *_ in SETUPS13:
+            rows = [r["b"][name] for r in ranks]
+            b0 = rows[0]
+            log(f"  (b) {name}, 2 gloo ranks on the card, one step against "
+                f"the single-device step (its quantized values replayed on "
+                f"each rank's blocks): loss {b0['loss']:.7f} vs "
+                f"{b0['loss_ref']:.7f} (rel {b0['loss_rel']:.3g}, gate 1e-5);"
+                f" worst gradient leaf {b0['grad_worst']:.3g} "
+                f"({b0['grad_worst_leaf']}, gate {TRAIN_GRAD_RTOL}); "
+                f"parameters after AdamW within "
+                f"{max(r['param_err_lr'] for r in rows):.3f} lr (gate "
+                f"{TRAIN_PARAM_LR_BOUND}); s/step per rank "
+                f"{[round(r['s_step'], 4) for r in rows]}, tokens/s "
+                f"{[round(r['tokens_s'], 1) for r in rows]}, "
+                f"max_memory_allocated per rank "
+                f"{[round(r['peak_gib'], 3) for r in rows]} GiB")
+            for r in rows:
+                if not (r["loss_rel"] <= 1e-5
+                        and r["grad_worst"] <= TRAIN_GRAD_RTOL
+                        and r["param_err_lr"] <= TRAIN_PARAM_LR_BOUND):
+                    failures.append(f"(b) {name}: {r}")
+        log(f"  (b) the ranks' recorded quantized values equal: "
+            f"{[r['tapes_equal'] for r in ranks]}; (b) took "
+            f"{[round(r['b_s'], 1) for r in ranks]} s")
+        c_ok = (all(r["c_restored_2x1"] and r["c_step_after_restore"]
+                    for r in ranks) and ranks[0]["c_restored_one"])
+        log(f"  (c) (1, 2)'s state saved and restored: onto (2, 1) "
+            f"{[r['c_restored_2x1'] for r in ranks]}, onto one device "
+            f"{ranks[0]['c_restored_one']}, bit for bit; a step after the "
+            f"restore == a step from the saved tree sharded onto (2, 1), bit "
+            f"for bit: {[r['c_step_after_restore'] for r in ranks]}; "
+            f"{[round(r['c_s'], 1) for r in ranks]} s")
+        if not c_ok:
+            failures.append(f"(c) elastic restore: {ranks}")
+        d_err = max(r["d_err"] for r in ranks)
+        log(f"  (d) GPipe, bitnet-0.73b's 24 blocks in {PIPE13['stages']} "
+            f"stages over the 2 ranks, {PIPE13['micro']} microbatches of "
+            f"{PIPE13['rows']} x {t['seq']}, quantizers pinned: features vs "
+            f"the sequential stack on the card {d_err:.3g} of the largest "
+            f"(gate 1e-5); pipeline forward "
+            f"{[round(r['d_pipeline_s'], 3) for r in ranks]} s; "
+            f"{[round(r['d_s'], 1) for r in ranks]} s")
+        if not (d_err <= 1e-5 and all(r["d_finite"] for r in ranks)
+                and all(r["tapes_equal"] for r in ranks)):
+            failures.append(f"(d) GPipe: {d_err}, finite "
+                            f"{[r['d_finite'] for r in ranks]}")
+    took = time.perf_counter() - t_13
+    log(f"phase 13: {took:.1f} s ((a) {t_a:.1f} s, the ranks {t_ranks:.1f}"
+        f" s)")
+    if took > PHASE13_S:
+        failures.append(f"phase 13 took {took:.1f} s (gate {PHASE13_S} s)")
+    return failures
 
 
 def main() -> int:
@@ -3208,6 +3665,15 @@ def run() -> int:
     log(f"-- phase 12 at {time.perf_counter() - t_main:.1f} s")
     p12_counts, p12_failures = phase12(dev, requests, max_seq, smi)
     failures += p12_failures
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    log(f"-- phase 13 at {time.perf_counter() - t_main:.1f} s")
+    kernels.reset_launch_counts()
+    failures += phase13(dev, smi)
+    if any(kernels.launch_counts().values()):
+        failures.append(f"phase 13 launched a port kernel: "
+                        f"{kernels.launch_counts()}")
     if failures:
         raise AssertionError("; ".join(failures))
 

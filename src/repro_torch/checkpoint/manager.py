@@ -15,12 +15,17 @@ holds no bfloat16).  The JAX contract:
   * ``keep_n`` keeps the newest complete steps;
   * ``install_sigterm_handler`` flips a flag the train loop polls, to save
     a last checkpoint and leave.
+On a training mesh (``shardings=``: a tree shaped like the saved one
+whose leaves are ``runtime.sharding.Part``s, or None for a leaf every rank
+holds whole) ``save`` gathers each split leaf whole, one rank writes and
+every rank waits at a barrier; ``restore`` loads the whole arrays and keeps
+this rank's blocks under the shardings it is given, which may describe
+another mesh than the saving one (JAX's elastic restart).
 Reading the JAX package's checkpoints is not supported.
 """
 
 from __future__ import annotations
 
-import copy
 import json
 import os
 import shutil
@@ -30,7 +35,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.runtime.sharding import map_buffers
 
 
 def _flatten(tree, out: list) -> None:
@@ -48,13 +56,12 @@ def _flatten(tree, out: list) -> None:
 
 def _unflatten(like, leaves):
     """A tree shaped like ``like`` taking its leaves in order from the
-    iterator ``leaves``; a module is copied and loaded, a tensor takes the
-    dtype and device of ``like``'s."""
+    iterator ``leaves``; a module is copied (its other attributes shared)
+    with its buffers from ``leaves``, a tensor takes the dtype and device
+    of ``like``'s, not its shape."""
     if isinstance(like, nn.Module):
         state = _unflatten(dict(like.state_dict()), leaves)
-        module = copy.deepcopy(like)
-        module.load_state_dict(state)
-        return module
+        return map_buffers(like, lambda name, _: state[name])
     if isinstance(like, dict):
         vals = {k: _unflatten(like[k], leaves) for k in sorted(like)}
         return {k: vals[k] for k in like}
@@ -89,11 +96,24 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
-        """Snapshot now, write in the background (unless blocking)."""
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             shardings: Any = None) -> None:
+        """Snapshot now, write in the background (unless blocking).  With
+        ``shardings`` (see the module docstring) every rank must call it:
+        the split leaves are gathered, rank 0 writes before returning and
+        the others wait for it."""
         self.wait()
         leaves = []
         _flatten(tree, leaves)
+        if shardings is not None:
+            parts = []
+            _flatten(shardings, parts)
+            leaves = [x if pt is None else pt.mesh.full_part(x, pt.spec)
+                      for x, pt in zip(leaves, parts, strict=True)]
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return
+            blocking = True
         dtypes = [str(x.dtype).replace("torch.", "") for x in leaves]
         # after this the caller may change its tensors freely
         storable = [_to_host(x) for x in leaves]
@@ -115,6 +135,8 @@ class CheckpointManager:
 
         if blocking:
             _write()
+            if shardings is not None:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
@@ -152,9 +174,12 @@ class CheckpointManager:
         with open(path) as f:
             return int(f.read().strip())
 
-    def restore(self, step: Optional[int], like: Any) -> Any:
+    def restore(self, step: Optional[int], like: Any,
+                shardings: Any = None) -> Any:
         """The checkpoint of ``step`` (the latest when None) in the
-        structure of ``like``, each tensor on ``like``'s device."""
+        structure of ``like``, each tensor on ``like``'s device; with
+        ``shardings`` each split leaf cut to this rank's block (``like``'s
+        tensors give structure, dtype and device, not shape)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -172,6 +197,11 @@ class CheckpointManager:
                 arrays.append(a.float().numpy())
             else:
                 arrays.append(a)
+        if shardings is not None:
+            parts = []
+            _flatten(shardings, parts)
+            arrays = [a if pt is None else pt.local(torch.from_numpy(a))
+                      .numpy() for a, pt in zip(arrays, parts, strict=True)]
         return _unflatten(like, iter(arrays))
 
 

@@ -84,17 +84,27 @@ def pack(p: Linear, g: int = ternary.DEFAULT_G,
                         g=g)
 
 
-def apply_qat(p: Linear, x: torch.Tensor, *,
-              int8_fwd: bool = False) -> torch.Tensor:
+def apply_qat(p: Linear, x: torch.Tensor, *, int8_fwd: bool = False,
+              parts=None) -> torch.Tensor:
     """Training forward: fake-quant W (absmean ternary) and x (absmax int8),
     each with a straight-through estimator, then a dense product.  With
     ``int8_fwd`` the forward contraction runs on integer values
-    (:class:`Int8STEMatmul`) and the backward stays the float STE one."""
+    (:class:`Int8STEMatmul`) and the backward stays the float STE one.
+    ``parts`` (``runtime.sharding.LinearParts``, on a training mesh): how
+    ``p.w`` and ``x`` are this rank's blocks, so that gamma and each
+    token's absmax are the whole tensors' (a row-parallel linear's output
+    is then a partial sum, which the caller reduces)."""
     if int8_fwd:
+        if parts is not None:
+            raise NotImplementedError("qat_int8_fwd on a training mesh")
         y = Int8STEMatmul.apply(x, p.w)
-    else:
+    elif parts is None:
         w = ternary.ternarize_ste(p.w)
         x = ternary.absmax_quant_ste(x)
+        y = x @ w.to(x.dtype)
+    else:
+        w = ternary.ternarize_ste(p.w, part=parts.w)
+        x = ternary.absmax_quant_ste(x, part=parts.x)
         y = x @ w.to(x.dtype)
     if p.b is not None:
         y = y + p.b.to(y.dtype)

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed
 
 DEFAULT_G = 5   # 3^5 = 243 codes fit a uint8 (the paper's FPGA uses 3)
 PAPER_G = 3     # the paper's FPGA group: 27 codes, 5-bit indices
@@ -52,18 +53,28 @@ def ternarize(w: torch.Tensor, eps: float = 1e-5
 
 
 def ternarize_ste(w: torch.Tensor, eps: float = 1e-5,
-                  dims: Tuple[int, ...] | None = None) -> torch.Tensor:
+                  dims: Tuple[int, ...] | None = None, *,
+                  part=None) -> torch.Tensor:
     """Fake-quant ternarization with a straight-through estimator (the
     training path): forward ``w + (gamma * W_t - w)``, which in f32 is not
     always bit-equal to ``gamma * W_t``; backward the identity to ``w``.
     ``dims`` are the axes of one absmean gamma: all of them by default,
     ``(1, 2)`` for an (E, n_in, n_out) expert bank, a gamma an expert as
     JAX's ``jax.vmap(ternarize_ste)``.  Built in place on one temporary (a
-    full-width expert bank is 3.2 GB)."""
+    full-width expert bank is 3.2 GB).  ``part`` (a
+    ``runtime.sharding.Part``): ``w`` is this rank's block of a split
+    weight, whose gamma is the whole weight's mean: the block's sum of |w|,
+    summed over the axes that split it, over the whole count."""
     with torch.no_grad():
         a = w.float().abs()
-        gamma = torch.clamp_min(
-            a.mean() if dims is None else a.mean(dim=dims, keepdim=True), eps)
+        if part is not None and part.splits(range(w.dim())):
+            total = part.reduce(a.sum(), torch.distributed.ReduceOp.SUM,
+                                range(w.dim()))
+            gamma = torch.clamp_min(total / part.numel(w.shape), eps)
+        else:
+            gamma = torch.clamp_min(
+                a.mean() if dims is None else a.mean(dim=dims, keepdim=True),
+                eps)
         del a
         d = w.float() / gamma
         d = d.round_().clamp_(-1.0, 1.0).mul_(gamma).to(w.dtype).sub_(w)
@@ -75,7 +86,7 @@ def ternarize_ste(w: torch.Tensor, eps: float = 1e-5,
 # ---------------------------------------------------------------------------
 
 def absmax_quant_values(x: torch.Tensor, dim: int = -1, eps: float = 1e-5,
-                        *, reciprocal: bool = False
+                        *, reciprocal: bool = False, part=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """absmax_quant with the quantized values kept in f32 (already rounded
     and clipped) — the exact-GEMM operand of the pre-decoded path.
@@ -85,32 +96,39 @@ def absmax_quant_values(x: torch.Tensor, dim: int = -1, eps: float = 1e-5,
     rewrite of a division by a constant) and in PyTorch on the card
     (ATen's division by a Python scalar), a true quotient in eager JAX and
     in PyTorch on the CPU.  ``reciprocal`` takes the product everywhere:
-    the arithmetic of the JAX kernels, which always run jitted."""
+    the arithmetic of the JAX kernels, which always run jitted.  ``part``
+    (a ``runtime.sharding.Part``): ``x``'s ``dim`` is split over ranks, and
+    its max is taken over all of them (exact)."""
     xf = x.float()
-    amax = torch.clamp_min(xf.abs().amax(dim=dim, keepdim=True), eps)
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    if part is not None:
+        amax = part.reduce(amax, torch.distributed.ReduceOp.MAX, (dim,))
+    amax = torch.clamp_min(amax, eps)
     scale = amax * INV_127 if reciprocal else amax / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q, scale
 
 
 def absmax_quant(x: torch.Tensor, dim: int = -1, eps: float = 1e-5, *,
-                 reciprocal: bool = False
+                 reciprocal: bool = False, part=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: (int8 values, f32 scale with the
     quantized dim kept at size 1) such that x ~= values * scale; the scale
-    as in :func:`absmax_quant_values`."""
-    q, scale = absmax_quant_values(x, dim, eps, reciprocal=reciprocal)
+    and ``part`` as in :func:`absmax_quant_values`."""
+    q, scale = absmax_quant_values(x, dim, eps, reciprocal=reciprocal,
+                                   part=part)
     return q.to(torch.int8), scale
 
 
-def absmax_quant_ste(x: torch.Tensor, dim: int = -1, eps: float = 1e-5
-                     ) -> torch.Tensor:
+def absmax_quant_ste(x: torch.Tensor, dim: int = -1, eps: float = 1e-5, *,
+                     part=None) -> torch.Tensor:
     """Fake-quant absmax int8 with a straight-through estimator (the
     training path): forward ``x + (q * scale - x)``, backward the identity.
     The scale is ``amax * f32(1/127)``: the reference's training step runs
     jitted, where XLA turns its ``/ 127.0`` into that product, and so does
-    ATen's division on the card."""
-    q, scale = absmax_quant(x, dim, eps, reciprocal=True)
+    ATen's division on the card.  ``part`` as in
+    :func:`absmax_quant_values`."""
+    q, scale = absmax_quant(x, dim, eps, reciprocal=True, part=part)
     xq = (q.float() * scale).to(x.dtype)
     return x + (xq - x).detach()
 

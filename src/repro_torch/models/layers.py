@@ -67,7 +67,12 @@ class Ctx:
     packed and pre-decoded linears ignore ``mode``.  ``remat_policy`` is
     what a training forward keeps of each block for the backward:
     ``"nothing"`` (every block recomputed) or ``"dots"`` (its linear
-    products kept, the rest recomputed).  Training runs attention on
+    products kept, the rest recomputed).  ``constrain`` is a training
+    mesh's hook (``runtime.sharding.make_constrain``: its groups, how the
+    batch and each weight are split); the model calls ``c(x, kind)`` where
+    JAX calls ``ctx.c`` and at the edges of each tensor-parallel region,
+    and the linears, the embedding and the loss consult it.  Training runs
+    attention on
     ``attn="skip"`` (JAX's default ``attn_impl="xla"``), whose backward is
     the flash recomputation; the attention kernel has no backward.
     """
@@ -83,6 +88,11 @@ class Ctx:
     mode: str = "qat"
     qat_int8_fwd: bool = False
     remat_policy: str = "nothing"
+    constrain: object = None
+
+    def c(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """``constrain(x, kind)``, or x without a training mesh."""
+        return self.constrain(x, kind) if self.constrain is not None else x
 
     def __post_init__(self):
         if self.matmul not in bitlinear.MATMULS:
@@ -146,12 +156,19 @@ def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx, *,
     if isinstance(p, PackedLinear):       # packed inference params
         return bitlinear.apply_packed(p, x, matmul=ctx.matmul,
                                       out_dtype=x.dtype)
-    if isinstance(p, Linear) and ctx.mode == "qat" and ternary_w:
-        return bitlinear.apply_qat(p, x, int8_fwd=ctx.qat_int8_fwd)
-    if isinstance(p, Linear):             # dense: unquantized master
+    if not isinstance(p, Linear):
+        raise TypeError(f"not a linear: {type(p).__name__}")
+    # on a training mesh: how w and x are split (runtime/sharding.py)
+    parts = (ctx.constrain.linear_parts(p, x) if ctx.constrain is not None
+             else None)
+    if ctx.mode == "qat" and ternary_w:
+        y = bitlinear.apply_qat(p, x, int8_fwd=ctx.qat_int8_fwd, parts=parts)
+    else:                                 # dense: unquantized master
         y = x @ p.w.to(x.dtype)
-        return y + p.b.to(y.dtype) if p.b is not None else y
-    raise TypeError(f"not a linear: {type(p).__name__}")
+        y = y + p.b.to(y.dtype) if p.b is not None else y
+    if parts is not None and parts.row:   # partial sums over "model"
+        y = ctx.constrain.row_out(y)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +242,12 @@ class Embedding(nn.Module):
         self.register_buffer("tok", tok)
 
 
-def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+def embed_apply(p: Embedding, tokens: torch.Tensor,
+                ctx: Ctx | None = None) -> torch.Tensor:
+    """Token ids -> rows of the table (on a training mesh with the
+    vocabulary split, each rank's rows summed over "model")."""
+    if ctx is not None and ctx.constrain is not None:
+        return ctx.constrain.embed(p, tokens)
     return p.tok[tokens]
 
 
@@ -382,7 +404,7 @@ def _moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     src.scatter_(0, dest, torch.arange(nk, device=x.device))
     rows = torch.cat([x[:, None].expand(n, top_k, d).reshape(n * top_k, d),
                       x.new_zeros((1, d))])
-    buf = rows[src[:-1]].reshape(n_experts, cap, d)
+    buf = ctx.c(rows[src[:-1]].reshape(n_experts, cap, d), "expert_buf")
     if p.packed:
         g = p.g
         h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)

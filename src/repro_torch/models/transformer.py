@@ -314,16 +314,35 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 phase: str, cache_len=None, chunk_mask=None,
                 page_table=None) -> torch.Tensor:
     b, t, _ = x.shape
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    # tensor-parallel (runtime/sharding.py): this rank's heads; K and V
+    # split inside a head are gathered and cut to the rank's query heads
+    tp = ctx.constrain is not None and ctx.constrain.tp
+    kv_whole = False
+    if tp:
+        m, rank = ctx.constrain.model_size, ctx.constrain.model_rank
+        n_heads //= m
+        kv_whole = n_kv % m != 0
+        n_kv = n_heads if kv_whole else n_kv // m
     if "qkv" in p:   # fused projection (pre-decoded serving hot path)
         q, k, v = layers.linear_apply(p["qkv"], x, ctx).split(
             [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     else:
         q = layers.linear_apply(p["q"], x, ctx)
-        k = layers.linear_apply(p["k"], x, ctx)
-        v = layers.linear_apply(p["v"], x, ctx)
-    q = q.reshape(b, t, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, t, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, t, cfg.n_kv_heads, cfg.hd)
+        kl, vl = p["k"], p["v"]
+        if kv_whole:
+            kl = ctx.constrain.whole(kl, partial=True)
+            vl = ctx.constrain.whole(vl, partial=True)
+        k = layers.linear_apply(kl, x, ctx)
+        v = layers.linear_apply(vl, x, ctx)
+    if kv_whole:   # every KV head, repeated to the rank's query heads
+        group = cfg.n_heads // cfg.n_kv_heads
+        lo = rank * n_heads
+        k, v = (z.reshape(b, t, cfg.n_kv_heads, cfg.hd).repeat_interleave(
+            group, 2)[:, :, lo:lo + n_heads] for z in (k, v))
+    q = q.reshape(b, t, n_heads, cfg.hd)
+    k = k.reshape(b, t, n_kv, cfg.hd)
+    v = v.reshape(b, t, n_kv, cfg.hd)
     angles = layers.rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = layers.apply_rope(q, angles, cfg.rope_style)
     k = layers.apply_rope(k, angles, cfg.rope_style)
@@ -431,7 +450,7 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                     else da_ops.decode_attention)
             o = read(qt, k_read.transpose(1, 2), v_read.transpose(1, 2),
                      cache_len + 1, **read_kw)
-    o = o.transpose(1, 2).reshape(b, t, cfg.q_dim)
+    o = o.transpose(1, 2).reshape(b, t, n_heads * cfg.hd)
     return layers.linear_apply(p["o"], o, ctx)
 
 
@@ -470,7 +489,7 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
                  chunk_mask=None, page_table=None):
     if cfg.block_kind == "xlstm_pair":
         return _xlstm_pair_apply(cfg, ctx, x, p, cache, phase)
-    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = ctx.c(layers.rmsnorm(p["ln1"], x, cfg.norm_eps), "tp_in")
     attn_out = _attn_apply(cfg, ctx, p["attn"], h, cache, positions, phase,
                            cache_len, chunk_mask, page_table)
     if cfg.block_kind == "hymba":
@@ -488,7 +507,7 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
             _write_state(cache["ssm"], state)
         attn_out = 0.5 * (attn_out + ssm_out.to(attn_out.dtype))
     x = x + attn_out
-    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = ctx.c(layers.rmsnorm(p["ln2"], x, cfg.norm_eps), "tp_in")
     if "moe" in p:
         b, t, d = h.shape
         out = layers.moe_apply(p["moe"], h.reshape(b * t, d),
@@ -538,6 +557,7 @@ def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
     context_fn = _remat_context(ctx) if remat else None
     for i, p in enumerate(params["layers"]):
         layer_cache = _layer_cache(cache, i)
+        x = ctx.c(x, "residual")   # the SP layout between blocks
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 _block_apply, cfg, ctx, x, p, layer_cache, positions, phase,
@@ -549,24 +569,54 @@ def _run_layers(cfg, ctx, params, x, cache, positions, phase, cache_len=None,
     return x
 
 
+def apply_blocks(cfg: ModelConfig, blocks, x: torch.Tensor, ctx: Ctx
+                 ) -> torch.Tensor:
+    """Hidden states (b, s, d_model) through ``blocks`` (some of
+    ``params["layers"]``) in order, no cache, no remat: a pipeline
+    stage's forward (``runtime.pipeline``)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in blocks:
+        x = _block_apply(cfg, ctx, x, p, None, positions, "full")
+    return x
+
+
 def _embed_in(cfg, params, inputs, ctx):
     """Token ids (b, s) through the embedding, or, ``frontend="embed"``,
     precomputed embeddings (b, s, d_model) as they are; in the activation
     dtype."""
     if cfg.frontend == "token":
-        x = layers.embed_apply(params["embed"], inputs)
+        x = layers.embed_apply(params["embed"], inputs, ctx)
     else:
         x = inputs
-    return x.to(ctx.act_dtype)
+    return ctx.c(x.to(ctx.act_dtype), "embed")
 
 
 def _lm_head(cfg, params, x, ctx):
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    """Final norm and unembedding; on a training mesh the logits are split
+    on the vocabulary where "model" divides it (``Ctx.constrain``)."""
+    x = ctx.c(layers.rmsnorm(params["final_norm"], x, cfg.norm_eps),
+              "head_in")
     if cfg.tie_embeddings and "embed" in params:
-        return torch.einsum("btd,vd->btv", x,
-                            params["embed"].tok.to(x.dtype))
-    return layers.linear_apply(params["lm_head"], x, ctx,
-                               ternary_w=cfg.ternary_head)
+        logits = torch.einsum("btd,vd->btv", x,
+                              params["embed"].tok.to(x.dtype))
+    else:
+        head = params["lm_head"]
+        if ctx.constrain is not None and ctx.constrain.tp and not (
+                ctx.constrain.vocab_split):   # JAX splits its d_model
+            head = ctx.constrain.whole(head, partial=False)
+        logits = layers.linear_apply(head, x, ctx,
+                                     ternary_w=cfg.ternary_head)
+    return ctx.c(logits, "logits")
+
+
+def xent_sum(logits: torch.Tensor, labels: torch.Tensor, ctx: Ctx
+             ) -> torch.Tensor:
+    """Sum over positions of logsumexp - gold logit (f32), over logits
+    split on the vocabulary on a training mesh."""
+    if ctx.constrain is not None and ctx.constrain.vocab_split:
+        return ctx.constrain.xent_sum(logits, labels)
+    lf = logits.float()
+    return (torch.logsumexp(lf, dim=-1) - gold_logits(lf, labels)).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +641,7 @@ def forward(cfg: ModelConfig, params: nn.ModuleDict, inputs: torch.Tensor,
             ctx: Ctx, remat: bool = True) -> torch.Tensor:
     """Training/eval forward: logits of every position (b, s, vocab)."""
     x = forward_features(cfg, params, inputs, ctx, remat)
-    return _lm_head(cfg, params, x, ctx)
+    return _lm_head(cfg, params, ctx.c(x, "features"), ctx)
 
 
 def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -604,9 +654,7 @@ def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_loss(cfg, params, ctx, x, labels):
-    logits = _lm_head(cfg, params, x, ctx).float()
-    return (torch.logsumexp(logits, dim=-1) - gold_logits(logits, labels)
-            ).sum()
+    return xent_sum(_lm_head(cfg, params, x, ctx), labels, ctx)
 
 
 def lm_head_loss_chunked(cfg: ModelConfig, params: nn.ModuleDict,
@@ -618,6 +666,7 @@ def lm_head_loss_chunked(cfg: ModelConfig, params: nn.ModuleDict,
     recomputed in the backward and the (b, s, vocab) logits never exist.
     The chunks' sums add in order from 0, then divide by b * s, as JAX's
     scan does."""
+    x = ctx.c(x, "features")   # JAX's residual constraint before chunking
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:

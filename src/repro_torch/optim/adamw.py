@@ -17,6 +17,11 @@ so a step holds the masters, the gradients, ``m``, ``v`` and one set of
 updates.  ``m.mul_(b1).add_((1 - b1) * g)`` rounds the same two products
 and sums them once, as ``b1 * m + (1 - b1) * g`` does.  A caller that needs
 its gradients or the previous state after a step copies them first.
+
+On a training mesh (``training.make_train_step_sharded``) the update runs
+on each rank's blocks: the clip's global norm takes every distinct
+element once (``sq_sum``), and under ZeRO-1 (``zero1``) only the moments
+are split.
 """
 
 from __future__ import annotations
@@ -75,29 +80,48 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                                         1.0)
         return torch.tensor(lr, dtype=torch.float32, device=step.device)
 
-    def init(params) -> AdamWState:
+    def init(params, zero1=None) -> AdamWState:
+        """Zero moments shaped as the parameters, or with ``zero1`` (a
+        ``runtime.sharding.Zero1``) as this rank's blocks of them."""
         p = trainable(params)
         dev = next(iter(p.values())).device
+
+        def zeros(n, t):
+            shape = zero1.local(n, t).shape if zero1 is not None else t.shape
+            return torch.zeros(shape, dtype=torch.float32, device=t.device)
+
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
-            m={n: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-               for n, t in p.items()},
-            v={n: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-               for n, t in p.items()})
+            m={n: zeros(n, t) for n, t in p.items()},
+            v={n: zeros(n, t) for n, t in p.items()})
 
     @torch.no_grad()
-    def update(grads: dict, state: AdamWState, params):
+    def update(grads: dict, state: AdamWState, params, *, sq_sum=None,
+               zero1=None):
+        """``sq_sum`` (on a mesh whose ranks hold blocks of the gradients):
+        the sum of squares over every distinct element, in place of the
+        local sum.  ``zero1``: the gradients and parameters are whole, the
+        moments this rank's blocks; each leaf's update is computed on the
+        block and all-gathered (the gathered ``p + u`` is the whole
+        update's bit for bit)."""
         params = trainable(params)
         step = state.step + 1
         grads = {n: g if g.dtype == torch.float32 else g.float()
                  for n, g in grads.items()}
         if grad_clip is not None:
-            gnorm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+            total = (sq_sum(grads) if sq_sum is not None else
+                     sum(g.square().sum() for g in grads.values()))
+            gnorm = torch.sqrt(total)
             scale = torch.clamp_max(grad_clip / torch.clamp_min(gnorm, 1e-9),
                                     1.0)
             for g in grads.values():
                 g.mul_(scale)
+
+        def block(n, t):
+            return zero1.local(n, t) if zero1 is not None else t
+
         for n, g in grads.items():
+            g = block(n, g)
             state.m[n].mul_(b1).add_((1 - b1) * g)
             state.v[n].mul_(b2).add_((1 - b2) * g * g)
         bc1 = 1 - b1 ** step.float()
@@ -107,8 +131,9 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         for n, p in params.items():
             u = (state.m[n] / bc1).div_(_sqrt_(state.v[n] / bc2).add_(eps))
             if weight_decay and jax_rank(n, p) >= 2:  # matrices, not norms
-                u.add_(weight_decay * p.float())
-            updates[n] = u.mul_(neg_lr).to(p.dtype)
+                u.add_(weight_decay * block(n, p).float())
+            u = u.mul_(neg_lr).to(p.dtype)
+            updates[n] = zero1.gather(n, u) if zero1 is not None else u
         return updates, AdamWState(step=step, m=state.m, v=state.v)
 
     return Optimizer(init=init, update=update)

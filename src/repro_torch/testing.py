@@ -8,9 +8,11 @@ by a whole quantization step; an MoE router near a tie picks another expert.
 ``pinned_quantizers`` and ``pinned_routing`` record one device's quantized
 values and experts in call order and replay them on the other.  Under
 remat a block's forward runs twice, and both devices record or replay the
-same calls in the same order.  ``slstm_kinks_excluded`` takes out of the
-backward the few sLSTM pre-activations that sit on a jump of the cell's
-gradient, found from the recorded quantized values alone.
+same calls in the same order.  ``slstm_kinks_pinned`` gives the few sLSTM
+pre-activations that sit on a jump of the cell's gradient (found from the
+recorded quantized values alone) the recording device's values, so both
+devices take the same side; ``slstm_kinks_excluded`` takes them out of the
+backward instead.
 ``leaf_grad_errors`` is the measure the gates read.
 """
 
@@ -45,14 +47,19 @@ def pinned_quantizers(tape: list, replay: bool):
     ``ternarize_ste``), in call order, into ``tape`` on the CPU; with
     ``replay``, give the recorded values back in that order instead,
     straight through.  Two devices that replay one tape run the same int8
-    and ternary codes."""
+    and ternary codes.  A rank of a training mesh replaying a tape recorded
+    on one device takes its block of each value (the quantizer's
+    ``part``)."""
     saved = (ternary.absmax_quant_ste, ternary.ternarize_ste)
     take, check_used = _replayed(tape)
 
     def pin(fn):
         def pinned(x, *args, **kw):
             if replay:
-                return x + (take().to(x.device, x.dtype) - x).detach()
+                v = take()
+                if kw.get("part") is not None:   # a rank's block of it
+                    v = kw["part"].local(v)
+                return x + (v.to(x.device, x.dtype) - x).detach()
             out = fn(x, *args, **kw)
             tape.append(out.detach().cpu())
             return out
@@ -126,6 +133,59 @@ def slstm_first_position_kinks(w_q: torch.Tensor, x_q: torch.Tensor
     return mask
 
 
+def _kinks_of_tape(tape: list, wx_t: torch.Tensor) -> torch.Tensor:
+    """The first-position kink mask of the sLSTM whose input projection
+    ``wx_t`` is: from its quantized operands, the last two values that the
+    pin recorded into ``tape``."""
+    w_q, x_q = tape[-2], tape[-1]
+    if (w_q.dim(), x_q.dim()) != (2, 3) or w_q.shape[1] != wx_t.shape[-1]:
+        raise AssertionError(
+            "the pin's last values are not wx's quantized operands: "
+            f"{tuple(w_q.shape)}, {tuple(x_q.shape)}")
+    return slstm_first_position_kinks(w_q, x_q)
+
+
+@contextlib.contextmanager
+def slstm_kinks_pinned(tape: list, masks: list, values: list,
+                       record: bool):
+    """Give every sLSTM's first-position kinks
+    (``slstm_first_position_kinks``) the recording device's f32
+    pre-activation values: nothing is cut from the backward, and both
+    devices take the same side of each jump.  Enter it inside
+    ``pinned_quantizers``.  With ``record`` each sLSTM's mask is worked out
+    from the input projection's quantized values (the pin's last two in
+    ``tape``) and appended to ``masks``, and this device's pre-activations
+    there to ``values``; the forward is unchanged.  Otherwise the masks and
+    values are replayed in call order: at the mask the pre-activation takes
+    the recorded value, straight through (its gradient is the identity, as
+    everywhere else)."""
+    cell = xlstm._slstm_cell
+    take_mask, masks_used = _replayed(masks)
+    take_value, values_used = _replayed(values)
+
+    def pinned(p, wx_t, st):
+        if not bool(st["n"].any()):    # the first position: n = 0
+            if record:
+                mask = _kinks_of_tape(tape, wx_t)
+                masks.append(mask)
+                values.append(wx_t.detach()[mask.to(wx_t.device)].cpu())
+            else:
+                mask = take_mask().to(wx_t.device)
+                at = wx_t.detach().clone()
+                at[mask] = take_value().to(at.device, at.dtype)
+                wx_t = wx_t + (at - wx_t).detach()
+        return cell(p, wx_t, st)
+
+    xlstm._slstm_cell = pinned
+    try:
+        yield masks
+    finally:
+        xlstm._slstm_cell = cell
+    if not record:
+        masks_used()
+        values_used()
+
+
 @contextlib.contextmanager
 def slstm_kinks_excluded(tape: list, masks: list, record: bool,
                          found: list | None = None):
@@ -143,13 +203,7 @@ def slstm_kinks_excluded(tape: list, masks: list, record: bool,
     def excluded(p, wx_t, st):
         if not bool(st["n"].any()):    # the first position: n = 0
             if record:
-                w_q, x_q = tape[-2], tape[-1]
-                if (w_q.dim(), x_q.dim()) != (2, 3) or (
-                        w_q.shape[1] != wx_t.shape[-1]):
-                    raise AssertionError(
-                        "the pin's last values are not wx's quantized "
-                        f"operands: {tuple(w_q.shape)}, {tuple(x_q.shape)}")
-                mask = slstm_first_position_kinks(w_q, x_q)
+                mask = _kinks_of_tape(tape, wx_t)
                 masks.append(mask)
             else:
                 mask = take()

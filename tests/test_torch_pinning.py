@@ -14,7 +14,7 @@ from repro_torch.models import layers, xlstm
 from repro_torch.models.layers import Ctx, MoE, Params
 from repro_torch.testing import (leaf_grad_errors, pinned_quantizers,
                                  pinned_routing, slstm_first_position_kinks,
-                                 slstm_kinks_excluded)
+                                 slstm_kinks_excluded, slstm_kinks_pinned)
 
 QAT = Ctx(mode="qat")
 
@@ -137,3 +137,51 @@ def test_slstm_kinks_are_found_and_cut_from_the_backward():
     _, gw_r, gx_r = run(tape, masks, False, True)
     assert torch.equal(gw_r, gw_x) and torch.equal(gx_r, gx_x)
     assert leaf_grad_errors({"w": gw_r}, {"w": gw_x}) == {"w": 0.0}
+
+
+def test_slstm_kinks_pinned_give_the_recorded_pre_activations():
+    """With the kinks pinned, the recording run is the plain run bit for
+    bit (forward and backward); a replay takes the recorded values at the
+    mask, nothing cut from the backward: a replay of the recorded values
+    equals the recorded run, and values 1e-6 either side of the jump move
+    the gradient of ``wx`` in the mask's columns by far more than
+    elsewhere."""
+    d, heads, hd, b, s = 8, 2, 4, 3, 5
+    d_inner = heads * hd
+    p = xlstm.slstm_init(torch.Generator().manual_seed(0), d, heads, hd)
+    w_int = torch.from_numpy(np.random.default_rng(1).integers(
+        -1, 2, (d, 4 * d_inner)).astype(np.float32))
+    w_int[:, d_inner] = torch.tensor([1., -1., 0, 0, 0, 0, 0, 0])
+    p["wx"].w = w_int * 0.5
+    x = _randn(b, s, d, seed=2)
+    x[:, 0, 1] = x[:, 0, 0]   # the first input-gate column sums to 0
+    kw = dict(n_heads=heads, head_dim=hd)
+
+    def run(tape, pin, record):
+        w = p["wx"].w.clone().requires_grad_(True)
+        q = Params(wx=Linear(w), r=p["r"], out=p["out"])
+        xx = x.clone().requires_grad_(True)
+        with pinned_quantizers(tape, replay=not record), (
+                slstm_kinks_pinned(tape, *pin, record) if pin is not None
+                else contextlib.nullcontext()):
+            out = xlstm.slstm_forward(q, xx, QAT, **kw)
+        gw, gx = torch.autograd.grad(out.square().sum(), (w, xx))
+        return out.detach(), gw, gx
+
+    tape, masks, values = [], [], []
+    out_r, gw_r, gx_r = run(tape, (masks, values), True)
+    out_f, gw_f, gx_f = run([], None, True)
+    assert torch.equal(out_r, out_f) and torch.equal(gw_r, gw_f)
+    assert torch.equal(gx_r, gx_f)
+    assert len(masks) == 1 and masks[0][:, d_inner].all()
+    assert values[0].shape == (int(masks[0].sum()),)
+    out_p, gw_p, gx_p = run(tape, (masks, values), False)
+    assert torch.equal(out_p, out_r) and torch.equal(gw_p, gw_r)
+    assert torch.equal(gx_p, gx_r)
+    sides = [run(tape, (masks, [torch.full_like(values[0], v)]), False)[1]
+             for v in (-1e-6, 1e-6)]
+    col = masks[0].any(0)
+    jump = (sides[0] - sides[1])[:, col].abs().max()
+    assert jump > 100 * (sides[0] - sides[1])[:, ~col].abs().max()
+    with pytest.raises(AssertionError, match="left recorded values unused"):
+        run(tape, (masks + masks, values + values), False)

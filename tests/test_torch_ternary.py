@@ -211,6 +211,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         import repro_torch, repro_torch.convert, repro_torch.serving
         import repro_torch.kernels.build
         import repro_torch.core.fused_block
+        import repro_torch.runtime.sharding, repro_torch.runtime.collectives
+        import repro_torch.runtime.pipeline, repro_torch.training
+        import repro_torch.checkpoint, repro_torch.testing
         for mod in ("tlmm", "tlmm_lut", "rmsnorm_quant", "swiglu_quant",
                     "flash_prefill", "decode_attention"):
             for part in ("kernel", "ops", "ref"):
