@@ -65,17 +65,30 @@ def ternarize_ste(w: torch.Tensor, eps: float = 1e-5,
     ``runtime.sharding.Part``): ``w`` is this rank's block of a split
     weight, whose gamma is the whole weight's mean: the block's sum of |w|,
     summed over the axes that split it, over the whole count."""
+    return ternary_ste_at(w, ste_gamma(w, eps, dims, part=part))
+
+
+def ste_gamma(w: torch.Tensor, eps: float = 1e-5,
+              dims: Tuple[int, ...] | None = None, *,
+              part=None) -> torch.Tensor:
+    """``ternarize_ste``'s absmean gamma: a scalar, or one a slice of
+    ``dims`` (kept as size-1 dims)."""
     with torch.no_grad():
         a = w.float().abs()
         if part is not None and part.splits(range(w.dim())):
             total = part.reduce(a.sum(), torch.distributed.ReduceOp.SUM,
                                 range(w.dim()))
-            gamma = torch.clamp_min(total / part.numel(w.shape), eps)
-        else:
-            gamma = torch.clamp_min(
-                a.mean() if dims is None else a.mean(dim=dims, keepdim=True),
-                eps)
-        del a
+            return torch.clamp_min(total / part.numel(w.shape), eps)
+        return torch.clamp_min(
+            a.mean() if dims is None else a.mean(dim=dims, keepdim=True),
+            eps)
+
+
+def ternary_ste_at(w: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """``ternarize_ste``'s value at a given gamma, straight through: two
+    weights that agree element for element, and their gammas, give the
+    same values."""
+    with torch.no_grad():
         d = w.float() / gamma
         d = d.round_().clamp_(-1.0, 1.0).mul_(gamma).to(w.dtype).sub_(w)
     return w + d

@@ -9,6 +9,7 @@ functions on tensors, as in the JAX package.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -18,6 +19,7 @@ from torch import nn
 from repro_torch.core import bitlinear, ternary
 from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
 from repro_torch.kernels.tlmm import ops as tlmm_ops
+from repro_torch.runtime.sharding import Rows
 
 # whole-prompt attention of Ctx.attn: the kernel and the two Fig. 6b baselines
 ATTNS = ("kernel", "skip", "naive")
@@ -276,7 +278,10 @@ class MoE(nn.Module):
 
     @property
     def n_experts(self) -> int:
-        return (self.gate_codes if self.packed else self.gate_w).shape[0]
+        """E, from the dense router's (d_model, E) weight: a training
+        mesh's rank may hold a block of the banks (``moe_apply`` routes
+        with the router gathered whole)."""
+        return self.router.w.shape[-1]
 
 
 def moe_bank(generator: torch.Generator, n_experts: int, n_in: int,
@@ -329,17 +334,19 @@ def moe_pack(p: MoE, g: int) -> MoE:
     return MoE(p.router, banks, g=g)
 
 
-def _expert_matmul(w: torch.Tensor, x: torch.Tensor, ctx: Ctx
-                   ) -> torch.Tensor:
+def _expert_matmul(w: torch.Tensor, x: torch.Tensor, ctx: Ctx, *,
+                   w_part=None, x_part=None) -> torch.Tensor:
     """Float master bank w (E, n_in, n_out), x (E, C, n_in) -> (E, C,
     n_out) in x's dtype.  Under ``ctx.mode == "qat"`` each expert is
     fake-quantized with its own gamma (``ternary.ternarize_ste`` over dims
     (1, 2)) and x a row at a time (``absmax_quant_ste``: an empty capacity
     slot is an all-zero row, scaled at the eps floor, and stays zero), then
-    one batched product: JAX's ``_expert_matmul``."""
+    one batched product: JAX's ``_expert_matmul``.  On a training mesh the
+    parts (``sharding.Rows``) say which rows of the whole bank and buffer
+    these are, for a pinned replay."""
     if ctx.mode == "qat":
-        w = ternary.ternarize_ste(w, dims=(1, 2))
-        x = ternary.absmax_quant_ste(x)
+        w = ternary.ternarize_ste(w, dims=(1, 2), part=w_part)
+        x = ternary.absmax_quant_ste(x, part=x_part)
     return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
 
 
@@ -356,7 +363,7 @@ def _expert_matmul_packed(codes: torch.Tensor, gamma: torch.Tensor,
 
 
 def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float) -> dict:
+              capacity_factor: float, ctx: Ctx | None = None) -> dict:
     """Top-k routing of (n, d) tokens: the router's f32 logits (a dense
     product in every mode, JAX's ``ternary_w=False``; under training the
     gradient reaches it through the softmaxed top-k gates), the top
@@ -365,7 +372,9 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
     cumulative count in token-major order) and whether it fits the
     capacity ``max(int(n * top_k / E * capacity_factor), top_k)``.
     Returns {"logits"} (n, E), {"gates", "idx"} (n, k), {"pos", "keep",
-    "flat_idx"} (n*k,), and "capacity"."""
+    "flat_idx"} (n*k,), and "capacity".  ``ctx`` (its ``constrain``) is
+    read only by a pinned replay; on a batch split over ranks
+    ``moe_apply`` moves the positions to the global batch's."""
     n = x.shape[0]
     logits = linear_apply(p.router, x, Ctx(), ternary_w=False).float()
     gates, idx = torch.topk(logits, top_k, dim=-1)
@@ -386,26 +395,42 @@ def route_positions(flat_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     return ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
 
 
-def _moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float, ctx: Ctx) -> torch.Tensor:
+def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
+                  top_k: int, ctx: Ctx) -> torch.Tensor:
+    """One piece of tokens through its experts, routed (``r``): a pair is
+    kept where its position in the global token order (its position among
+    the piece's pairs, plus ``offset`` (E,): the pairs of its expert and
+    chunk on the batch ranks before this one) is below ``cap``, and fills
+    its expert's buffer at its row among the piece's pairs.  On a
+    "model" axis only the rank's experts are computed and the output is
+    the rank's partial sum."""
     n, d = x.shape
-    r = moe_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
-    cap, flat_idx, keep = r["capacity"], r["flat_idx"], r["keep"]
-    n_experts = p.n_experts
-    # dispatch without a scatter-add: every kept (expert, position) pair is
+    c = ctx.constrain
+    n_experts = r["logits"].shape[-1]
+    flat_idx, row = r["flat_idx"], r["pos"]
+    gpos = row if offset is None else row + offset[flat_idx]
+    keep = gpos < cap
+    lo, hi = c.experts(n_experts) if c is not None else (0, n_experts)
+    mine = keep & (flat_idx >= lo) & (flat_idx < hi)
+    e_loc = flat_idx - lo
+    n_loc = hi - lo
+    # dispatch without a scatter-add: every kept (expert, row) pair is
     # unique, so each buffer row names the one (token, slot) pair that
-    # fills it (dropped pairs are sent to a dump row past the buffer);
+    # fills it (other pairs are sent to a dump row past the buffer);
     # empty rows read a zero row.  Its backward adds each buffer row's
     # gradient into its token's (an accumulating index put).
     nk = flat_idx.shape[0]
-    dest = torch.where(keep, flat_idx * cap + r["pos"], n_experts * cap)
-    src = torch.full((n_experts * cap + 1,), nk, dtype=torch.int64,
+    dest = torch.where(mine, e_loc * cap + row, n_loc * cap)
+    src = torch.full((n_loc * cap + 1,), nk, dtype=torch.int64,
                      device=x.device)
     src.scatter_(0, dest, torch.arange(nk, device=x.device))
     rows = torch.cat([x[:, None].expand(n, top_k, d).reshape(n * top_k, d),
                       x.new_zeros((1, d))])
-    buf = ctx.c(rows[src[:-1]].reshape(n_experts, cap, d), "expert_buf")
+    buf = rows[src[:-1]].reshape(n_loc, cap, d)
     if p.packed:
+        if c is not None and c.tp:
+            raise NotImplementedError("packed expert banks on a training "
+                                      "mesh's 'model' axis")
         g = p.g
         h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)
         h_u = _expert_matmul_packed(p.up_codes, p.up_gamma, d, g, buf)
@@ -413,13 +438,26 @@ def _moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
         out_buf = _expert_matmul_packed(p.down_codes, p.down_gamma,
                                         h.shape[-1], g, h).to(x.dtype)
     else:   # float masters: JAX's QAT (or unquantized) branch
-        h_g = _expert_matmul(p.gate_w, buf, ctx).float()
-        h_u = _expert_matmul(p.up_w, buf, ctx).float()
+        banks = {n: getattr(p, f"{n}_w") for n in MoE.BANKS}
+        w_part = x_part = None
+        if c is not None:   # the rank's experts; which rows, for a replay
+            banks = {n: c.expert_bank(t, p.specs[f"{n}_w"])
+                     for n, t in banks.items()}
+            w_part = Rows((slice(lo, hi),))
+            filled = (src[:-1] != nk).reshape(n_loc, cap)
+            experts = torch.arange(lo, hi, device=x.device)
+            grow = torch.arange(cap, device=x.device)[None] + (
+                0 if offset is None else offset[lo:hi, None])
+            x_part = Rows((experts[:, None].expand(n_loc, cap),
+                           torch.where(filled, grow, 0)), filled)
+        kw = dict(w_part=w_part, x_part=x_part)
+        h_g = _expert_matmul(banks["gate"], buf, ctx, **kw).float()
+        h_u = _expert_matmul(banks["up"], buf, ctx, **kw).float()
         h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
-        out_buf = _expert_matmul(p.down_w, h, ctx)
-    safe_pos = torch.where(keep, r["pos"], cap - 1)
-    gathered = out_buf[flat_idx, safe_pos]
-    gathered = torch.where(keep[:, None], gathered, 0)
+        out_buf = _expert_matmul(banks["down"], h, ctx, **kw)
+    gathered = out_buf[torch.where(mine, e_loc, 0),
+                       torch.where(mine, row, cap - 1)]
+    gathered = torch.where(mine[:, None], gathered, 0)
     weighted = (gathered * r["gates"].reshape(-1)[:, None]
                 .to(gathered.dtype)).reshape(n, top_k, d)
     # JAX's scatter-add of a token's k slots, in slot order
@@ -434,11 +472,50 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     """Top-k MoE with capacity and dispatch, dropping on overflow, over
     packed banks or float masters (fake-quantized under ``ctx.mode ==
     "qat"``, the training path).  x: (n, d_model), the caller flattening
-    (b, s).  With ``ctx.moe_token_chunk`` dividing n (and below it) the
-    tokens go a chunk at a time, as JAX's scan over token chunks does."""
-    tc = ctx.moe_token_chunk
+    (b, s).  With ``ctx.moe_token_chunk`` dividing the token count (and
+    below it) the tokens go a chunk at a time, as JAX's scan over token
+    chunks does: capacity then counts a chunk.
+
+    On a training mesh (``ctx.constrain``) the step is JAX's jitted one
+    over the global batch: where the batch is split over ranks, capacity
+    counts the global tokens (of the chunk) and a pair's position is its
+    exclusive count in the global token order, this rank's own count plus
+    those of the batch ranks before it (one all-gather of (chunks, E)
+    counts); dispatch stays local, since a token's expert output depends
+    on its own row only.  On a "model" axis the router is gathered whole,
+    each rank computes its experts (``Constrain.experts``) and returns its
+    partial sum, which the caller sums over "model"."""
     n = x.shape[0]
-    kw = dict(top_k=top_k, capacity_factor=capacity_factor, ctx=ctx)
-    if tc and n > tc and n % tc == 0:
-        return torch.cat([_moe_apply(p, xc, **kw) for xc in x.split(tc)])
-    return _moe_apply(p, x, **kw)
+    c = ctx.constrain
+    start, total = c.token_span(n) if c is not None else (0, n)
+    tc = ctx.moe_token_chunk
+    span = tc if tc and total > tc and total % tc == 0 else total
+    pieces, lo = [], 0   # (lo, hi, chunk): cut where a global chunk ends
+    while lo < n:
+        chunk = (start + lo) // span
+        hi = min(n, (chunk + 1) * span - start)
+        pieces.append((lo, hi, chunk))
+        lo = hi
+    route_p = p
+    if c is not None and c.tp:   # top-k needs every logit
+        route_p = copy.copy(p)
+        route_p._modules = dict(p._modules,
+                                router=c.whole(p.router, partial=True))
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor)
+    routes = [moe_route(route_p, x[a:b], ctx=ctx, **kw)
+              for a, b, _ in pieces]
+    n_experts = route_p.n_experts
+    offsets = None
+    if c is not None and c.n_batch > 1:
+        counts = torch.zeros((total // span, n_experts), dtype=torch.int64,
+                             device=x.device)
+        for (_, _, chunk), r in zip(pieces, routes):
+            counts[chunk] += torch.bincount(r["flat_idx"],
+                                            minlength=n_experts)
+        offsets = c.route_offsets(counts)
+    cap = max(int(span * top_k / n_experts * capacity_factor), top_k)
+    outs = [_moe_dispatch(p, x[a:b], r,
+                          None if offsets is None else offsets[chunk], cap,
+                          top_k=top_k, ctx=ctx)
+            for (a, b, chunk), r in zip(pieces, routes)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

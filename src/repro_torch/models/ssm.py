@@ -16,6 +16,15 @@ prompt starts at a negative index: ROADMAP C.)
 The in/out projections are BitLinear (packed or pre-decoded); ``A_log``,
 ``D``, ``dt_bias``, ``conv_w`` and ``conv_b`` stay dense.  Plain PyTorch:
 JAX computes the scan and the ring in ``jnp``, no Pallas kernel.
+
+On a training mesh's "model" axis (``runtime/sharding.py`` ``Constrain``)
+the scan runs on the rank's heads.  The leaves go, with JAX's storage:
+``in_proj`` (its split cuts [x | z]) and ``bc_proj`` ([B | C], shared by
+every head) gathered whole and computed on every rank, x and z cut to the
+rank's heads; ``dt_proj`` split on whole heads, column-parallel;
+``out_proj`` split on its input (the rank's heads), row-parallel; the
+conv weights, ``A_log``, ``D`` and ``dt_bias`` whole, cut to the rank's
+heads.
 """
 
 from __future__ import annotations
@@ -80,14 +89,39 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b, xp
 
 
+def _tp(ctx: Ctx):
+    """A training mesh's hook when its "model" axis splits the heads."""
+    c = ctx.constrain
+    return c if c is not None and c.tp else None
+
+
+def _dense(p, ctx: Ctx) -> dict:
+    """The dense leaves, on a "model" axis cut to the rank's heads (whole
+    on every rank, their gradients summed: ``Constrain.shared``)."""
+    c = _tp(ctx)
+    dims = {"conv_w": 1, "conv_b": 0, "A_log": 0, "D": 0, "dt_bias": 0}
+    return {n: c.shared(p[n], d) if c else p[n] for n, d in dims.items()}
+
+
 def _gates(p, x, ctx: Ctx, n_heads):
-    """The common projections. x: (b, s, d_model)."""
-    xin, z = layers.linear_apply(p["in_proj"], x, ctx).chunk(2, dim=-1)
-    bc = layers.linear_apply(p["bc_proj"], x, ctx).float()
+    """The common projections. x: (b, s, d_model).  On a "model" axis
+    (``Constrain``): ``in_proj`` and ``bc_proj`` computed whole, since
+    JAX's split of their columns cuts [x | z] and [B | C] (B and C serve
+    every head), and x and z cut to the rank's heads; ``dt_proj`` split on
+    whole heads, column-parallel."""
+    c = _tp(ctx)
+    in_proj, bc_proj = p["in_proj"], p["bc_proj"]
+    if c:
+        in_proj, bc_proj = c.whole(in_proj, True), c.whole(bc_proj, True)
+    xin, z = layers.linear_apply(in_proj, x, ctx).chunk(2, dim=-1)
+    if c:
+        xin, z = c.heads(xin), c.heads(z)
+    bc = layers.linear_apply(bc_proj, x, ctx).float()
     B, C = bc.chunk(2, dim=-1)                            # (b, s, N)
+    dense = _dense(p, ctx)
     dt = layers.linear_apply(p["dt_proj"], x, ctx).float()
-    dt = softplus(dt + p["dt_bias"])                      # (b, s, H) >= 0
-    A = -torch.exp(p["A_log"])                            # (H,) < 0
+    dt = softplus(dt + dense["dt_bias"])                  # (b, s, H) >= 0
+    A = -torch.exp(dense["A_log"])                        # (H,) < 0
     return xin, z, B, C, dt, dt * A                       # log_a <= 0
 
 
@@ -98,12 +132,15 @@ def ssm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
     With ``return_state`` also {"h": (b, H, N, hd) f32, "conv": (b, cw-1,
     d_inner) in x's dtype}, the state after the sequence."""
     b, s, _ = x.shape
+    if _tp(ctx):   # the rank's heads; out_proj sums over "model"
+        n_heads //= ctx.constrain.model_size
     d_inner = n_heads * head_dim
     chunk = min(chunk, s)
     if s % chunk:     # odd sizes: a single chunk
         chunk = s
     xin, z, B, C, dt, log_a = _gates(p, x, ctx, n_heads)
-    xc, xp = _causal_conv(xin, p["conv_w"], p["conv_b"])
+    dense = _dense(p, ctx)
+    xc, xp = _causal_conv(xin, dense["conv_w"], dense["conv_b"])
     xc = F.silu(xc.float())
     # weight the input by dt (x_bar = dt * x)
     xh = xc.reshape(b, s, n_heads, head_dim) * dt[..., None]
@@ -130,7 +167,8 @@ def ssm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
              + torch.einsum("bjn,bjhd,bjh->bhnd", Bq, xq, w))
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)                                 # (b, s, H, hd)
-    y = y + p["D"][None, None, :, None] * xc.reshape(b, s, n_heads, head_dim)
+    y = y + dense["D"][None, None, :, None] * xc.reshape(b, s, n_heads,
+                                                         head_dim)
     y = y.reshape(b, s, d_inner) * F.silu(z.float())
     out = layers.linear_apply(p["out_proj"], y.to(x.dtype), ctx)
     if return_state:

@@ -471,7 +471,7 @@ def _xlstm_pair_apply(cfg, ctx, x, p, cache, phase):
             ("ln1", "mlstm", xlstm.mlstm_forward, xlstm.mlstm_step,
              {"chunk": cfg.ssm_chunk or 128}),
             ("ln2", "slstm", xlstm.slstm_forward, xlstm.slstm_step, {})):
-        h = layers.rmsnorm(p[norm], x, cfg.norm_eps)
+        h = ctx.c(layers.rmsnorm(p[norm], x, cfg.norm_eps), "tp_in")
         if phase == "full":
             out = forward(p[name], h, ctx, return_state=cache is not None,
                           **kw, **extra)
@@ -507,15 +507,25 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
             _write_state(cache["ssm"], state)
         attn_out = 0.5 * (attn_out + ssm_out.to(attn_out.dtype))
     x = x + attn_out
-    h = ctx.c(layers.rmsnorm(p["ln2"], x, cfg.norm_eps), "tp_in")
+    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    c = ctx.constrain
+    tp = c is not None and c.tp
     if "moe" in p:
+        h = ctx.c(h, "tp_in")
         b, t, d = h.shape
         out = layers.moe_apply(p["moe"], h.reshape(b * t, d),
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, ctx=ctx)
-        return x + out.reshape(b, t, d)
+        out = out.reshape(b, t, d)
+        # each "model" rank's experts: partial sums
+        return x + (c.row_out(out) if tp else out)
     if "mlp" in p:
-        return x + layers.mlp_apply(p["mlp"], h, ctx)
+        if tp and not c.ffn_split:
+            # "model" does not divide d_ff: the FFN runs whole on every
+            # rank's own residual (its part of the sequence under SP)
+            mlp = c.whole(p["mlp"], partial=c.sp_now)
+            return x + layers.mlp_apply(mlp, h, ctx)
+        return x + layers.mlp_apply(p["mlp"], ctx.c(h, "tp_in"), ctx)
     return x
 
 

@@ -12,6 +12,15 @@ divide is one chunk, as in JAX.  sLSTM has per-head recurrent weights
 
 All projections are BitLinear (packed or pre-decoded).  Plain PyTorch: JAX
 computes both scans in ``jnp``, no Pallas kernel.
+
+On a training mesh's "model" axis (``runtime/sharding.py`` ``Constrain``)
+both scans run on the rank's heads.  The leaves go, with JAX's storage:
+mLSTM's ``qkv`` and ``gates`` (JAX's split of their columns cuts [q | k |
+v] and [i | f]) gathered whole and computed on every rank, each part cut
+to the rank's heads; ``ogate`` split on whole heads, column-parallel;
+``out`` split on its input (the rank's heads), row-parallel.  sLSTM's
+``wx`` ([z | i | f | o]) gathered whole, each gate cut to the rank's
+heads; ``r`` whole, cut to the rank's heads; ``out`` row-parallel.
 """
 
 from __future__ import annotations
@@ -47,11 +56,28 @@ def mlstm_pack(p: Params, g: int) -> Params:
     return Params(**{n: bitlinear.pack(p[n], g) for n in MLSTM_LINEARS})
 
 
+def _tp(ctx: Ctx):
+    """A training mesh's hook when its "model" axis splits the heads."""
+    c = ctx.constrain
+    return c if c is not None and c.tp else None
+
+
+def _local_heads(ctx: Ctx, n_heads: int) -> int:
+    c = _tp(ctx)
+    return n_heads // c.model_size if c else n_heads
+
+
 def _mlstm_proj(p, x, ctx, n_heads, head_dim):
     b, s, _ = x.shape
-    q, k, v = layers.linear_apply(p["qkv"], x, ctx).chunk(3, dim=-1)
+    c = _tp(ctx)
+    qkv, gates = p["qkv"], p["gates"]
+    if c:   # computed whole, each part cut to the rank's heads
+        qkv, gates = c.whole(qkv, True), c.whole(gates, True)
+    q, k, v = layers.linear_apply(qkv, x, ctx).chunk(3, dim=-1)
     shape = (b, s, n_heads, head_dim)
-    ig, fg = layers.linear_apply(p["gates"], x, ctx).float().chunk(2, dim=-1)
+    ig, fg = layers.linear_apply(gates, x, ctx).float().chunk(2, dim=-1)
+    if c:
+        q, k, v, ig, fg = (c.heads(t) for t in (q, k, v, ig, fg))
     log_f = F.logsigmoid(fg)                          # (b, s, H) <= 0
     o = torch.sigmoid(layers.linear_apply(p["ogate"], x, ctx).float())
     scale = 1.0 / float(head_dim) ** 0.5
@@ -65,6 +91,7 @@ def mlstm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
     """Chunkwise-parallel mLSTM. x: (b, s, d) -> (b, s, d); with
     ``return_state`` also {"C", "n", "m"} after the sequence (f32)."""
     b, s, _ = x.shape
+    n_heads = _local_heads(ctx, n_heads)
     d_inner = n_heads * head_dim
     chunk = min(chunk, s)
     if s % chunk:     # odd sizes: a single chunk
@@ -200,12 +227,19 @@ def slstm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
     """Sequential sLSTM. x: (b, s, d) -> (b, s, d); with ``return_state``
     also {"c", "n", "h", "m"} after the sequence (f32)."""
     b, s, _ = x.shape
+    c = _tp(ctx)
+    n_heads = _local_heads(ctx, n_heads)
     d_inner = n_heads * head_dim
-    wx = layers.linear_apply(p["wx"], x, ctx)            # (b, s, 4*d_inner)
+    wx_l, cell_p = p["wx"], p
+    if c:   # wx computed whole, each gate cut to the rank's heads
+        wx_l, cell_p = c.whole(wx_l, True), Params(r=c.shared(p["r"], 1))
+    wx = layers.linear_apply(wx_l, x, ctx)               # (b, s, 4*d_inner)
+    if c:
+        wx = c.heads(wx.reshape(b, s, 4, -1)).reshape(b, s, 4 * d_inner)
     st = slstm_init_state(b, n_heads, head_dim, device=x.device)
     hs = []
     for t in range(s):
-        st = _slstm_cell(p, wx[:, t], st)
+        st = _slstm_cell(cell_p, wx[:, t], st)
         hs.append(st["h"])
     h = torch.stack(hs, dim=1).reshape(b, s, d_inner)
     out = layers.linear_apply(p["out"], h.to(x.dtype), ctx)

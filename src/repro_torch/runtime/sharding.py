@@ -307,6 +307,32 @@ class Part:
             self.mesh, self.splits(range(len(self.spec))))
 
 
+class Rows:
+    """A tensor whose leading dimensions are rows of a whole one, taken by
+    index: a rank's experts of an expert bank, the rows of its expert
+    buffer.  A quantizer's statistics stay its own (every row is whole in
+    its features), and a pinned replay takes the same rows of a recorded
+    whole value, zero where ``mask`` is false (a buffer row no token of
+    this rank fills)."""
+
+    def __init__(self, index: tuple, mask: Optional[torch.Tensor] = None):
+        self.index, self.mask = index, mask
+
+    def local(self, whole: torch.Tensor) -> torch.Tensor:
+        v = whole[tuple(i.to(whole.device) if torch.is_tensor(i) else i
+                        for i in self.index)]
+        if self.mask is not None:
+            m = self.mask.to(v.device)
+            v = v * m.reshape(m.shape + (1,) * (v.dim() - m.dim()))
+        return v
+
+    def splits(self, dims) -> tuple:
+        return ()
+
+    def reduce(self, t: torch.Tensor, op, dims) -> torch.Tensor:
+        return t
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearParts:
     w: Part
@@ -335,14 +361,41 @@ class Constrain:
       residual constraint before the chunked loss): the sequence gathered;
     * ``"head_in"``: the normed features entering a vocabulary-split
       head: f;
-    * ``"logits"`` and ``"expert_buf"``: the logits stay split on the
-      vocabulary; MoE is refused on such a mesh (A1b), so the buffer
-      passes.
+    * ``"logits"``: the logits stay split on the vocabulary.
+
+    What runs split on "model" and what runs whole, by kind (the storage
+    is always JAX's spec, ``param_spec``):
+
+    * attention: the rank's query heads (K and V gathered whole when
+      "model" does not divide the KV heads), ``o`` row-parallel;
+    * a dense FFN: ``d_ff`` split where "model" divides it; otherwise
+      (``ffn_split`` false) the FFN is outside the tensor-parallel region:
+      its weights gathered whole (``whole``), every rank computes it on its
+      own residual (under sequence parallelism its part of the sequence);
+    * MoE: each rank computes the experts ``experts(E)`` gives it, its
+      share of the banks (split on E where "model" divides it, else
+      gathered whole and cut); the router is gathered whole (top-k needs
+      every logit); the partial outputs are summed over "model"
+      (``row_out``);
+    * hymba's SSM and xLSTM's mLSTM and sLSTM: the scans run on the rank's
+      heads (``heads``).  A linear whose JAX split cuts concatenated
+      columns (hymba's ``in_proj`` [x | z] and ``bc_proj`` [B | C], xLSTM's
+      ``qkv``, ``gates`` and sLSTM's four-gate ``wx``) is gathered whole
+      and its output cut to the rank's heads; a linear split on whole
+      heads (hymba's ``dt_proj``, xLSTM's ``ogate``) runs column-parallel;
+      ``out_proj`` and ``out`` run row-parallel; the dense leaves (conv
+      weights, ``A_log``, ``D``, ``dt_bias``, sLSTM's ``r``) are whole and
+      cut to the rank's heads (``shared``).
+
+    A leaf every rank holds whole but uses only its part of (``shared``,
+    ``whole(partial=True)``) has its gradient summed over "model".
 
     Under ``"2d"`` on a "model" axis of one rank, and under ``"dp"`` and
     ``"dpzero1"`` (weights whole on every rank), every hook is the
-    identity; the hook still says how the batch is split (``batch``),
-    which a pinned replay reads.
+    identity.  On any layout the hook says how the batch is split
+    (``batch``): a pinned replay reads it, and MoE routing counts capacity
+    and positions over the global batch (``token_span``,
+    ``route_offsets``), as JAX's jitted step over a sharded batch does.
     """
 
     def __init__(self, mesh, cfg, global_batch: int, layout: str = "2d"):
@@ -360,20 +413,19 @@ class Constrain:
         self.tp = layout == "2d" and m > 1
         self.sp = self.tp and cfg.d_model >= SP_THRESHOLD
         self.vocab_split = self.tp and cfg.vocab_size % m == 0
+        self.ffn_split = self.tp and bool(cfg.d_ff) and cfg.d_ff % m == 0
+        self.n_batch = axis_size(mesh, self.batch)
         self._sp_now, self._seq = False, None
-        if self.tp:
-            if cfg.block_kind != "attn" or cfg.n_experts:
-                raise NotImplementedError(
-                    f"{cfg.name}: {cfg.block_kind!r} blocks"
-                    + (" with experts" if cfg.n_experts else "")
-                    + " on a 'model' axis of more than one rank need "
-                    "expert-parallel dispatch or split recurrent scans "
-                    "(ROADMAP A1b); train them under layout 'dp' or "
-                    "'dpzero1', or on a 'model' axis of 1")
-            if cfg.n_heads % m or (cfg.d_ff and cfg.d_ff % m):
-                raise NotImplementedError(
-                    f"{cfg.name}: {m} model ranks must divide n_heads "
-                    f"{cfg.n_heads} and d_ff {cfg.d_ff}")
+        if self.tp and cfg.n_heads % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {m} model ranks must divide n_heads "
+                f"{cfg.n_heads} (JAX's spec then cuts columns inside a "
+                "head: ROADMAP A, still to port)")
+
+    @property
+    def sp_now(self) -> bool:
+        """The residual of this forward is split on its sequence."""
+        return self._sp_now
 
     @property
     def model_rank(self) -> int:
@@ -399,7 +451,7 @@ class Constrain:
                     if self._sp_now else x)
         if kind == "head_in":
             return mesh.copy_to(x, "model") if self.vocab_split else x
-        if kind in ("logits", "expert_buf"):
+        if kind == "logits":
             return x
         raise ValueError(f"unknown constrain kind {kind!r}")
 
@@ -413,8 +465,13 @@ class Constrain:
 
     def activation_part(self, x: torch.Tensor, row: bool = False) -> Part:
         """How a batch-major activation is split: the batch over
-        ``batch``, the features over "model" for a row-parallel input."""
+        ``batch``, the sequence over "model" for a part of the residual
+        under sequence parallelism (a whole FFN's input), the features over
+        "model" for a row-parallel input."""
         spec = (self.batch,) + (None,) * (x.dim() - 1)
+        if (self._sp_now and x.dim() == 3
+                and x.shape[1] * self.model_size == self._seq):
+            spec = (self.batch, "model", None)
         if row:
             spec = spec[:-1] + ("model",)
         return Part(self.mesh, spec)
@@ -429,26 +486,108 @@ class Constrain:
         return LinearParts(Part(self.mesh, spec),
                            self.activation_part(x, row), row)
 
+    def whole_tensor(self, t: torch.Tensor, spec: tuple, partial: bool
+                     ) -> torch.Tensor:
+        """A leaf of ``spec`` gathered whole over "model" (see ``whole``);
+        a leaf already whole there, with ``partial``, passes Megatron's f
+        so that its gradient is summed over "model" all the same (under
+        sequence parallelism the step sums every block leaf whole over
+        "model", each rank having seen part of the sequence: no f)."""
+        if not self.tp:
+            return t
+        spec = _model_only(spec)
+        if all(a is None for a in spec):
+            return (self.mesh.copy_to(t, "model")
+                    if partial and not self._sp_now else t)
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                t = self.mesh.gather(t, ax, dim, partial)
+        return t
+
     def whole(self, p, partial: bool):
-        """A linear whose weight (and bias) are gathered whole over "model"
-        for a rank that needs all of its outputs: with ``partial`` the rank
-        uses them for its own part of the work (its gradient is summed over
-        "model" and cut back to the rank's block), else every rank
-        computes the same thing with them (its gradient is cut back)."""
+        """A linear (or a sub-layer of them) whose weights (and biases) are
+        gathered whole over "model" for a rank that needs all of their
+        outputs: with ``partial`` the rank uses them for its own part of
+        the work (their gradient is summed over "model" and cut back to the
+        rank's block), else every rank computes the same thing with them
+        (their gradient is cut back)."""
+        if not self.tp:
+            return p
         out = copy.copy(p)
         out._buffers = dict(p._buffers)
+        out._modules = {n: self.whole(m, partial)
+                        for n, m in p._modules.items()}
         specs = {}
         for n, t in p._buffers.items():
             if t is None:
                 continue
-            spec = _model_only(p.specs[n]) if self.tp else (None,) * t.dim()
-            for dim, ax in enumerate(spec):
-                if ax is not None:
-                    t = self.mesh.gather(t, ax, dim, partial)
-            out._buffers[n] = t
+            out._buffers[n] = self.whole_tensor(t, p.specs[n], partial)
             specs[n] = (None,) * t.dim()
         out.specs = specs
         return out
+
+    def shared(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads' block of ``dim`` of a leaf every rank holds
+        whole (conv weights, ``A_log``, sLSTM's ``r``): its gradient is
+        summed over "model" (each rank's is nonzero on its block only; by
+        the step under sequence parallelism, see ``whole_tensor``)."""
+        if not self.tp:
+            return t
+        return self.mesh.local(self.whole_tensor(t, (None,) * t.dim(), True),
+                               "model", dim)
+
+    def heads(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of an activation's head-major ``dim`` (the
+        output of a linear computed whole on every rank)."""
+        return self.mesh.local(x, "model", dim % x.dim()) if self.tp else x
+
+    def experts(self, n_experts: int) -> tuple:
+        """[lo, hi): the experts whose tokens this rank computes, a
+        contiguous block a "model" rank (JAX's expert-parallel block where
+        "model" divides E)."""
+        if not self.tp:
+            return 0, n_experts
+        r, m = self.model_rank, self.model_size
+        return r * n_experts // m, (r + 1) * n_experts // m
+
+    def expert_bank(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's experts (``experts``) of an (E, n_in, n_out) bank
+        of ``spec``: its block where the bank is split on E over "model"
+        (JAX's expert-parallel spec), else the bank gathered whole and cut
+        (the spec splits each expert's n_out)."""
+        if not self.tp or _model_only(spec)[0] == "model":
+            return t
+        lo, hi = self.experts(t.shape[0])
+        return self.whole_tensor(t, spec, partial=True)[lo:hi]
+
+    # -- MoE routing over the global batch (JAX's one program) --------------
+
+    def token_span(self, n: int) -> tuple:
+        """(start, total) of this rank's ``n`` tokens (its batch rows,
+        flattened row-major) in the token order of the global batch: the
+        batch ranks hold consecutive blocks of rows (``batch_spec``)."""
+        if self.n_batch == 1:
+            return 0, n
+        return self.mesh.index(self.batch) * n, n * self.n_batch
+
+    def route_offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """``counts`` (chunks, E), this rank's (token, slot) pairs of each
+        global token chunk and expert -> the pairs of the same chunk and
+        expert on the batch ranks before this one (one all-gather)."""
+        if self.n_batch == 1:
+            return torch.zeros_like(counts)
+        every = self.mesh.all_gather(counts[None], self.batch, 0)
+        return every[:self.mesh.index(self.batch)].sum(0)
+
+    def token_rows(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's ``n`` rows of a tensor over a whole pass's tokens
+        (a routing recorded on one device), as ``token_span`` places
+        them."""
+        start, total = self.token_span(n)
+        if t.shape[0] != total:
+            raise ValueError(f"{t.shape[0]} recorded token rows, this pass "
+                             f"has {total}")
+        return t[start:start + n]
 
     def embed(self, p, tokens: torch.Tensor) -> torch.Tensor:
         """The token lookup on a vocabulary-split table: each rank looks up

@@ -116,9 +116,12 @@ Counterpart of ``repro/serving/engine.py``:
     behind as before.  With ``shard_kv`` the ranks of one data index split
     the split-K chunks over ``model`` (``kv_splits`` defaults to its size
     and must tile it) and all-gather the partials in rank order: the
-    tokens are the single-device engine's.  On the card the groups must be
-    NCCL (and the captured block then holds its collectives), on the CPU
-    gloo.
+    tokens are the single-device engine's.  On the card the groups are
+    NCCL (and the captured block then holds its collectives) or, for ranks
+    sharing one card, gloo: each collective staged through host memory,
+    the block's gather run after the captured block, and no ``shard_kv``;
+    on the CPU gloo.  An MoE layer routes a rank's rows (its slots, idle
+    and padded lanes included), as JAX's ``shard_map`` engine does.
 
 **Robustness** (the JAX engine's, JAX PRs 7-9).  Every request ends with a
 ``RequestStatus``: an invalid one is REJECTED at ``submit()``; ``cancel()``
@@ -618,16 +621,17 @@ def _refuse_recurrent(cfg: ModelConfig, mesh, paged: bool,
 def check_mesh(mesh, device: torch.device) -> tuple:
     """A serving mesh's (data, model) sizes, after checking its axis names
     (the JAX engine's message) and that its process groups can run on
-    ``device``: NCCL on the card, gloo on the CPU."""
+    ``device``: gloo on the CPU; NCCL or gloo on the card (gloo: ranks
+    sharing one card, which NCCL refuses, each collective staged through
+    host memory)."""
     _check_mesh_names(mesh)
     names = tuple(mesh.mesh_dim_names)
-    want = "nccl" if device.type == "cuda" else "gloo"
-    for axis in names:
-        backend = dist.get_backend(mesh.get_group(axis))
-        if backend != want:
-            raise ValueError(
-                f"a mesh engine on {device.type} needs {want} process "
-                f"groups; the mesh's '{axis}' group runs {backend}")
+    want = ("nccl", "gloo") if device.type == "cuda" else ("gloo",)
+    backends = {dist.get_backend(mesh.get_group(axis)) for axis in names}
+    if not backends <= set(want) or len(backends) > 1:
+        raise ValueError(
+            f"a mesh engine on {device.type} needs {' or '.join(want)} "
+            f"process groups; the mesh's groups run {sorted(backends)}")
     return mesh.size(0), mesh.size(1)
 
 
@@ -652,7 +656,8 @@ class ServingEngine:
     ``device``; the engine runs on the card unless ``device="cpu"``.  It
     serves token-frontend models of every block kind: attention blocks,
     dense or MoE (whose expert banks stay packed and run through ``tlmm``;
-    an MoE config runs on one rank only), and the recurrent hymba and
+    on a mesh each rank routes its data shard's rows, as JAX's
+    ``shard_map`` engine does), and the recurrent hymba and
     xLSTM, whose prompts are admitted whole, one a wave, on a contiguous
     bf16 or f32 cache on one rank (no paged cache, int8 KV or mesh, as in
     JAX).
@@ -741,14 +746,10 @@ class ServingEngine:
         self.paged = bool(paged)
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
         self._init_mesh(mesh, shard_slots, shard_kv, kv_splits)
+        # MoE on a mesh: each rank routes the rows of its data shard (its
+        # slots, idle and padded lanes included), as the JAX mesh engine's
+        # shard_map does, so capacity counts a shard's rows
         world = self.mesh_shape[0] * self.mesh_shape[1]
-        if world > 1 and cfg.n_experts:
-            # each rank would count expert capacity over its own rows only,
-            # where the JAX mesh engine counts the global batch
-            raise ValueError(
-                f"ServingEngine: MoE ({cfg.name}) on a mesh of {world} ranks "
-                "is not supported: expert capacity counts the whole batch, "
-                "and a rank holds only its data shard's rows")
         if world > 1 and block_deadline_s is not None:
             raise ValueError(
                 f"ServingEngine: block_deadline_s on a mesh of {world} ranks "
@@ -836,6 +837,17 @@ class ServingEngine:
         if self.shard_kv:
             validate_num_splits(self.kv_splits, mm)
             self._model_group = mesh.get_group("model")
+        # gloo groups on the card: each collective staged through host
+        # memory, so none may sit inside the captured block (the decode
+        # block's gather then runs after it)
+        self._staged = (mesh is not None and self.device.type == "cuda"
+                        and dist.get_backend(mesh.get_group("data"))
+                        == "gloo")
+        if self._staged and self.shard_kv:
+            raise ValueError(
+                "shard_kv on a gloo mesh on the card: the split-K partials' "
+                "gather would sit inside the captured decode block; use "
+                "NCCL groups")
         self._lo = (mesh.get_local_rank("data") * self.slots_per_device
                     if self.shard_slots else 0)
         # the block's outputs are gathered over 'data' (an identity on a
@@ -873,8 +885,12 @@ class ServingEngine:
         n = self.slots_per_device
         packed = torch.cat([p.reshape(n, -1).to(torch.int64) for p in parts],
                            dim=1)
+        dev = packed.device
+        if self._staged:
+            packed = packed.cpu()
         out = packed.new_empty((self.slots, packed.shape[1]))
         sharding.all_gather_rows(out, packed, self._data_group)
+        out = out.to(dev)
         res, col = [], 0
         for p in parts:
             w = p[0].numel()
@@ -1414,13 +1430,14 @@ class ServingEngine:
     # -- decode ------------------------------------------------------------
 
     def _ticks(self, tokens, cache_len, emitted, active, max_new, temps,
-               seeds, nan_mask):
+               seeds, nan_mask, gather: bool = True):
         """``decode_block`` ticks of decode_step + sample + bookkeeping over
         this rank's (slots_per_device,) tensors -> their values after the
         block, and every shard's (slots, decode_block) tokens and emit masks
-        and (slots,) non-finite latch (gathered over 'data' under a mesh).
-        Reads no host value: the device-resident block runs it inside a
-        CUDA graph, its collectives included."""
+        and (slots,) non-finite latch (gathered over 'data' under a mesh;
+        this rank's alone without ``gather``).  Reads no host value: the
+        device-resident block runs it inside a CUDA graph, its collectives
+        included."""
         outs, masks = [], []
         bad = torch.zeros_like(active)
         for _ in range(self.decode_block):
@@ -1442,17 +1459,19 @@ class ServingEngine:
             emitted = torch.where(active, emitted + 1, emitted)
             done = (emitted >= max_new) | (cache_len >= self.max_seq)
             active = active & ~done
+        outs = (torch.stack(outs, 1), torch.stack(masks, 1), bad)
         return (tokens, cache_len, emitted, active,
-                *self._gather_slots(torch.stack(outs, 1),
-                                    torch.stack(masks, 1), bad))
+                *(self._gather_slots(*outs) if gather else outs))
 
     def _device_block(self):
         """One block from the device state, which it advances in place;
-        returns (tokens, masks, bad)."""
+        returns (tokens, masks, bad), this rank's alone on a staged (gloo)
+        mesh on the card, whose gather runs after the block."""
         st = self._state
         *new, blk, mask, bad = self._ticks(
             st["last_token"], st["cache_len"], st["emitted"], st["active"],
-            st["max_new"], st["temps"], st["seeds"], self._nan_dev)
+            st["max_new"], st["temps"], st["seeds"], self._nan_dev,
+            gather=not self._staged)
         for name, value in zip(("last_token", "cache_len", "emitted",
                                 "active"), new):
             st[name].copy_(value)
@@ -1591,16 +1610,17 @@ class ServingEngine:
             src = torch.from_numpy(self._mine(nan))
             self._nan_dev.copy_(src.pin_memory() if self._stream is not None
                                 else src, non_blocking=True)
+        staged = self._gather_slots if self._staged else (lambda *o: o)
         if self._graph is None:
-            out = self._readback(*self._device_block())
+            out = self._readback(*staged(*self._device_block()))
             if self._stream is not None:
                 self._graph = graphs.CapturedBlock(
                     self._device_block, self._stream,
-                    collectives=self.mesh is not None)
+                    collectives=self.mesh is not None and not self._staged)
                 self.stats["graph_captures"] += 1
         else:
             with torch.profiler.record_function("ServingEngine.replay_block"):
-                out = self._readback(*self._graph.replay())
+                out = self._readback(*staged(*self._graph.replay()))
         if nan is not None:
             self._nan_dev.zero_()
         return out

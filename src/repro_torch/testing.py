@@ -42,14 +42,18 @@ def _replayed(tape: list):
 
 
 @contextlib.contextmanager
-def pinned_quantizers(tape: list, replay: bool):
+def pinned_quantizers(tape: list, replay: bool, *, gammas: bool = False):
     """Record each QAT quantizer's forward value (``absmax_quant_ste``,
     ``ternarize_ste``), in call order, into ``tape`` on the CPU; with
     ``replay``, give the recorded values back in that order instead,
     straight through.  Two devices that replay one tape run the same int8
     and ternary codes.  A rank of a training mesh replaying a tape recorded
     on one device takes its block of each value (the quantizer's
-    ``part``)."""
+    ``part``).  With ``gammas`` a weight's entry is its gamma alone: the
+    replay takes the weight's ternary value at the recorded gamma
+    (``ternary.ternary_ste_at``), the same bits for the same master
+    weights, and the tape stays the size of the activations (a full-width
+    expert bank's values are 3.2 GB)."""
     saved = (ternary.absmax_quant_ste, ternary.ternarize_ste)
     take, check_used = _replayed(tape)
 
@@ -65,7 +69,19 @@ def pinned_quantizers(tape: list, replay: bool):
             return out
         return pinned
 
-    ternary.absmax_quant_ste, ternary.ternarize_ste = map(pin, saved)
+    def pin_gamma(w, *args, **kw):
+        part = kw.pop("part", None)
+        if replay:
+            g = take()
+            if part is not None and g.dim():   # a gamma a rank's expert
+                g = part.local(g)
+        else:
+            g = ternary.ste_gamma(w, *args, part=part, **kw)
+            tape.append(g.detach().cpu())
+        return ternary.ternary_ste_at(w, g.to(w.device))
+
+    ternary.absmax_quant_ste = pin(saved[0])
+    ternary.ternarize_ste = pin_gamma if gammas else pin(saved[1])
     try:
         yield tape
     finally:
@@ -81,16 +97,21 @@ def pinned_routing(tape: list, replay: bool):
     recorded experts instead of this run's top-k.  The gates stay the
     softmax of this run's router logits at those experts (the router's
     gradient), and the positions and keep mask follow from the experts by
-    ``layers.route_positions``, as ``moe_route`` takes them."""
+    ``layers.route_positions``, as ``moe_route`` takes them.  A rank of a
+    training mesh replaying a tape recorded on one device takes its
+    tokens' rows of each routing (``Constrain.token_rows``)."""
     orig = layers.moe_route
     take, check_used = _replayed(tape)
 
-    def route(p, x, *, top_k, capacity_factor):
+    def route(p, x, *, top_k, capacity_factor, ctx=None):
         r = orig(p, x, top_k=top_k, capacity_factor=capacity_factor)
         if not replay:
             tape.append(r["idx"].cpu())
             return r
-        idx = take().to(x.device)
+        idx = take()
+        if ctx is not None and ctx.constrain is not None:
+            idx = ctx.constrain.token_rows(idx, x.shape[0])
+        idx = idx.to(x.device)
         flat = idx.reshape(-1)
         pos = layers.route_positions(flat, p.n_experts)
         return dict(r, gates=torch.softmax(r["logits"].gather(-1, idx), -1),

@@ -62,24 +62,29 @@ def loss_and_grads(cfg: ModelConfig, ctx: Ctx, params, batch: dict,
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def _accumulated(cfg, ctx, params, batch, microbatches, loss_chunk):
-    """(loss, gradients) of a batch, its rows split into ``microbatches``
-    contiguous microbatches whose losses and gradients are summed in order,
-    then divided by their count (JAX's scan accumulation)."""
-    if microbatches == 1:
-        return loss_and_grads(cfg, ctx, params, batch, loss_chunk)
+def _microbatches(batch: dict, microbatches: int) -> list:
+    """The batch's rows split into ``microbatches`` contiguous blocks
+    (JAX's reshape to (microbatches, rows, ...))."""
     rows = batch["inputs"].shape[0] // microbatches
+    return [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            for i in range(microbatches)]
+
+
+def _accumulated(cfg, ctx, params, mbs: list, loss_chunk):
+    """(loss, gradients) of a batch given as its microbatches: their losses
+    and gradients summed in order, then divided by their count (JAX's scan
+    accumulation)."""
+    if len(mbs) == 1:
+        return loss_and_grads(cfg, ctx, params, mbs[0], loss_chunk)
     loss = torch.zeros((), dtype=torch.float32,
-                       device=batch["labels"].device)
+                       device=mbs[0]["labels"].device)
     grads = None
-    for i in range(microbatches):
-        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+    for mb in mbs:
         loss_i, g_i = loss_and_grads(cfg, ctx, params, mb, loss_chunk)
         loss = loss + loss_i
         grads = ({n: g.float() for n, g in g_i.items()} if grads is None
                  else {n: grads[n] + g for n, g in g_i.items()})
-    return loss / microbatches, {n: g / microbatches
-                                 for n, g in grads.items()}
+    return loss / len(mbs), {n: g / len(mbs) for n, g in grads.items()}
 
 
 def make_train_step(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
@@ -88,7 +93,8 @@ def make_train_step(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
     split into that many microbatches (``_accumulated``)."""
 
     def train_step(params, opt_state, batch):
-        loss, grads = _accumulated(cfg, ctx, params, batch, microbatches,
+        loss, grads = _accumulated(cfg, ctx, params,
+                                   _microbatches(batch, microbatches),
                                    loss_chunk)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = apply_updates(params, updates)
@@ -173,7 +179,11 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
       mesh, the AdamW moments split ZeRO-1: ``zero1`` is
       ``sharding.Zero1(mesh, params)`` and ``opt_state`` comes from
       ``optimizer.init(params, zero1=zero1)``.
-    * Each rank takes its block of the batch (``batch_spec``'s split).
+    * Each rank takes its block of the batch (``batch_spec``'s split),
+      of each microbatch with ``microbatches`` > 1: JAX's microbatch j is
+      the global rows [j * b / M, (j + 1) * b / M), and MoE counts
+      capacity over a microbatch's tokens, so the rows counted together
+      are those of JAX's microbatch.
       FSDP leaves are gathered over "data" for the step; each gradient is
       averaged over the batch's axes (an FSDP leaf's then cut to the
       rank's block: a reduce-scatter), and under sequence parallelism the
@@ -226,8 +236,13 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
 
     def train_step(params, opt_state, batch):
         specs.update(sharding.tree_specs(params))
-        local = {k: mesh.local_part(v, (batch_axes,) + (None,) * (
-            v.dim() - 1)) for k, v in batch.items()}
+        if batch["inputs"].shape[0] % (microbatches * n_batch):
+            raise ValueError(f"{microbatches} microbatches of a batch of "
+                             f"{batch['inputs'].shape[0]} rows do not split "
+                             f"over {n_batch} batch ranks")
+        mbs = [{k: mesh.local_part(v, (batch_axes,) + (None,) * (
+            v.dim() - 1)) for k, v in mb.items()}
+            for mb in _microbatches(batch, microbatches)]
         fsdp = any(fsdp_dims(s) for s in specs.values())
         run = params
         if fsdp:   # the data blocks gathered for the step
@@ -237,8 +252,7 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
                         t = mesh.all_gather(t, ax, d)
                     return t
                 run = sharding.map_buffers(params, gather)
-        loss, grads = _accumulated(cfg, sctx, run, local, microbatches,
-                                   loss_chunk)
+        loss, grads = _accumulated(cfg, sctx, run, mbs, loss_chunk)
         del run
         grads = {n: g.float() for n, g in grads.items()}
         if hooks.sp:   # norms under sequence parallelism: partial sums

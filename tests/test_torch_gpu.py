@@ -1332,8 +1332,8 @@ def test_captured_splitk_engine_equals_host_driven(cuda, mode):
 def test_mesh_engine_in_an_nccl_world_of_one(cuda):
     """A (1, 1) DeviceMesh engine on NCCL: its captured block holds the
     gather of its outputs, and it emits the single-device engine's tokens
-    (contiguous and paged with sharing); a gloo mesh cannot drive the
-    card."""
+    (contiguous and paged with sharing); a gloo mesh drives the card too
+    (ranks sharing it), a mesh of two backends is refused."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -1360,12 +1360,20 @@ def test_mesh_engine_in_an_nccl_world_of_one(cuda):
                 [r.output.tolist() for r in want]
             assert eng.stats["steady_state_syncs_per_block"] == 0.0
         gloo = dist.new_group(backend="gloo")
-        fake = type("GlooMesh", (), {
-            "mesh_dim_names": ("data", "model"),
-            "get_group": staticmethod(lambda axis: gloo),
-            "size": staticmethod(lambda i: 1)})()
-        with pytest.raises(ValueError, match="needs nccl"):
-            check_mesh(fake, cuda)
+
+        def fake(groups):
+            return type("Mesh", (), {
+                "mesh_dim_names": ("data", "model"),
+                "get_group": staticmethod(lambda axis: groups[axis]),
+                "size": staticmethod(lambda i: 1)})()
+
+        # ranks sharing the card: gloo, each collective staged through host
+        # memory; groups of two backends are refused
+        assert check_mesh(fake({"data": gloo, "model": gloo}),
+                          cuda) == (1, 1)
+        with pytest.raises(ValueError, match="needs nccl or gloo"):
+            check_mesh(fake({"data": gloo, "model": dist.group.WORLD}),
+                       cuda)
     finally:
         dist.destroy_process_group()
 
@@ -1618,3 +1626,90 @@ def test_moe_qat_gradients_are_deterministic_on_the_card(cuda, monkeypatch):
     assert torch.equal(l1, l2)
     assert all(torch.isfinite(t).all() for t in g1.values())
     assert [n for n in g1 if not torch.equal(g1[n], g2[n])] == []
+
+
+EP_STEP_BODY = '''
+import copy, json
+from repro_torch.data.pipeline import SyntheticLMDataset
+from repro_torch.models import layers
+from repro_torch.models.layers import Ctx
+from repro_torch.optim import adamw
+from repro_torch.runtime import sharding
+from repro_torch.runtime.collectives import TrainMesh
+from repro_torch.testing import (leaf_grad_errors, pinned_quantizers,
+                                 pinned_routing)
+from repro_torch.training import loss_and_grads, make_train_step_sharded
+
+dev = torch.device(%(device)r)
+cfg = get_config("mixtral-8x22b").reduced(n_layers=2, d_model=64,
+                                          n_heads=4, d_ff=128)
+master = transformer.init_params(cfg, torch.Generator().manual_seed(25))
+batch = {k: v.to(dev) for k, v in SyntheticLMDataset(
+    cfg, batch=4, seq_len=32, seed=5, device="cpu").batch_at(0).items()}
+ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=16, attn_kv_chunk=16)
+tapes = ([], [])
+with pinned_quantizers(tapes[0], False), pinned_routing(tapes[1], False):
+    l_ref, g_ref = loss_and_grads(cfg, ctx, copy.deepcopy(master).to(dev),
+                                  batch, 16)
+mesh = TrainMesh(%(shape)r)
+zero1 = %(layout)r == "dpzero1"
+params = sharding.shard_params(mesh, copy.deepcopy(master).to(dev),
+                               fsdp=False, layout="dp" if zero1 else "2d")
+z = sharding.Zero1(mesh, params) if zero1 else None
+opt = adamw(lr=1e-3)
+step = make_train_step_sharded(cfg, ctx, opt, mesh, global_batch=4,
+                               layout=%(layout)r, zero1=z, loss_chunk=16,
+                               return_grads=True)
+drops = [0]
+with pinned_quantizers(tapes[0], True), pinned_routing(tapes[1], True):
+    replayed = layers.moe_route
+
+    def counting(*a, **kw):   # the pairs the replayed routing drops
+        r = replayed(*a, **kw)
+        drops[0] += int((~r["keep"]).sum())
+        return r
+
+    layers.moe_route = counting
+    try:
+        params, _, m = step(params, opt.init(params, zero1=z), batch)
+    finally:
+        layers.moe_route = replayed
+specs = sharding.tree_specs(params)
+grads = {n: mesh.full_part(g, specs[n]).cpu() for n, g in m["grads"].items()}
+err = leaf_grad_errors(grads, {n: g.cpu() for n, g in g_ref.items()})
+finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+if RANK == 0:
+    print("EP " + json.dumps(dict(loss=float(m["loss"]), loss_ref=float(
+        l_ref), worst=max(err.values()), finite=finite, drops=drops[0],
+        bank_block=list(params["layers"][0]["moe"].gate_w.shape))),
+        flush=True)
+finish("EP_STEP_OK")
+'''
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,layout", [((1, 2), "2d"),
+                                          ((2, 1), "dpzero1")])
+def test_expert_parallel_moe_step_on_two_ranks_on_the_card(cuda, tmp_path,
+                                                           shape, layout):
+    """One QAT step of reduced mixtral-8x22b at capacity factor 1.25 on two
+    gloo ranks on the one card against the single-device step on the card,
+    with the single-device step's quantized values and top-k indices
+    replayed on each rank: on (1, 2) ``2d`` each rank computes two of the
+    four experts (the router gathered, the partial outputs summed over
+    "model"); on (2, 1) ``dpzero1`` each rank its half of the batch, the
+    capacity and positions counted over the global batch (the batch drops
+    pairs).  The loss within 1e-5 of itself and every gradient leaf within
+    TRAIN_GRAD_RTOL of its largest."""
+    import json
+    from torch_mesh_helpers import launch
+    out = launch(tmp_path, EP_STEP_BODY % dict(
+        device="cuda", shape=shape, layout=layout), 2, "EP_STEP_OK",
+        timeout=300)
+    line = next(x for x in out.splitlines() if x.startswith("EP "))
+    r = json.loads(line[3:])
+    print(f"MoE step on {shape} {layout} on the card: {r}")
+    assert r["finite"] and r["drops"] >= 1, r
+    assert r["bank_block"][0] == (2 if layout == "2d" else 4), r
+    assert abs(r["loss"] - r["loss_ref"]) <= 1e-5 * abs(r["loss_ref"]), r
+    assert r["worst"] <= TRAIN_GRAD_RTOL, r

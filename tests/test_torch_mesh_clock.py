@@ -16,8 +16,9 @@ with the same tokens and statuses, equal to a single-device engine whose
 clock jumps at the same beat (it takes the same decisions at the same
 beats).  Each launch has its own wall-clock limit, so a hang fails the
 test, not the suite.  The ``block_deadline_s`` watchdog, which fires while
-a collective may be stuck, and MoE, whose capacity counts the whole batch,
-are refused on a world of more than one rank.
+a collective may be stuck, is refused on a world of more than one rank;
+MoE is taken there (each rank routes its data shard's rows, as JAX's
+``shard_map`` engine does).
 """
 
 from torch_mesh_helpers import launch
@@ -111,9 +112,9 @@ finish("MESH_RETRY_CLOCK_OK")
 
 
 def test_mesh_refuses_watchdog_and_moe(tmp_path):
-    """``block_deadline_s`` and an MoE config raise at construction on a
-    world of 2; without a mesh both are taken (the watchdog is the
-    single-controller engine's)."""
+    """``block_deadline_s`` raises at construction on a world of 2 and an
+    MoE config is taken there; without a mesh both are taken (the watchdog
+    is the single-controller engine's)."""
     body = """
 from repro_torch.configs import get_config as _get
 
@@ -127,11 +128,9 @@ except ValueError as e:
 moe_cfg = _get("mixtral-8x22b").reduced()
 moe = transformer.pack_params(moe_cfg, transformer.init_params(
     moe_cfg, torch.Generator().manual_seed(0)))
-try:
-    ServingEngine(moe_cfg, moe, device="cpu", max_seq=32, mesh=mesh)
-    raise AssertionError("MoE on a world of 2 was accepted")
-except ValueError as e:
-    assert "MoE" in str(e), e
+# MoE on a world of 2 is taken (tests/test_torch_mesh_moe_engine.py)
+eng = ServingEngine(moe_cfg, moe, device="cpu", max_seq=32, mesh=mesh)
+assert eng.mesh_shape == (2, 1) and eng.slots_per_device == 2
 ServingEngine(moe_cfg, moe, device="cpu", max_seq=32,
               block_deadline_s=1.0)       # no mesh: both taken
 finish("MESH_REFUSALS_OK")

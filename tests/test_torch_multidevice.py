@@ -217,7 +217,9 @@ finish("MESH_HEAL_PROPERTY_OK")
 def test_mesh_validation_errors(tmp_path):
     """Wrong axis names and bad split counts fail at construction with the
     JAX engine's messages; a (1, 1) mesh engine has the single-device
-    engine's semantics and tokens; a gloo mesh cannot drive the card."""
+    engine's semantics and tokens; a gloo mesh may drive the card too
+    (ranks sharing one card, each collective staged through host
+    memory)."""
     body = """
 import pytest
 from repro_torch.serving.engine import check_mesh
@@ -230,8 +232,7 @@ with pytest.raises(ValueError, match="kv_splits"):
                   mesh=mesh_of((1, 1)), kv_splits=0)
 with pytest.raises(ValueError, match="kv_splits"):
     ServingEngine(cfg, packed, max_seq=16, device="cpu", kv_splits=0)
-with pytest.raises(ValueError, match="needs nccl"):
-    check_mesh(mesh_of((1, 1)), torch.device("cuda"))
+assert check_mesh(mesh_of((1, 1)), torch.device("cuda")) == (1, 1)
 assert check_mesh(mesh_of((1, 1)), torch.device("cpu")) == (1, 1)
 eng = ServingEngine(cfg, packed, max_seq=16, device="cpu",
                     mesh=mesh_of((1, 1)))

@@ -50,6 +50,32 @@ def test_pinned_quantizers_replay_the_recorded_values():
             layers.linear_apply(p, x_b, QAT)
 
 
+def test_pinned_gammas_replay_the_weights_by_their_gamma():
+    """With ``gammas`` a weight's entry is its gamma alone (a scalar, or one
+    an expert of a bank, which a rank's ``Rows`` part cuts to its
+    experts): the replay's values equal the recording's bit for bit on the
+    same masters, and the activations are replayed as values."""
+    from repro_torch.runtime.sharding import Rows
+    p = layers.linear_init(torch.Generator().manual_seed(0), 16, 8)
+    x = _randn(4, 16, seed=1)
+    tape = []
+    with pinned_quantizers(tape, replay=False, gammas=True):
+        y = layers.linear_apply(p, x, QAT)
+    assert [t.shape for t in tape] == [(), (4, 16)]
+    with pinned_quantizers(tape, replay=True, gammas=True):
+        assert torch.equal(layers.linear_apply(p, x, QAT), y)
+    bank = _randn(4, 16, 24, seed=3)
+    tape = []
+    with pinned_quantizers(tape, replay=False, gammas=True):
+        whole = ternary.ternarize_ste(bank, dims=(1, 2))
+    assert tape[0].shape == (4, 1, 1)
+    assert torch.equal(whole, ternary.ternarize_ste(bank, dims=(1, 2)))
+    with pinned_quantizers(tape, replay=True, gammas=True):
+        mine = ternary.ternarize_ste(bank[2:], dims=(1, 2),
+                                     part=Rows((slice(2, 4),)))
+    assert torch.equal(mine, whole[2:])
+
+
 def _moe(n_experts=4, d=16, f=24, seed=0):
     return MoE(Linear(_randn(d, n_experts, seed=seed)),
                {"gate_w": _randn(n_experts, d, f, seed=seed + 1),

@@ -20,12 +20,13 @@ over the same microbatches); sequence parallelism with ``SP_THRESHOLD`` lowered 
 reduced width; reduced granite with one KV head (K and V gathered), and
 with a vocabulary "model" does not divide (the head split on d_model,
 gathered); ``dpzero1`` (ZeRO-1 moments) on (2, 1) and (2, 2); reduced
-mixtral, hymba and xLSTM under ``dpzero1`` on (2, 1) (mixtral drop-free and
-unpinned: its expert buffers hold each rank's own tokens, so a recorded
-buffer has no block to replay).  JAX's ``tests/test_system.py`` case:
-reduced granite-3-2b on (2, 4), FSDP off, two steps, against JAX's jitted
-single-device step on the same converted weights.  And MoE, hymba and
-xLSTM refused on a "model" axis of 2 (ROADMAP A1b).
+mixtral (drop-free; its expert buffers replayed row by row, keyed by
+(expert, row): ``sharding.Rows``), hymba and xLSTM under ``dpzero1`` on
+(2, 1).  JAX's ``tests/test_system.py`` case: reduced granite-3-2b on (2,
+4), FSDP off, two steps, against JAX's jitted single-device step on the
+same converted weights.  And which layouts run tensor-parallel.  MoE at
+capacity 1.25 over the global batch, MoE, hymba and xLSTM on a "model"
+axis: ``test_torch_sharded_moe.py``, ``test_torch_sharded_recurrent.py``.
 """
 
 import json
@@ -50,8 +51,9 @@ from torch_mesh_helpers import launch
 REDUCED = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab_size=128)
 
 BODY = '''
-import contextlib, copy, json, sys
+import contextlib, copy, dataclasses, json, sys
 from repro_torch.data.pipeline import SyntheticLMDataset
+from repro_torch.models import layers
 from repro_torch.models.layers import Ctx
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding
@@ -68,19 +70,38 @@ def rel(got, ref):
                 ).item() for n, r in ref.items()}
 
 
+@contextlib.contextmanager
+def counting_drops(drops):
+    """Adds the (token, slot) pairs each routing drops to drops[0]."""
+    orig = layers.moe_route
+
+    def route(*a, **kw):
+        r = orig(*a, **kw)
+        drops[0] += int((~r["keep"]).sum())
+        return r
+    layers.moe_route = route
+    try:
+        yield
+    finally:
+        layers.moe_route = orig
+
+
 def run_case(c):
     kw = dict(REDUCED, **c.get("cfg", {}))
     cfg = get_config(c["arch"]).reduced(**kw)
-    full = transformer.init_params(cfg, torch.Generator().manual_seed(0))
-    batch = SyntheticLMDataset(cfg, batch=4, seq_len=32, seed=0,
-                               device="cpu").batch_at(0)
+    ctx = dataclasses.replace(CTX, **c.get("ctx", {}))
+    full = transformer.init_params(cfg, torch.Generator().manual_seed(
+        c.get("seed", 0)))
+    batch = SyntheticLMDataset(cfg, batch=4, seq_len=32, seed=c.get(
+        "seed", 0), device="cpu").batch_at(0)
     pin = c.get("pinned", True)
     micro = c.get("micro", 1)
     tape = []
     rows = 4 // micro
+    drops = [0]
     with (pinned_quantizers(tape, replay=False) if pin
-          else contextlib.nullcontext()):
-        parts = [loss_and_grads(cfg, CTX, copy.deepcopy(full),
+          else contextlib.nullcontext()), counting_drops(drops):
+        parts = [loss_and_grads(cfg, ctx, copy.deepcopy(full),
                                 {k: v[i * rows:(i + 1) * rows]
                                  for k, v in batch.items()}, 16)
                  for i in range(micro)]
@@ -93,7 +114,7 @@ def run_case(c):
         g_ref = {n: g / micro for n, g in g_ref.items()}
     sharding.SP_THRESHOLD = 64 if c.get("sp") else 4096
     mesh = TrainMesh(tuple(c["mesh"]))
-    out = {}
+    out = {"drops": drops[0]}
     for clip in (None, 1.0):
         opt = adamw(lr=1e-3, grad_clip=clip)
         zero1 = c["layout"] == "dpzero1"
@@ -101,7 +122,7 @@ def run_case(c):
                                   layout="dp" if zero1 else "2d")
         z = sharding.Zero1(mesh, p) if zero1 else None
         state = opt.init(p, zero1=z)
-        step = make_train_step_sharded(cfg, CTX, opt, mesh, global_batch=4,
+        step = make_train_step_sharded(cfg, ctx, opt, mesh, global_batch=4,
                                        layout=c["layout"], zero1=z,
                                        microbatches=micro, loss_chunk=16,
                                        return_grads=True)
@@ -160,7 +181,7 @@ CASES_2 = [
     _case("bitnet (2, 1) 2d fsdp", "bitnet-0.73b", [2, 1], fsdp=True),
     _case("bitnet (2, 1) dpzero1", "bitnet-0.73b", [2, 1], "dpzero1"),
     _case("mixtral (2, 1) dpzero1", "mixtral-8x22b", [2, 1], "dpzero1",
-          cfg=dict(capacity_factor=4.0), pinned=False),
+          cfg=dict(capacity_factor=4.0)),
     _case("hymba (2, 1) dpzero1", "hymba-1.5b", [2, 1], "dpzero1"),
     _case("xlstm (2, 1) dpzero1", "xlstm-350m", [2, 1], "dpzero1"),
     # 4 query heads on 1 KV head: K and V gathered whole
@@ -196,26 +217,38 @@ def results(tmp_path_factory):
             **_run(tmp_path_factory, CASES_4, 4)}
 
 
-@pytest.mark.parametrize("case", [c["name"] for c in CASES_2 + CASES_4])
-def test_sharded_step_matches_the_single_device_step(results, case):
-    for tag, r in results[case].items():
+def check_against_the_single_device_step(res):
+    """The file's gates on one case's results."""
+    for tag in ("noclip", "clip"):
+        r = res[tag]
         assert abs(r["loss"] - r["loss_ref"]) <= 2e-6 * abs(r["loss_ref"]), (
             tag, r)
         assert r["grad_err"] <= 2e-5, (tag, r)
-    noclip, clip = results[case]["noclip"], results[case]["clip"]
+    noclip, clip = res["noclip"], res["clip"]
     assert noclip["mom_exact"] and noclip["params_exact"], noclip
     assert clip["mom_err"] <= 2e-6, clip
 
 
+@pytest.mark.parametrize("case", [c["name"] for c in CASES_2 + CASES_4])
+def test_sharded_step_matches_the_single_device_step(results, case):
+    check_against_the_single_device_step(results[case])
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "hymba-1.5b",
                                   "xlstm-350m"])
-def test_moe_hymba_xlstm_refused_on_a_model_axis(arch):
+def test_moe_hymba_xlstm_tensor_parallel_only_on_a_model_axis(arch):
+    """Every kind runs tensor-parallel on a "model" axis of two ranks
+    (``test_torch_sharded_moe.py``, ``test_torch_sharded_recurrent.py``
+    hold the steps), and on none under (2, 1) ``2d`` or ``dpzero1``, whose
+    batch is split; a "model" axis that does not divide the heads is
+    refused."""
     cfg = get_config(arch).reduced(**REDUCED)
-    with pytest.raises(NotImplementedError, match="A1b"):
-        sharding.make_constrain(MeshShape((1, 2)), cfg, 4)
+    assert sharding.make_constrain(MeshShape((1, 2)), cfg, 4).tp
     for shape, layout in (((2, 1), "2d"), ((1, 2), "dpzero1")):
-        assert not sharding.make_constrain(MeshShape(shape), cfg, 4,
-                                           layout).tp
+        hook = sharding.make_constrain(MeshShape(shape), cfg, 4, layout)
+        assert not hook.tp and hook.n_batch == 2, (shape, layout)
+    with pytest.raises(NotImplementedError, match="n_heads"):
+        sharding.make_constrain(MeshShape((1, 3)), cfg, 4)
 
 
 GRANITE_BODY = '''
