@@ -68,9 +68,10 @@ prompt among the requests) and judged by the oracle on bf16 and f32
 caches, hymba's 2-token prefill decoded on against the 3-token prefill,
 and the kernel launches of one admission printed.  Phase 11 trains
 bitnet-0.73b with QAT on the card (``make_train_step``: STE linears, the
-flash backward, the chunked loss, AdamW): 8 steps at full width and depth
-whose loss, and that of a batch they never see, must fall; the trained
-masters packed and served by the engine, judged by the packed oracle, whose
+flash backward, the chunked loss, AdamW): 8 steps at full width, the first
+12 of 24 layers (``TRAIN11_LAYERS``: the cut is the run's time), whose
+loss, and that of a batch they never see, must fall; the trained masters
+packed and served by the engine, judged by the packed oracle, whose
 prefill logits are held to the QAT forward's; at 2 layers, one step on the
 card against the CPU (the CPU also replaying the card's quantized values,
 and a TF32 control that must fail that gradient gate), a checkpointed and
@@ -100,9 +101,15 @@ against the single-device engine (drop-free equal tokens but at router
 near-ties; at capacity factor 1.25 each rank counts its shard's rows, the
 differences printed); one QAT step of mixtral-8x22b (1 layer, experts
 split over "model", at 1.25 with a pair dropped) and xlstm-350m (4 layers)
-on (1, 2) and hymba-1.5b (4 layers) on (1, 5), each against the
-single-device step with its quantized values and routing replayed.  All
-phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+on (1, 2) and hymba-1.5b (4 layers) on (1, 5) and on (1, 2) (25 heads on
+2 ranks: the mixer runs whole on each), each against the single-device
+step with its quantized values and routing replayed.  Phase 15 runs the
+launchers: ``repro_torch.launch.serve`` serves bitnet-0.73b at full width
+and depth (8 requests, 16 tokens each, two judged by the packed oracle),
+and ``repro_torch.launch.dryrun`` estimates one training cell on ``meta``
+tensors, then runs it on the card: its argument bytes, its peak within
+20 % of the allocator's and its FLOPs equal to ``FlopCounterMode``'s on
+the card's step.  All phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -125,6 +132,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1051,9 +1059,13 @@ TRAIN_PARAM_LR_BOUND = 2.2
 TRAIN_GRAD_RTOL = 4e-5
 
 
+TRAIN11_LAYERS = 12   # phase 11 (a) and (d): bitnet's first 12 of 24 layers
+
+
 def phase11(dev, requests, max_seq, smi):
     """Phase 11: QAT training on the card, bitnet-0.73b, seed 11.  (a) At
-    full width and depth, batch 8 x seq 128 from the synthetic stream, lr
+    full width, its first TRAIN11_LAYERS layers, batch 8 x seq 128 from the
+    synthetic stream, lr
     3e-4 with the launcher's warmup, loss chunk 128: 8 steps of
     ``make_train_step``; the last loss below the first, and the loss of a
     batch never trained on lower after than before; s/step, tokens/s and
@@ -1092,7 +1104,8 @@ def phase11(dev, requests, max_seq, smi):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
-    cfg = get_config("bitnet-0.73b")
+    cfg = dataclasses.replace(get_config("bitnet-0.73b"),
+                              n_layers=TRAIN11_LAYERS)
     batch, seq, lr, chunk = 8, 128, 3e-4, 128
     ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=seq, attn_kv_chunk=seq)
 
@@ -2182,8 +2195,10 @@ SERVE14 = dict(layers=2, seed=14)
 # single-device step, every quantized value (weights by their gammas) and
 # MoE routing replayed; mixtral's batch is the first of 16 data seeds from
 # 14 whose single-device routing drops a pair at capacity factor 1.25
+# hymba's 25 heads on 2 ranks: "model" does not divide them, the mixer
+# runs whole on each rank (the same single-device step judges both)
 TRAIN14 = (("mixtral-8x22b", 1, (1, 2), 1), ("xlstm-350m", 4, (1, 2), 8),
-           ("hymba-1.5b", 4, (1, 5), 8))
+           ("hymba-1.5b", 4, (1, 2), 8), ("hymba-1.5b", 4, (1, 5), 8))
 T14 = dict(seq=128, lr=3e-4, chunk=128, seed=14)
 PHASE14_RANK_S = 150
 
@@ -2402,7 +2417,8 @@ def phase14(dev, requests, smi):
     activations, weight gammas and MoE routing each rank replays on its
     blocks: loss within 1e-5 relative, every gradient leaf within
     TRAIN_GRAD_RTOL of its largest, every parameter after AdamW within
-    TRAIN_PARAM_LR_BOUND lr of the single-device AdamW's.  The single-device
+    TRAIN_PARAM_LR_BOUND lr of the single-device AdamW's; hymba runs on
+    (1, 2) (its mixer whole on each rank) and on (1, 5).  The single-device
     runs go first and alone (mixtral's step alone holds ~35 GB); what the
     ranks are compared with goes through ``build/phase14``.  The phase
     within PHASE14_S.  Returns the failures found."""
@@ -2440,6 +2456,8 @@ def phase14(dev, requests, smi):
     # -- (b) the single-device steps, one model at a time -------------------
     refs = {}
     for name, layers, shape, rows in TRAIN14:
+        if name in refs:   # one single-device step judges every mesh
+            continue
         t0 = time.perf_counter()
         moe = bool(get_config(name).n_experts)
         data_seed = T14["seed"]
@@ -2604,6 +2622,178 @@ def phase14(dev, requests, smi):
     if took > PHASE14_S:
         failures.append(f"phase 14 took {took:.1f} s (gate {PHASE14_S} s)")
     return failures
+
+
+PHASE15_S = 90
+# (a): the serve launcher's flags; (b): the dry run's cell on the card
+SERVE15 = ["--full", "--n-requests", "8", "--max-new", "16"]
+CELL15 = dict(arch="bitnet-0.73b", seq=128, batch=8, seed=15)
+PEAK15_RTOL = 0.2
+# The caching allocator rounds a request up to 512 B; a request past 1 MiB
+# may take a cached free block whole when splitting it would leave no more
+# than 1 MiB, so its block exceeds it by up to that.
+ALLOC_BLOCK15 = 512
+ALLOC_SMALL15 = 1 << 20
+
+
+def _active_blocks() -> dict:
+    """{address: size} of the caching allocator's live blocks."""
+    return {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def phase15(dev, smi):
+    """Phase 15: the launchers on the card.  (a) ``launch.serve.main``
+    with SERVE15: bitnet-0.73b at full width and depth, 8 requests of
+    prompt lengths and tokens drawn as the JAX launcher draws them, every
+    request OK with 16 tokens in the vocabulary, requests 0 and 1 judged by
+    the packed-weight oracle on the engine's history (TOKEN_GAP), the
+    engine's admission (flash_chunk_prefill) and decode
+    (decode_attention) kernels and the oracle's prompt kernel
+    (flash_prefill) launched; tok/s and TTFT p50/p90.  (b)
+    ``launch.dryrun.build_cell`` of a "card" training cell (CELL15:
+    ``ShapeConfig("card", 128, 8, "train")``) on a (1, 1) mesh, estimated
+    on ``meta`` tensors (``dryrun.estimate``), then built on the card and
+    its step run once: ``argument_bytes`` equal to the card's bytes of the
+    same tensors, and the allocator's blocks made by the build exactly the
+    arguments' storages, summing to what ``memory_allocated`` says the
+    build holds, each its storage rounded up to ALLOC_BLOCK15 (plus at
+    most ALLOC_SMALL15 for a storage past that); ``peak_bytes_est`` within PEAK15_RTOL of the step's
+    ``max_memory_allocated`` (less what the card held before the cell was
+    built), and the estimate's FLOPs equal to ``FlopCounterMode`` on the
+    card's step.  The phase within PHASE15_S.  Returns (the kernels'
+    launches in the phase, the failures found)."""
+    import io
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving import RequestStatus
+    from repro_torch.serving.engine import reference_decode
+    failures = []
+    t_15 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    # -- (a) the serve launcher ----------------------------------------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        reqs = serve.main(SERVE15)
+    t_serve = time.perf_counter() - t0
+    serve_counts = kernels.launch_counts()
+    for line in out.getvalue().splitlines():
+        log(f"  (a) launch.serve: {line}")
+    cfg = get_config("bitnet-0.73b")
+    toks = [r.output.tolist() for r in reqs]
+    ttft = [r.ttft_s for r in reqs]
+    log(f"  (a) {len(reqs)} requests, prompt lengths "
+        f"{[len(r.prompt) for r in reqs]}, tokens {toks}; TTFT p50 "
+        f"{np.percentile(ttft, 50):.4f} s p90 {np.percentile(ttft, 90):.4f} "
+        f"s; launcher call {t_serve:.1f} s (init, packing and serving); "
+        f"launches {serve_counts}; {smi}")
+    if not (len(reqs) == 8 and all(
+            r.status == RequestStatus.OK and len(t) == 16
+            and all(0 <= x < cfg.vocab_size for x in t)
+            for r, t in zip(reqs, toks))):
+        failures.append("(a) not every request OK with 16 tokens in the "
+                        "vocabulary")
+    packed = transformer.init_packed_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))   # the launcher's
+    gaps = [max(reference_decode(cfg, packed, Ctx(), r.prompt, 16, 32 + 16,
+                                 torch.bfloat16, follow=r.output)[1])
+            for r in reqs[:2]]
+    del packed
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    log(f"  (a) requests 0 and 1 against the packed oracle on their "
+        f"history: largest gap {[round(g, 5) for g in gaps]} (limit "
+        f"{TOKEN_GAP})")
+    if max(gaps) > TOKEN_GAP:
+        failures.append(f"(a) oracle gaps {gaps}")
+    for name, n in (("flash_chunk_prefill", serve_counts),
+                    ("decode_attention", serve_counts),
+                    ("flash_prefill", counts)):
+        if n.get(name, 0) <= 0:
+            failures.append(f"(a) {name} did not launch")
+    t_a = time.perf_counter() - t_15
+    # -- (b) the dry run's cell, estimated, then run on the card ------------
+    mesh = make_host_mesh(dev)
+    shape = ShapeConfig("card", CELL15["seq"], CELL15["batch"], "train")
+    t0 = time.perf_counter()
+    est = dryrun.estimate(dryrun.build_cell(CELL15["arch"], shape, mesh))
+    t_meta = time.perf_counter() - t0
+    gc.collect()   # (a)'s engine gone before the reading starts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = _active_blocks()
+    base = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(CELL15["arch"], shape, mesh, device=dev,
+                             seed=CELL15["seed"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    # the allocator's blocks the build made, against the arguments' storages
+    made = {a: n for a, n in _active_blocks().items() if a not in before}
+    sizes = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+             for t in dryrun._flat(cell.args)}
+    slack = {a: made.get(a, -1) - -(-n // ALLOC_BLOCK15) * ALLOC_BLOCK15
+             for a, n in sizes.items()}
+    blocks_ok = (made.keys() == sizes.keys()
+                 and sum(made.values()) == held
+                 and all(0 <= slack[a] <= (ALLOC_SMALL15 if n > ALLOC_SMALL15
+                                           else 0)
+                         for a, n in sizes.items()))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = fc.get_total_flops()
+    loss = float(metrics["loss"])
+    mem = est["memory"]
+    rel = (mem["peak_bytes_est"] - peak) / peak
+    log(f"  (b) dry run cell {CELL15['arch']} train {CELL15['batch']} x "
+        f"{CELL15['seq']} on a (1, 1) mesh, estimated on meta in "
+        f"{t_meta:.1f} s: {json.dumps(est)}")
+    log(f"  (b) on the card: argument bytes {cell.local_bytes} against the "
+        f"estimate's {mem['argument_bytes']}; the allocator held {held} "
+        f"in {len(made)} blocks made by the build, for {len(sizes)} "
+        f"argument storages; blocks past their storage rounded up to "
+        f"{ALLOC_BLOCK15} B: {sum(x > 0 for x in slack.values())}, "
+        f"{sum(slack.values())} B in all, the most {max(slack.values())} B "
+        f"(a large block's bound {ALLOC_SMALL15}); "
+        f"max_memory_allocated for the step {peak} B ({peak / 2**30:.3f} "
+        f"GiB) against peak_bytes_est {mem['peak_bytes_est']} "
+        f"({mem['peak_bytes_est'] / 2**30:.3f} GiB): {rel:+.4f} (gate "
+        f"+-{PEAK15_RTOL}); FlopCounterMode {flops} against the estimate's "
+        f"{est['cost']['flops']:.0f}; loss {loss:.6f}; step {t_card:.2f} s; "
+        f"{smi}")
+    if cell.local_bytes != mem["argument_bytes"]:
+        failures.append(f"(b) argument bytes {cell.local_bytes} != "
+                        f"{mem['argument_bytes']}")
+    if not blocks_ok:
+        failures.append(f"(b) the allocator's {len(made)} new blocks "
+                        f"({sum(made.values())} B, held {held}) are not the "
+                        f"{len(sizes)} argument storages within its rounding")
+    if abs(rel) > PEAK15_RTOL:
+        failures.append(f"(b) peak estimate off by {rel:+.4f}")
+    if flops != est["cost"]["flops"]:
+        failures.append(f"(b) FLOPs {flops} != {est['cost']['flops']}")
+    if not math.isfinite(loss):
+        failures.append(f"(b) loss {loss}")
+    del cell
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_15
+    log(f"phase 15: {took:.1f} s ((a) {t_a:.1f} s, (b) {took - t_a:.1f} s); "
+        f"launches {counts}")
+    if took > PHASE15_S:
+        failures.append(f"phase 15 took {took:.1f} s (gate {PHASE15_S} s)")
+    return counts, failures
 
 
 def main() -> int:
@@ -4124,12 +4314,18 @@ def run() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    log(f"-- phase 15 at {time.perf_counter() - t_main:.1f} s")
+    p15_counts, p15_failures = phase15(dev, smi)
+    failures += p15_failures
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
             robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
             bf16_counts, ffn_wide_counts, p9_counts, p10_counts, p11_counts,
-            p12_counts, p14_counts))
+            p12_counts, p14_counts, p15_counts))
 
     took = time.perf_counter() - t_main
     log(f"-- all phases done at {took:.1f} s")

@@ -3,7 +3,8 @@ package's architectures and the paper's own model, in the JAX order."""
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ModelConfig, ShapeConfig, shape_applicable)
 
 ARCHS = [
     "xlstm-350m",
@@ -18,6 +19,8 @@ ARCHS = [
     "mixtral-8x22b",
     "bitnet-0.73b",   # the paper's own model
 ]
+
+PAPER_ARCH = "bitnet-0.73b"
 
 
 def get_config(name: str) -> ModelConfig:

@@ -3,12 +3,13 @@
 Every field keeps the JAX name and default so a configuration reads the
 same in both packages; the port runs every block kind: ``"attn"`` (dense
 or MoE, token or embed frontend), ``"hymba"`` and ``"xlstm_pair"``.
+The four input shapes of the dry run are ``ShapeConfig``s (``SHAPES``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +83,28 @@ class ModelConfig:
             changes.update(n_experts=ne, top_k=min(self.top_k, ne))
         changes.update(extra)
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode | long_decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "long_decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runnable, reason-if-skipped), the JAX package's rule: a 500k-token
+    decode needs sub-quadratic attention."""
+    if shape.kind == "long_decode" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k decode needs "
+                       "sub-quadratic attention (DESIGN.md §5)")
+    return True, ""

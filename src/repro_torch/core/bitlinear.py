@@ -95,9 +95,7 @@ def apply_qat(p: Linear, x: torch.Tensor, *, int8_fwd: bool = False,
     token's absmax are the whole tensors' (a row-parallel linear's output
     is then a partial sum, which the caller reduces)."""
     if int8_fwd:
-        if parts is not None:
-            raise NotImplementedError("qat_int8_fwd on a training mesh")
-        y = Int8STEMatmul.apply(x, p.w)
+        y = Int8STEMatmul.apply(x, p.w, parts)
     elif parts is None:
         w = ternary.ternarize_ste(p.w)
         x = ternary.absmax_quant_ste(x)
@@ -116,6 +114,15 @@ def apply_qat(p: Linear, x: torch.Tensor, *, int8_fwd: bool = False,
 _EXACT_F32_REDUCTION = (1 << 24) // 127
 
 
+def int8_operands(x: torch.Tensor, w: torch.Tensor, parts=None) -> tuple:
+    """The integer path's quantized operands as f32: (x's int8 values, its
+    per-token scales, gamma).  ``parts`` as in :func:`apply_qat`."""
+    xq, xs = ternary.absmax_quant_values(
+        x, reciprocal=True, part=parts.x if parts is not None else None)
+    gamma = ternary.ste_gamma(w, part=parts.w if parts is not None else None)
+    return xq, xs, gamma
+
+
 class Int8STEMatmul(torch.autograd.Function):
     """(..., n) x (n, k): the QAT forward on the integer path, STE backward.
 
@@ -124,31 +131,35 @@ class Int8STEMatmul(torch.autograd.Function):
     then ``acc * x_scale * gamma``.  Backward, straight through both
     quantizers as the reference's ``_int8_bwd``: dx = g (gamma W_t)^T,
     dW = x_hat^T g, with x_hat the dequantized int8 activations.  The
-    reference computes both with ``jnp.dot`` outside any Pallas kernel."""
+    reference computes both with ``jnp.dot`` outside any Pallas kernel.
+    ``parts`` as in :func:`apply_qat`: gamma and each token's absmax are
+    the whole tensors'.  The forward keeps the int8 values, their scales
+    and gamma for the backward, which so issues no collective."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                parts=None) -> torch.Tensor:
         n = x.shape[-1]
         assert n < _EXACT_F32_REDUCTION, (
             f"reduction {n} too long for an exact f32 integer product")
-        xq, xs = ternary.absmax_quant(x.reshape(-1, n), reciprocal=True)
-        wt, gamma = ternary.ternarize(w)
-        acc = xq.float() @ wt.float()
-        y = (acc * xs * gamma).to(x.dtype)
-        ctx.save_for_backward(x, w)
+        xq, xs, gamma = int8_operands(x, w, parts)
+        wt = torch.clamp(torch.round(w.float() / gamma), -1.0, 1.0)
+        acc = xq.reshape(-1, n) @ wt
+        y = (acc * xs.reshape(-1, 1) * gamma).to(x.dtype)
+        ctx.save_for_backward(xq.to(torch.int8), xs, w, gamma)
+        ctx.x_dtype = x.dtype
         return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x, w = ctx.saved_tensors
-        wt, gamma = ternary.ternarize(w)
-        w_deq = (wt.float() * gamma).to(x.dtype)
-        xq, xs = ternary.absmax_quant(x, reciprocal=True)
-        x_deq = (xq.float() * xs).to(x.dtype)
+        xq, xs, w, gamma = ctx.saved_tensors
+        wt = torch.clamp(torch.round(w.float() / gamma), -1.0, 1.0)
+        w_deq = (wt * gamma).to(ctx.x_dtype)
+        x_deq = (xq.float() * xs).to(ctx.x_dtype)
         dx = g @ w_deq.t()
-        dw = (x_deq.reshape(-1, x.shape[-1]).t()
+        dw = (x_deq.reshape(-1, xq.shape[-1]).t()
               @ g.reshape(-1, g.shape[-1])).to(w.dtype)
-        return dx, dw
+        return dx, dw, None
 
 
 def apply_packed(p: PackedLinear, x: torch.Tensor, *, matmul: str = "tlmm",

@@ -35,6 +35,13 @@ def index_bits(g: int) -> int:
     return (3 ** g - 1).bit_length()
 
 
+def bits_per_weight(g: int, container_bits: int = 8) -> float:
+    """Effective bits a weight when each group index lives in its own
+    container: 1.6 at g = 5 in a byte; the paper packs 5-bit (g = 3)
+    indices into 72-bit URAM words, 1.67 bits a weight."""
+    return container_bits / g
+
+
 # ---------------------------------------------------------------------------
 # Ternary weight quantization (BitNet b1.58 absmean recipe)
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@ token is ``(31 * prev + 7) % vocab``, else uniform), drawn with numpy
 exactly as the JAX package draws it, so a batch is bit for bit the
 reference's; for ``frontend="embed"`` configs the inputs are synthetic
 frame/patch embeddings.  Batches come as torch tensors on ``device``.
+``make_batch_specs`` gives a batch's shapes and dtypes as tensors on the
+``meta`` device (the dry run's input; JAX's ``ShapeDtypeStruct``s).
 """
 
 from __future__ import annotations
@@ -61,3 +63,20 @@ class SyntheticLMDataset:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_specs(cfg: ModelConfig, global_batch: int, seq_len: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: str | torch.device = "meta") -> dict:
+    """Stand-ins for one training batch: {"inputs": (b, s) int32 ids, or
+    (b, s, d_model) ``dtype`` embeddings; "labels": (b, s) int32}, empty
+    tensors on ``device`` (``meta``: shapes and dtypes, no storage)."""
+    if cfg.frontend == "token":
+        inputs = torch.empty((global_batch, seq_len), dtype=torch.int32,
+                             device=device)
+    else:
+        inputs = torch.empty((global_batch, seq_len, cfg.d_model),
+                             dtype=dtype, device=device)
+    return {"inputs": inputs,
+            "labels": torch.empty((global_batch, seq_len), dtype=torch.int32,
+                                  device=device)}

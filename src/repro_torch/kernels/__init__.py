@@ -8,8 +8,8 @@ Each kernel package holds
   ref.py    — the plain PyTorch version of the same function.
 
 The choice is made by where the tensor lies, never by a setting: a CUDA
-tensor launches the kernel (or raises), a CPU tensor takes the plain
-version.  Counterpart of ``repro/kernels`` and its ``default_interpret()``.
+tensor launches the kernel (or raises), a CPU (or ``meta``) tensor takes
+the plain version.  Counterpart of ``repro/kernels`` and its ``default_interpret()``.
 """
 
 import torch
@@ -17,10 +17,11 @@ import torch
 
 def on_card(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (take the plain version); any other device raises."""
+    or a ``meta`` one (the dry run's shapes) (take the plain version); any
+    other device raises."""
     if x.is_cuda:
         return True
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"{what} has no path for device {x.device}")
     return False
 

@@ -220,6 +220,20 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor, style: str
     raise ValueError(style)
 
 
+def rope_weight_permutation(hd: int) -> torch.Tensor:
+    """The paper's eq. 6: the per-head index exchange that turns weights
+    for interleaved RoPE into weights for consecutive RoPE losslessly.
+    perm[2t] = t, perm[2t + 1] = hd/2 + t (int64): gathering a head's
+    output columns of interleaved-RoPE weights by ``perm`` gives weights
+    whose consecutive-RoPE output, reordered by the same ``perm``, equals
+    the interleaved-RoPE output."""
+    t = torch.arange(hd // 2)
+    perm = torch.empty(hd, dtype=torch.int64)
+    perm[0::2] = t
+    perm[1::2] = hd // 2 + t
+    return perm
+
+
 # ---------------------------------------------------------------------------
 # SwiGLU MLP (gate/up/down — the three TLMM sizes)
 # ---------------------------------------------------------------------------
@@ -509,9 +523,9 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     if c is not None and c.n_batch > 1:
         counts = torch.zeros((total // span, n_experts), dtype=torch.int64,
                              device=x.device)
-        for (_, _, chunk), r in zip(pieces, routes):
-            counts[chunk] += torch.bincount(r["flat_idx"],
-                                            minlength=n_experts)
+        experts = torch.arange(n_experts, device=x.device)
+        for (_, _, chunk), r in zip(pieces, routes):   # no data-sized op
+            counts[chunk] += (r["flat_idx"][:, None] == experts).sum(0)
         offsets = c.route_offsets(counts)
     cap = max(int(span * top_k / n_experts * capacity_factor), top_k)
     outs = [_moe_dispatch(p, x[a:b], r,

@@ -471,42 +471,65 @@ def _xlstm_pair_apply(cfg, ctx, x, p, cache, phase):
             ("ln1", "mlstm", xlstm.mlstm_forward, xlstm.mlstm_step,
              {"chunk": cfg.ssm_chunk or 128}),
             ("ln2", "slstm", xlstm.slstm_forward, xlstm.slstm_step, {})):
-        h = ctx.c(layers.rmsnorm(p[norm], x, cfg.norm_eps), "tp_in")
+        h = _mixer_in(ctx, layers.rmsnorm(p[norm], x, cfg.norm_eps))
+        mctx, pm = _mixer(ctx, p[name])
         if phase == "full":
-            out = forward(p[name], h, ctx, return_state=cache is not None,
+            out = forward(pm, h, mctx, return_state=cache is not None,
                           **kw, **extra)
             if cache is not None:
                 out, state = out
                 _write_state(cache[name], state)
         else:
-            out, state = step(p[name], h, cache[name], ctx, **kw)
+            out, state = step(pm, h, cache[name], mctx, **kw)
             _write_state(cache[name], state)
-        x = x + out
+        x = x + _mixer_out(ctx, out)
     return x
+
+
+def _mixer_in(ctx: Ctx, h: torch.Tensor) -> torch.Tensor:
+    """A block's normed input entering its mixer (``Constrain.mixer_in``:
+    Megatron's f, or the whole residual for a mixer run whole)."""
+    c = ctx.constrain
+    return c.mixer_in(h) if c is not None else h
+
+
+def _mixer(ctx: Ctx, p):
+    """(context, weights) a mixer runs with: on a "model" axis that does
+    not divide the heads, hooks off and weights gathered whole."""
+    c = ctx.constrain
+    if c is None:
+        return ctx, p
+    return c.mixer_ctx(ctx), c.mixer_params(p)
+
+
+def _mixer_out(ctx: Ctx, y: torch.Tensor) -> torch.Tensor:
+    c = ctx.constrain
+    return c.mixer_out(y) if c is not None else y
 
 
 def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
                  chunk_mask=None, page_table=None):
     if cfg.block_kind == "xlstm_pair":
         return _xlstm_pair_apply(cfg, ctx, x, p, cache, phase)
-    h = ctx.c(layers.rmsnorm(p["ln1"], x, cfg.norm_eps), "tp_in")
-    attn_out = _attn_apply(cfg, ctx, p["attn"], h, cache, positions, phase,
+    h = _mixer_in(ctx, layers.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    mctx, pa = _mixer(ctx, p["attn"])
+    attn_out = _attn_apply(cfg, mctx, pa, h, cache, positions, phase,
                            cache_len, chunk_mask, page_table)
     if cfg.block_kind == "hymba":
         # attention and SSM heads in parallel on the same input, averaged
         kw = dict(n_heads=cfg.n_heads, head_dim=cfg.hd, state=cfg.ssm_state)
+        ps = _mixer(ctx, p["ssm"])[1]
         if phase == "full":
-            ssm_out = ssm.ssm_forward(p["ssm"], h, ctx, chunk=cfg.ssm_chunk,
+            ssm_out = ssm.ssm_forward(ps, h, mctx, chunk=cfg.ssm_chunk,
                                       return_state=cache is not None, **kw)
             if cache is not None:
                 ssm_out, state = ssm_out
                 _write_state(cache["ssm"], state)
         else:
-            ssm_out, state = ssm.ssm_step(p["ssm"], h, cache["ssm"], ctx,
-                                          **kw)
+            ssm_out, state = ssm.ssm_step(ps, h, cache["ssm"], mctx, **kw)
             _write_state(cache["ssm"], state)
         attn_out = 0.5 * (attn_out + ssm_out.to(attn_out.dtype))
-    x = x + attn_out
+    x = x + _mixer_out(ctx, attn_out)
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     c = ctx.constrain
     tp = c is not None and c.tp

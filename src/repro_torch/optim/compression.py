@@ -13,9 +13,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.ternary import INV_127
+from repro_torch.runtime.collectives import group_collectives
 
 
 def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,7 +42,8 @@ def compressed_psum(grads: dict, errs: dict, group=None
     scales cross the group (each in one all-reduce over every leaf, which
     sums element by element as one a leaf would); the result is
     ``q_sum * (scale_sum / n) / n`` with n the group's size, and the new
-    error what this rank's round trip lost."""
+    error what this rank's round trip lost.  ``group`` is a process group
+    or a whole training mesh (``collectives.group_collectives``)."""
     names = list(grads)
     qs, scales, new_errs = [], [], {}
     for n in names:
@@ -53,10 +54,11 @@ def compressed_psum(grads: dict, errs: dict, group=None
         scales.append(scale.reshape(1))
     q_sum = torch.cat(qs)
     scale_sum = torch.cat(scales)
-    dist.all_reduce(q_sum, group=group)
-    dist.all_reduce(scale_sum, group=group)
-    size = torch.tensor(float(dist.get_world_size(group)),
-                        dtype=torch.float32, device=q_sum.device)
+    world, _, all_reduce = group_collectives(group)
+    all_reduce(q_sum)
+    all_reduce(scale_sum)
+    size = torch.tensor(float(world), dtype=torch.float32,
+                        device=q_sum.device)
     out, lo = {}, 0
     for i, n in enumerate(names):
         g = grads[n]

@@ -24,7 +24,15 @@ collective runs on the tensor itself.
 
 A :class:`TrainMesh` is a ("data", "model") grid over every rank of the
 default group, rank ``i * model + j`` at coordinate ``(i, j)``; its groups
-are made with ``dist.new_group`` by every rank in the same order.  The
+are made with ``dist.new_group`` by every rank in the same order, one a
+line of each axis (a one-rank line too: the serving engine asks for the
+group of each axis, ``get_group``).  Every mesh counts the bytes its
+collectives give this rank (the result's bytes, JAX's per-device count
+of a collective's HLO result) by JAX's kinds (``collective_bytes``).  A
+:class:`DryMesh` has a mesh's shape and a rank's place on it, no process
+groups: each collective returns a tensor of the right local shape and
+only counts (the dry run's one rank of a production mesh, on ``meta``
+tensors).  The
 autograd functions at the bottom are Megatron's ``f`` (identity forward,
 all-reduce backward) and ``g`` (the converse), and the sequence-parallel
 pair: an all-gather whose backward reduce-scatters, and a reduce-scatter
@@ -46,6 +54,10 @@ def as_axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
 class MeshShape:
     """A mesh's axis names and sizes and one rank's coordinate on it, with
     no process groups: what the specs and a rank's slices need."""
@@ -60,6 +72,18 @@ class MeshShape:
         self.grid = torch.arange(math.prod(shape)).reshape(shape)
         self.coord = dict(zip(names, (int(c) for c in torch.nonzero(
             self.grid == rank)[0])))
+        self.collective_bytes = dict.fromkeys(KINDS, 0)
+
+    def count(self, kind: str, t: torch.Tensor) -> None:
+        """Add a collective's result ``t`` to this rank's bytes of
+        ``kind``."""
+        self.collective_bytes[kind] += t.numel() * t.element_size()
+
+    def reset_collective_bytes(self) -> dict:
+        """The counts so far, and every count back to 0."""
+        out = dict(self.collective_bytes)
+        self.collective_bytes = dict.fromkeys(KINDS, 0)
+        return out
 
     # -- the mesh's shape ---------------------------------------------------
 
@@ -112,10 +136,19 @@ class TrainMesh(MeshShape):
         for i, name in enumerate(names):
             lines = self.grid.movedim(i, -1).reshape(-1, shape[i])
             for line in lines.tolist():   # every rank makes every group
-                g = dist.new_group(line) if shape[i] > 1 else None
+                g = dist.new_group(line)
                 if self.rank in line:
                     self.groups[(name,)] = g
         self.groups[tuple(names)] = None if world == 1 else dist.group.WORLD
+
+    # -- the serving engine's DeviceMesh surface ----------------------------
+
+    def get_group(self, axis: str):
+        """The process group of one axis (the line through this rank)."""
+        return self.groups[(axis,)]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coord[axis]
 
     def _group(self, axes):
         axes = as_axes(axes)
@@ -134,6 +167,7 @@ class TrainMesh(MeshShape):
         """``t`` summed (or ``op``) over ``axes``, in place."""
         if self.axis_size(axes) == 1:
             return t
+        self.count("all-reduce", t)
         h = self._host(t)
         dist.all_reduce(h, op=op, group=self._group(axes))
         if h is not t:
@@ -150,6 +184,7 @@ class TrainMesh(MeshShape):
         out = torch.empty((n * h.shape[0],) + tuple(h.shape[1:]),
                           dtype=h.dtype, device=h.device)
         dist.all_gather_into_tensor(out, h, group=self._group(axes))
+        self.count("all-gather", out)
         return out.to(t.device).movedim(0, dim)
 
     def full_part(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
@@ -185,6 +220,56 @@ class TrainMesh(MeshShape):
         (whole and equal on every rank); the backward all-gathers."""
         return x if self.axis_size(axes) == 1 else _Scatter.apply(
             x, self, axes, dim, reduce)
+
+
+class DryMesh(TrainMesh):
+    """One rank (``rank``, 0 by default) of a mesh of ``shape`` with no
+    process groups, and the collective surface of :class:`TrainMesh`: an
+    all-reduce leaves its tensor as it is, an all-gather returns this
+    rank's block repeated to the gathered shape, and each counts the bytes
+    the real one would give this rank.  Autograd's functions run over it
+    as over a real mesh.  The dry run's mesh when the world does not have
+    the production mesh's ranks; its values mean nothing, its shapes and
+    counts are the real ones."""
+
+    def __init__(self, shape: tuple, names: tuple = ("data", "model"),
+                 rank: int = 0):
+        MeshShape.__init__(self, shape, names, rank)
+        self.backend, self.staged, self.groups = None, False, {}
+
+    def get_group(self, axis: str):
+        raise ValueError("a DryMesh has no process groups")
+
+    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM):
+        if self.axis_size(axes) > 1:
+            self.count("all-reduce", t)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        n = self.axis_size(axes)
+        if n == 1:
+            return t
+        out = torch.cat([t] * n, dim)
+        self.count("all-gather", out)
+        return out
+
+
+def group_collectives(group):
+    """(size, rank, all_reduce) of a process group (None: the default
+    group) or of a whole training mesh (every axis of a
+    :class:`TrainMesh`, counted, or of a :class:`DryMesh`, only counted):
+    what a data-parallel step over ``group`` needs.  ``all_reduce(t)``
+    sums in place and returns ``t``."""
+    if isinstance(group, TrainMesh):
+        axes = group.mesh_dim_names
+        return (group.axis_size(axes), group.index(axes),
+                lambda t: group.all_reduce(t, axes))
+
+    def reduce(t):
+        dist.all_reduce(t, group=group)
+        return t
+
+    return dist.get_world_size(group), dist.get_rank(group), reduce
 
 
 class _CopyTo(torch.autograd.Function):

@@ -21,7 +21,8 @@ The training half follows: which dimension of each parameter, batch and
 optimizer-state leaf a training mesh splits (``param_spec``,
 ``shard_params``, ``batch_spec``, ``shard_opt_state_zero1``), and the
 ``Ctx.constrain`` hook (``make_constrain``) that puts activations in
-those layouts with manual collectives (``runtime/collectives.py``).  A
+those layouts with manual collectives (``runtime/collectives.py``); and
+JAX's cache specs (``cache_sharding``).  A
 training mesh is a ``collectives.TrainMesh`` (or, for specs alone, a
 ``collectives.MeshShape``); any object with ``mesh_dim_names`` and
 ``size(i)`` serves the spec functions.  Rules, as the JAX package's (a
@@ -274,6 +275,34 @@ def shard_opt_state_zero1(mesh, shapes: dict) -> dict:
     return {n: one(tuple(sh)) for n, sh in shapes.items()}
 
 
+def cache_sharding(mesh, cache: dict, global_batch: int) -> dict:
+    """Specs of a cache's planes (a dict nested as the cache, of tensors
+    or of anything with a ``shape``), JAX's rules: K/V (L, b, S, kv_h, hd)
+    and their scales (L, b, S, kv_h) split the batch over ("pod", "data")
+    and the sequence over "model"; a batch no batch axis divides (a
+    long-context batch of one) leaves the batch whole and splits the
+    sequence over ("data", "model"), "model" or "data"; a recurrent state
+    (L, b, ...) splits its batch where it can."""
+    ba = _fit(mesh, global_batch, batch_axes(mesh), "data")
+
+    def one(name, shape):
+        shape = tuple(shape)
+        if (name in ("k", "v") and len(shape) == 5) or (
+                name in ("k_scale", "v_scale") and len(shape) == 4):
+            if ba is not None:
+                seq = _fit(mesh, shape[2], "model")
+                return (None, ba, seq) + (None,) * (len(shape) - 3)
+            seq = _fit(mesh, shape[2], ("data", "model"), "model", "data")
+            return (None, None, seq) + (None,) * (len(shape) - 3)
+        if len(shape) >= 2:
+            ba2 = _fit(mesh, shape[1], batch_axes(mesh), "data")
+            return (None, ba2) + (None,) * (len(shape) - 2)
+        return (None,) * len(shape)
+
+    return {n: (cache_sharding(mesh, v, global_batch) if isinstance(v, dict)
+                else one(n, v.shape)) for n, v in cache.items()}
+
+
 # ---------------------------------------------------------------------------
 # The training half: Ctx.constrain
 # ---------------------------------------------------------------------------
@@ -387,6 +416,18 @@ class Constrain:
       weights, ``A_log``, ``D``, ``dt_bias``, sLSTM's ``r``) are whole and
       cut to the rank's heads (``shared``).
 
+    Where "model" does not divide ``n_heads`` (``whole_mixer``), JAX's
+    spec cuts columns inside a head.  The port then runs the block's mixer
+    (the attention, with hymba's SSM beside it, or an xLSTM pair's mLSTM
+    and sLSTM) whole on every "model" rank: its weights, stored in JAX's
+    column parts all the same, are gathered whole (``whole(partial=
+    False)``: each rank keeps only its block of their gradient, not summed,
+    since every rank computes the same mixer on the same batch rows), its
+    input is the whole residual (``mixer_in``: under sequence parallelism
+    the sequence gathered) and its output is cut back (``mixer_out``);
+    inside, ``mixer_ctx`` turns every hook off.  The FFN after it stays
+    tensor-parallel.
+
     A leaf every rank holds whole but uses only its part of (``shared``,
     ``whole(partial=True)``) has its gradient summed over "model".
 
@@ -416,11 +457,8 @@ class Constrain:
         self.ffn_split = self.tp and bool(cfg.d_ff) and cfg.d_ff % m == 0
         self.n_batch = axis_size(mesh, self.batch)
         self._sp_now, self._seq = False, None
-        if self.tp and cfg.n_heads % m:
-            raise NotImplementedError(
-                f"{cfg.name}: {m} model ranks must divide n_heads "
-                f"{cfg.n_heads} (JAX's spec then cuts columns inside a "
-                "head: ROADMAP A, still to port)")
+        # "model" does not divide the heads: the mixer runs whole
+        self.whole_mixer = self.tp and cfg.n_heads % m != 0
 
     @property
     def sp_now(self) -> bool:
@@ -454,6 +492,49 @@ class Constrain:
         if kind == "logits":
             return x
         raise ValueError(f"unknown constrain kind {kind!r}")
+
+    # -- a mixer run whole on every "model" rank (``whole_mixer``) ----------
+
+    def mixer_in(self, h: torch.Tensor) -> torch.Tensor:
+        """A block's normed input entering its mixer: ``tp_in`` when the
+        mixer is split on heads; for a whole mixer the whole residual (no
+        f: the gradient every rank takes back is the same whole one), under
+        sequence parallelism the sequence gathered (each rank keeps its
+        part of the gradient)."""
+        if not self.whole_mixer:
+            return self(h, "tp_in")
+        return (self.mesh.gather(h, "model", 1, partial=False)
+                if self._sp_now else h)
+
+    def mixer_out(self, y: torch.Tensor) -> torch.Tensor:
+        """A whole mixer's output back to the residual's layout: under
+        sequence parallelism this rank's part of the sequence."""
+        if self.whole_mixer and self._sp_now:
+            return self.mesh.scatter(y, "model", 1, reduce=False)
+        return y
+
+    def mixer_ctx(self, ctx):
+        """The context a whole mixer runs under: every hook an identity
+        (the batch split stays, for the quantizers' parts)."""
+        if not self.whole_mixer:
+            return ctx
+        off = copy.copy(self)
+        off.tp = off.sp = off.vocab_split = off.ffn_split = False
+        off.whole_mixer = off._sp_now = False
+        return dataclasses.replace(ctx, constrain=off)
+
+    def mixer_params(self, p):
+        """A mixer's weights as it runs them: gathered whole for a whole
+        mixer (each rank's gradient cut back to its block, not summed)."""
+        return self.whole(p, partial=False) if self.whole_mixer else p
+
+    def sp_partial(self, name: str) -> bool:
+        """Under sequence parallelism, whether the gradient of the block
+        leaf ``name`` that "model" does not split is a partial sum over
+        "model" (each rank saw its part of the sequence): all but a whole
+        mixer's, whose every rank saw the whole sequence."""
+        return not (self.whole_mixer and re.match(
+            r"layers\.\d+\.(attn|ssm|mlstm|slstm)\.", name))
 
     def row_out(self, y: torch.Tensor) -> torch.Tensor:
         """A row-parallel linear's partial sums, summed over "model": the

@@ -22,8 +22,9 @@ import contextlib
 
 import torch
 
-from repro_torch.core import ternary
+from repro_torch.core import bitlinear, ternary
 from repro_torch.models import layers, xlstm
+from repro_torch.runtime.sharding import Part
 
 
 def _replayed(tape: list):
@@ -44,7 +45,8 @@ def _replayed(tape: list):
 @contextlib.contextmanager
 def pinned_quantizers(tape: list, replay: bool, *, gammas: bool = False):
     """Record each QAT quantizer's forward value (``absmax_quant_ste``,
-    ``ternarize_ste``), in call order, into ``tape`` on the CPU; with
+    ``ternarize_ste``; the integer path's ``bitlinear.int8_operands``), in
+    call order, into ``tape`` on the CPU; with
     ``replay``, give the recorded values back in that order instead,
     straight through.  Two devices that replay one tape run the same int8
     and ternary codes.  A rank of a training mesh replaying a tape recorded
@@ -53,8 +55,12 @@ def pinned_quantizers(tape: list, replay: bool, *, gammas: bool = False):
     replay takes the weight's ternary value at the recorded gamma
     (``ternary.ternary_ste_at``), the same bits for the same master
     weights, and the tape stays the size of the activations (a full-width
-    expert bank's values are 3.2 GB)."""
-    saved = (ternary.absmax_quant_ste, ternary.ternarize_ste)
+    expert bank's values are 3.2 GB).  The integer path's entry is its
+    int8 values, scales and gamma; a rank replaying it also computes its
+    own scales and gamma over the mesh and asserts them within 1e-4 of the
+    recorded ones (a missing or wrong reduction is off by far more)."""
+    saved = (ternary.absmax_quant_ste, ternary.ternarize_ste,
+             bitlinear.int8_operands)
     take, check_used = _replayed(tape)
 
     def pin(fn):
@@ -80,12 +86,32 @@ def pinned_quantizers(tape: list, replay: bool, *, gammas: bool = False):
             tape.append(g.detach().cpu())
         return ternary.ternary_ste_at(w, g.to(w.device))
 
+    def pin_int8(x, w, parts=None):
+        if not replay:
+            out = saved[2](x, w, parts)
+            tape.append(tuple(t.detach().cpu() for t in out))
+            return out
+        xq, xs, g = (t.to(x.device) for t in take())
+        if parts is not None:   # this rank's block; a scale a row
+            xq = parts.x.local(xq)
+            xs = (Part(parts.x.mesh, parts.x.spec[:-1] + (None,))
+                  if isinstance(parts.x, Part) else parts.x).local(xs)
+            # the rank's own statistics, reduced over the mesh, must be
+            # the recorded whole ones but for the order of their sums
+            _, xs_own, g_own = saved[2](x, w, parts)
+            for own, rec in ((xs_own, xs), (g_own, g)):
+                err = ((own - rec).abs().max() / rec.abs().max()).item()
+                assert err <= 1e-4, f"int8 operand statistic off by {err}"
+        return xq, xs, g
+
     ternary.absmax_quant_ste = pin(saved[0])
     ternary.ternarize_ste = pin_gamma if gammas else pin(saved[1])
+    bitlinear.int8_operands = pin_int8
     try:
         yield tape
     finally:
-        ternary.absmax_quant_ste, ternary.ternarize_ste = saved
+        (ternary.absmax_quant_ste, ternary.ternarize_ste,
+         bitlinear.int8_operands) = saved
     if replay:
         check_used()
 

@@ -2,6 +2,9 @@
 data-parallel and on a ("data", "model") training mesh: the training half
 of ``repro/training/steps.py``.
 
+``make_prefill_fn`` and ``make_decode_fn`` close over the serving entry
+points as the JAX ones do (the dry run's serving cells).
+
 A step takes the parameter ``ModuleDict`` (float masters), an
 ``AdamWState`` and a batch {"inputs", "labels"}, updates the parameters in
 place and returns (params, opt_state, {"loss"}), the JAX step's shape.
@@ -15,14 +18,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import Ctx
 from repro_torch.optim import compression
 from repro_torch.optim.adamw import Optimizer, apply_updates, trainable
-from repro_torch.runtime import sharding
+from repro_torch.runtime import collectives, sharding
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -115,9 +117,10 @@ def make_train_step_ddp(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
     ranks.  ``train_step(params, opt_state, err, batch) -> (params,
     opt_state, err, {"loss"[, "grads"]})``; with ``return_grads`` the
     metrics carry a copy of the reduced gradients the update used, taken
-    before AdamW clips them in place."""
-    world = dist.get_world_size(group)
-    rank = dist.get_rank(group)
+    before AdamW clips them in place.  ``group`` may also be a training
+    mesh, all of whose ranks split the batch
+    (``collectives.group_collectives``)."""
+    world, rank, all_reduce = collectives.group_collectives(group)
 
     def train_step(params, opt_state, err, batch):
         rows = batch["inputs"].shape[0] // world
@@ -129,15 +132,14 @@ def make_train_step_ddp(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
         else:
             names = list(grads)
             flat = torch.cat([grads[n].float().reshape(-1) for n in names])
-            dist.all_reduce(flat, group=group)
+            all_reduce(flat)
             out, lo = {}, 0
             for n in names:
                 g = grads[n]
                 out[n] = flat[lo:lo + g.numel()].reshape(g.shape) / world
                 lo += g.numel()
             grads = out
-        loss = loss.clone()
-        dist.all_reduce(loss, group=group)
+        loss = all_reduce(loss.clone())
         metrics = {"loss": loss / world}
         if return_grads:
             metrics["grads"] = {n: g.clone() for n, g in grads.items()}
@@ -257,7 +259,8 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
         grads = {n: g.float() for n, g in grads.items()}
         if hooks.sp:   # norms under sequence parallelism: partial sums
             part = [n for n in grads if n.startswith("layers.")
-                    and "model" not in split_axes(specs[n])]
+                    and "model" not in split_axes(specs[n])
+                    and hooks.sp_partial(n)]
             for n, g in zip(part, _flat_all_reduce(
                     mesh, [grads[n] for n in part], "model")):
                 grads[n] = g
@@ -285,3 +288,20 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
 
     return train_step
 
+
+
+def make_prefill_fn(cfg: ModelConfig, ctx: Ctx):
+    """``prefill_fn(params, inputs, cache) -> (logits, cache)``:
+    ``transformer.prefill_step``."""
+    def prefill_fn(params, inputs, cache):
+        return transformer.prefill_step(cfg, params, inputs, ctx, cache)
+    return prefill_fn
+
+
+def make_decode_fn(cfg: ModelConfig, ctx: Ctx):
+    """``decode_fn(params, inputs, cache, cache_len) -> (logits, cache)``:
+    ``transformer.decode_step``."""
+    def decode_fn(params, inputs, cache, cache_len):
+        return transformer.decode_step(cfg, params, inputs, ctx, cache,
+                                       cache_len)
+    return decode_fn

@@ -22,7 +22,9 @@ with a vocabulary "model" does not divide (the head split on d_model,
 gathered); ``dpzero1`` (ZeRO-1 moments) on (2, 1) and (2, 2); reduced
 mixtral (drop-free; its expert buffers replayed row by row, keyed by
 (expert, row): ``sharding.Rows``), hymba and xLSTM under ``dpzero1`` on
-(2, 1).  JAX's ``tests/test_system.py`` case: reduced granite-3-2b on (2,
+(2, 1); bitnet's integer forward (``qat_int8_fwd``) on (1, 2) and (2, 2),
+FSDP off and on, also under sequence parallelism, against the
+single-device integer forward.  JAX's ``tests/test_system.py`` case: reduced granite-3-2b on (2,
 4), FSDP off, two steps, against JAX's jitted single-device step on the
 same converted weights.  And which layouts run tensor-parallel.  MoE at
 capacity 1.25 over the global batch, MoE, hymba and xLSTM on a "model"
@@ -167,6 +169,9 @@ finish("SHARDED_OK")
 '''
 
 
+INT8 = dict(qat_int8_fwd=True)
+
+
 def _case(name, arch, mesh, layout="2d", **kw):
     return dict(name=name, arch=arch, mesh=mesh, layout=layout, **kw)
 
@@ -186,6 +191,11 @@ CASES_2 = [
     _case("xlstm (2, 1) dpzero1", "xlstm-350m", [2, 1], "dpzero1"),
     # 4 query heads on 1 KV head: K and V gathered whole
     _case("granite kv 1 (1, 2) 2d", "granite-3-2b", [1, 2]),
+    # the integer forward (Ctx.qat_int8_fwd): gamma and each token's absmax
+    # the whole tensors', its int8 operands pinned
+    _case("bitnet (1, 2) 2d int8fwd", "bitnet-0.73b", [1, 2], ctx=INT8),
+    _case("bitnet (1, 2) 2d fsdp int8fwd", "bitnet-0.73b", [1, 2],
+          fsdp=True, ctx=INT8),
 ]
 CASES_4 = [
     _case("bitnet (2, 2) 2d", "bitnet-0.73b", [2, 2]),
@@ -200,6 +210,9 @@ CASES_4 = [
           cfg=dict(vocab_size=126, n_kv_heads=4)),
     _case("granite kv 1 (2, 2) 2d fsdp sp", "granite-3-2b", [2, 2],
           fsdp=True, sp=True),
+    _case("bitnet (2, 2) 2d int8fwd", "bitnet-0.73b", [2, 2], ctx=INT8),
+    _case("bitnet (2, 2) 2d fsdp sp int8fwd", "bitnet-0.73b", [2, 2],
+          fsdp=True, sp=True, ctx=INT8),
 ]
 
 
@@ -240,15 +253,16 @@ def test_moe_hymba_xlstm_tensor_parallel_only_on_a_model_axis(arch):
     """Every kind runs tensor-parallel on a "model" axis of two ranks
     (``test_torch_sharded_moe.py``, ``test_torch_sharded_recurrent.py``
     hold the steps), and on none under (2, 1) ``2d`` or ``dpzero1``, whose
-    batch is split; a "model" axis that does not divide the heads is
-    refused."""
+    batch is split; on a "model" axis that does not divide the heads the
+    mixer runs whole (``test_torch_sharded_heads.py`` holds the steps)."""
     cfg = get_config(arch).reduced(**REDUCED)
-    assert sharding.make_constrain(MeshShape((1, 2)), cfg, 4).tp
+    hook = sharding.make_constrain(MeshShape((1, 2)), cfg, 4)
+    assert hook.tp and not hook.whole_mixer
     for shape, layout in (((2, 1), "2d"), ((1, 2), "dpzero1")):
         hook = sharding.make_constrain(MeshShape(shape), cfg, 4, layout)
         assert not hook.tp and hook.n_batch == 2, (shape, layout)
-    with pytest.raises(NotImplementedError, match="n_heads"):
-        sharding.make_constrain(MeshShape((1, 3)), cfg, 4)
+    hook = sharding.make_constrain(MeshShape((1, 3)), cfg, 4)
+    assert hook.tp and hook.whole_mixer
 
 
 GRANITE_BODY = '''

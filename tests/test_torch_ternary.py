@@ -24,6 +24,7 @@ from repro.models import layers as j_layers
 
 import repro_torch  # noqa: F401  (pins TF32 off)
 from repro_torch.core import ternary
+from repro_torch.kernels import on_card
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
@@ -186,10 +187,19 @@ def _wrapper_cases():
     }
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports itself on a device with no path."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 @pytest.mark.parametrize("wrapper", sorted(_wrapper_cases()))
 def test_wrapper_chooses_by_tensor_device(monkeypatch, wrapper):
     """A CPU tensor takes the plain version, a CUDA tensor the kernel's
-    launch (no setting chooses), any other device raises."""
+    launch (no setting chooses), a ``meta`` tensor the plain version (the
+    dry run's shapes), any other device raises."""
     ops, kmod, launch, rmod, plain, args = _wrapper_cases()[wrapper]
     fn = getattr(ops, wrapper)
     out = fn(*args)   # what the stand-ins return, for wrappers that unpack it
@@ -200,9 +210,10 @@ def test_wrapper_chooses_by_tensor_device(monkeypatch, wrapper):
                         lambda *a, **k: calls.append("plain") or out)
     fn(*args)
     fn(args[0].as_subclass(_OnCard), *args[1:])
-    assert calls == ["plain", "kernel"]
-    with pytest.raises(ValueError, match="no path for device meta"):
-        fn(args[0].to("meta"), *args[1:])
+    fn(args[0].to("meta"), *args[1:])
+    assert calls == ["plain", "kernel", "plain"]
+    with pytest.raises(ValueError, match="no path for device xpu"):
+        on_card(args[0].as_subclass(_Elsewhere), wrapper)
 
 
 def test_port_imports_no_jax_and_no_reference_package():
