@@ -7,7 +7,7 @@ holds each kernel against its plain PyTorch version at the shapes the
 serving path (or, for tlmm_lut, rmsnorm_quant and swiglu_quant, the LUT
 oracle and the fused FFN) gives it (with times and bounds) — the paged kernels also bit
 for bit against their contiguous counterparts on the same rows — and serves
-bitnet-0.73b at full width, its first 12 of 24 layers (``SERVE_LAYERS``:
+bitnet-0.73b at full width, its first 8 of 24 layers (``SERVE_LAYERS``:
 the cut is the run's time), random weights from a seed, through
 the continuous-batching ``ServingEngine``: with its bf16 cache, then with a
 paged bf16 cache whose pool is too small for every slot's worst case (the
@@ -1774,13 +1774,19 @@ def phase12(dev, requests, max_seq, smi):
 # phase 13: QAT training under a mesh, fixed before its first run
 PHASE13_S = 90
 # bitnet-0.73b's layers served and judged in phases 4-8 (of its 24): the cut
-# is the run's time (PERF.md section 4)
-SERVE_LAYERS = 12
+# is the run's time (PERF.md section 4; 8 since phase 13's FSDP step went to
+# 8 layers and phase 14 took a third mixtral step)
+SERVE_LAYERS = 8
 TRAIN13 = dict(batch=8, seq=128, lr=3e-4, chunk=128, layers=2, seed=13)
-# (b)'s three setups: (name, mesh, layout, fsdp)
-SETUPS13 = (("(1, 2) 2d", (1, 2), "2d", False),
-            ("(2, 1) 2d fsdp", (2, 1), "2d", True),
-            ("(2, 1) dpzero1", (2, 1), "dpzero1", False))
+# (b)'s three setups: (name, mesh, layout, fsdp, layers); FSDP at 8 of the
+# 24 layers, so that a rank's blocks and one block gathered at a time show
+FSDP13_LAYERS = 8
+SETUPS13 = (("(1, 2) 2d", (1, 2), "2d", False, TRAIN13["layers"]),
+            ("(2, 1) 2d fsdp", (2, 1), "2d", True, FSDP13_LAYERS),
+            ("(2, 1) dpzero1", (2, 1), "dpzero1", False, TRAIN13["layers"]))
+# (b)'s FSDP step: each rank's peak above what it held before the step,
+# against the dry run's estimate of the same step, relative to the reading
+PEAK13_RTOL = 0.2
 PIPE13 = dict(stages=2, micro=4, rows=2)
 PHASE13_RANK_S = 75   # the two ranks' share of the phase
 
@@ -1820,9 +1826,69 @@ def _sharded_state(mesh, full, layout, fsdp, opt):
     return p, opt.init(p, zero1=z), z
 
 
+def _phase13_judge(mesh, p, m, g_ref, p_ref, l_ref, lr, secs, peak, held):
+    """(b)'s readings of one setup's step on a rank against the
+    single-device step: the loss, the worst gathered gradient leaf, the
+    parameters after AdamW, s/step and the peak (``peak``, and above what
+    the rank held before the step, ``held``)."""
+    from repro_torch.optim.adamw import trainable
+    from repro_torch.runtime import sharding
+    from repro_torch.testing import leaf_grad_errors
+    t = TRAIN13
+    specs = sharding.tree_specs(p)
+    grads = {n: mesh.full_part(g, specs[n]) for n, g in m["grads"].items()}
+    errs = leaf_grad_errors(grads, g_ref)
+    worst = max(errs, key=errs.get)
+    p_err = max(((mesh.full_part(v, specs[n]) - p_ref[n]).abs().max()
+                 ).item() for n, v in trainable(p).items())
+    loss = float(m["loss"])
+    return dict(loss=loss, loss_ref=float(l_ref),
+                loss_rel=abs(loss - float(l_ref)) / abs(float(l_ref)),
+                grad_worst=errs[worst], grad_worst_leaf=worst,
+                param_err_lr=p_err / lr, s_step=secs,
+                tokens_s=t["batch"] * t["seq"] / secs, peak_gib=peak / 2**30,
+                above=peak - held)
+
+
+def _phase13_estimate(layers):
+    """The dry run's estimate (``launch.dryrun``: the step on ``meta``
+    tensors, ``Census``) of (b)'s FSDP step on rank 0 of a (2, 1)
+    ``DryMesh``, the card's own step (f32 masters, the phase's context,
+    ``return_grads``) at ``layers``: (bytes above its arguments, one
+    block's leaves' bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.collectives import DryMesh
+    from repro_torch.training import make_train_step_sharded
+    t = TRAIN13
+    cfg = dataclasses.replace(get_config("bitnet-0.73b"), n_layers=layers)
+    with dryrun.MetaInit():
+        full = transformer.init_params(cfg, torch.Generator())
+    ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=t["seq"],
+              attn_kv_chunk=t["seq"])
+    opt = adamw(lr=t["lr"])
+    mesh = DryMesh((2, 1))
+    p, st, _ = _sharded_state(mesh, full, "2d", True, opt)
+    step = make_train_step_sharded(cfg, ctx, opt, mesh,
+                                   global_batch=t["batch"],
+                                   loss_chunk=t["chunk"], return_grads=True)
+    batch = {k: torch.zeros_like(v, device="meta") for k, v in
+             make_batch_specs(cfg, t["batch"], t["seq"],
+                              device="meta").items()}
+    est = dryrun.estimate(dryrun.Cell(step, (p, st, batch), mesh, 0))
+    block = sum(v.numel() * v.element_size()
+                for v in full["layers"][0].buffers())
+    return est["memory"]["peak_bytes_est"], block
+
+
 def _phase13_rank(rank, world, port, workdir, device="cuda"):
     """One of phase 13's two gloo ranks on the one card: (b), (c), (d).
     Writes its readings to ``workdir/rank{rank}.json``."""
+    entered = time.time()
     import hashlib
     import shutil
     import torch.distributed as dist
@@ -1836,7 +1902,7 @@ def _phase13_rank(rank, world, port, workdir, device="cuda"):
     from repro_torch.runtime.collectives import TrainMesh
     from repro_torch.runtime.pipeline import (pipeline_forward,
                                               split_layers_into_stages)
-    from repro_torch.testing import leaf_grad_errors, pinned_quantizers
+    from repro_torch.testing import pinned_quantizers
     from repro_torch.training import loss_and_grads, make_train_step_sharded
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
@@ -1844,66 +1910,64 @@ def _phase13_rank(rank, world, port, workdir, device="cuda"):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     torch.use_deterministic_algorithms(True)
-    out = {"rank": rank}
+    out = {"rank": rank, "entered": entered}
     t = TRAIN13
     lr = t["lr"]
     try:
         cfg, ctx, full, data = _phase13_setup(dev, t["layers"])
         batch = data.batch_at(0)
         opt = adamw(lr=lr)
-        # -- (b) the single-device step on the card, its quantized values
-        # recorded; each setup replays its block of them
+        out["ready"] = time.time()
+        # -- (b) the single-device step on the card at each setup's depth,
+        # its quantized values recorded; each setup replays its block of them
         t_b = time.perf_counter()
-        tape = []
-        ref = copy.deepcopy(full)
-        with pinned_quantizers(tape, replay=False):
-            l_ref, g_ref = loss_and_grads(cfg, ctx, ref, batch, t["chunk"])
-        g_ref = {n: g.clone() for n, g in g_ref.items()}
-        st_ref = opt.init(ref)
-        upd, _ = opt.update({n: g.clone() for n, g in g_ref.items()},
-                            st_ref, ref)
-        p_ref = {n: p + upd[n] for n, p in trainable(ref).items()}
-        del ref, st_ref, upd
-        digest = hashlib.sha256()
-        for v in tape:
-            digest.update(v.numpy().tobytes()[:1 << 16])
-        digests = [None] * world
-        dist.all_gather_object(digests, digest.hexdigest())
-        out["tapes_equal"] = len(set(digests)) == 1
-        out["b"] = {}
+        out["b"], out["tapes_equal"] = {}, True
         saved = None
-        for name, shape, layout, fsdp in SETUPS13:
-            mesh = TrainMesh(shape)
-            p, st, z = _sharded_state(mesh, full, layout, fsdp, opt)
-            step = make_train_step_sharded(
-                cfg, ctx, opt, mesh, global_batch=t["batch"], layout=layout,
-                zero1=z, loss_chunk=t["chunk"], return_grads=True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            with pinned_quantizers(tape, replay=True):
-                p, st, m = step(p, st, batch)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            specs = sharding.tree_specs(p)
-            grads = {n: mesh.full_part(g, specs[n])
-                     for n, g in m["grads"].items()}
-            errs = leaf_grad_errors(grads, g_ref)
-            worst = max(errs, key=errs.get)
-            p_err = max(((mesh.full_part(v, specs[n]) - p_ref[n]).abs().max()
-                         ).item() for n, v in trainable(p).items())
-            loss = float(m["loss"])
-            out["b"][name] = dict(
-                loss=loss, loss_ref=float(l_ref),
-                loss_rel=abs(loss - float(l_ref)) / abs(float(l_ref)),
-                grad_worst=errs[worst], grad_worst_leaf=worst,
-                param_err_lr=p_err / lr, s_step=secs,
-                tokens_s=t["batch"] * t["seq"] / secs, peak_gib=peak / 2**30)
-            if name == "(1, 2) 2d":
-                saved = (mesh, p, st)
-            del p, st, m, grads, step
-        del tape
+        for depth in sorted({s_[-1] for s_ in SETUPS13}):
+            cfg_d, full_d = ((cfg, full) if depth == t["layers"]
+                             else _phase13_setup(dev, depth)[::2])
+            tape = []
+            ref = copy.deepcopy(full_d)
+            with pinned_quantizers(tape, replay=False):
+                l_ref, g_ref = loss_and_grads(cfg_d, ctx, ref, batch,
+                                              t["chunk"])
+            g_ref = {n: g.clone() for n, g in g_ref.items()}
+            st_ref = opt.init(ref)
+            upd, _ = opt.update({n: g.clone() for n, g in g_ref.items()},
+                                st_ref, ref)
+            p_ref = {n: p + upd[n] for n, p in trainable(ref).items()}
+            del ref, st_ref, upd
+            digest = hashlib.sha256()
+            for v in tape:
+                digest.update(v.numpy().tobytes()[:1 << 16])
+            digests = [None] * world
+            dist.all_gather_object(digests, digest.hexdigest())
+            out["tapes_equal"] &= len(set(digests)) == 1
+            for name, shape, layout, fsdp, at in SETUPS13:
+                if at != depth:
+                    continue
+                mesh = TrainMesh(shape)
+                p, st, z = _sharded_state(mesh, full_d, layout, fsdp, opt)
+                step = make_train_step_sharded(
+                    cfg_d, ctx, opt, mesh, global_batch=t["batch"],
+                    layout=layout, zero1=z, loss_chunk=t["chunk"],
+                    return_grads=True)
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with pinned_quantizers(tape, replay=True):
+                    p, st, m = step(p, st, batch)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                out["b"][name] = _phase13_judge(
+                    mesh, p, m, g_ref, p_ref, l_ref, lr, secs, peak, held)
+                if name == "(1, 2) 2d":
+                    saved = (mesh, p, st)
+                del p, st, m, step
+            del tape, g_ref, p_ref, full_d
+            torch.cuda.empty_cache()
         out["b_s"] = time.perf_counter() - t_b
 
         # -- (c) the elastic restore -------------------------------------
@@ -2010,6 +2074,7 @@ def _phase13_rank(rank, world, port, workdir, device="cuda"):
         out["d_s"] = time.perf_counter() - t_d
         out["ok"] = True
     finally:
+        out["done"] = time.time()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         torch.use_deterministic_algorithms(False)
@@ -2023,12 +2088,15 @@ def phase13(dev, smi):
     on a (1, 1) mesh in ``2d``, ``2d`` with FSDP and ``dpzero1``, 2 steps
     each, equal to ``make_train_step`` bit for bit (loss, every parameter,
     m and v).  (b)-(d) on two gloo ranks on the one card (spawned; CUDA
-    tensors staged through host memory around each collective): (b) 2
-    layers, one step in each of SETUPS13 against the single-device step on
-    the card whose quantized values each rank replays on its blocks: loss
-    within 1e-5 relative, every gathered gradient leaf within
-    TRAIN_GRAD_RTOL of its largest, every parameter after AdamW within
-    TRAIN_PARAM_LR_BOUND lr; (c) (b)'s (1, 2) state saved (gathered, rank
+    tensors staged through host memory around each collective): (b) one
+    step in each of SETUPS13 (2 layers; FSDP at FSDP13_LAYERS, each block's
+    leaves gathered inside its checkpoint region) against the
+    single-device step of its depth on the card, whose quantized values
+    each rank replays on its blocks: loss within 1e-5 relative, every
+    gathered gradient leaf within TRAIN_GRAD_RTOL of its largest, every
+    parameter after AdamW within TRAIN_PARAM_LR_BOUND lr; the FSDP step's
+    peak above what each rank held before it within PEAK13_RTOL of the
+    dry run's estimate of the same step (``_phase13_estimate``); (c) (b)'s (1, 2) state saved (gathered, rank
     0 writing) and restored onto (2, 1) and one device, every leaf equal to
     the saved tree, and a step after the restore on (2, 1) equal to a step
     from the saved tree sharded directly onto (2, 1), bit for bit; (d) all
@@ -2108,6 +2176,7 @@ def phase13(dev, smi):
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     t_r = time.perf_counter()
+    spawned = time.time()
     procs = mp.spawn(_phase13_rank, args=(2, _free_port(), workdir),
                      nprocs=2, join=False)
     deadline = time.perf_counter() + PHASE13_RANK_S + 60
@@ -2123,20 +2192,29 @@ def phase13(dev, smi):
             if p_.is_alive():
                 p_.kill()
             p_.join()
+    joined = time.time()
     ranks = []
     for r in range(2):
         path = os.path.join(workdir, f"rank{r}.json")
         ranks.append(json.load(open(path)) if os.path.exists(path) else {})
     shutil.rmtree(workdir, ignore_errors=True)
     t_ranks = time.perf_counter() - t_r
+    if all("ready" in r for r in ranks):   # where the ranks' time goes
+        log(f"  the ranks: spawn to entry "
+            f"{[round(r['entered'] - spawned, 1) for r in ranks]} s, entry "
+            f"to (b) {[round(r['ready'] - r['entered'], 1) for r in ranks]}"
+            f" s, (b) to done "
+            f"{[round(r['done'] - r['ready'], 1) for r in ranks]} s, done "
+            f"to joined {[round(joined - r['done'], 1) for r in ranks]} s")
     if not all(r.get("ok") for r in ranks):
         failures.append(f"(b)-(d): a rank did not finish: {ranks}")
     else:
         lr = t["lr"]
-        for name, *_ in SETUPS13:
+        for name, *_, layers in SETUPS13:
             rows = [r["b"][name] for r in ranks]
             b0 = rows[0]
-            log(f"  (b) {name}, 2 gloo ranks on the card, one step against "
+            log(f"  (b) {name}, {layers} layers, 2 gloo ranks on the card, "
+                f"one step against "
                 f"the single-device step (its quantized values replayed on "
                 f"each rank's blocks): loss {b0['loss']:.7f} vs "
                 f"{b0['loss_ref']:.7f} (rel {b0['loss_rel']:.3g}, gate 1e-5);"
@@ -2148,12 +2226,28 @@ def phase13(dev, smi):
                 f"{[round(r['s_step'], 4) for r in rows]}, tokens/s "
                 f"{[round(r['tokens_s'], 1) for r in rows]}, "
                 f"max_memory_allocated per rank "
-                f"{[round(r['peak_gib'], 3) for r in rows]} GiB")
+                f"{[round(r['peak_gib'], 3) for r in rows]} GiB, above what "
+                f"the rank held before the step "
+                f"{[r['above'] for r in rows]} B; {smi}")
             for r in rows:
                 if not (r["loss_rel"] <= 1e-5
                         and r["grad_worst"] <= TRAIN_GRAD_RTOL
                         and r["param_err_lr"] <= TRAIN_PARAM_LR_BOUND):
                     failures.append(f"(b) {name}: {r}")
+        # the FSDP step's peak against the dry run's estimate of it
+        t_e = time.perf_counter()
+        est, block = _phase13_estimate(FSDP13_LAYERS)
+        above = [r["b"]["(2, 1) 2d fsdp"]["above"] for r in ranks]
+        rel = [(est - a) / a for a in above]
+        log(f"  (b) (2, 1) 2d fsdp, {FSDP13_LAYERS} layers: each rank's peak "
+            f"above its arguments {above} B against the dry run's estimate "
+            f"{est} B (rel {[round(x, 4) for x in rel]}, gate "
+            f"{PEAK13_RTOL}); the whole tree gathered for the step would "
+            f"add {FSDP13_LAYERS} blocks x {block / 1e6:.1f} MB and their "
+            f"f32 gradients, {2 * FSDP13_LAYERS * block / 2**30:.3f} GiB; "
+            f"estimate {time.perf_counter() - t_e:.1f} s")
+        if not all(abs(x) <= PEAK13_RTOL for x in rel):
+            failures.append(f"(b) FSDP peak {above} vs the dry run's {est}")
         log(f"  (b) the ranks' recorded quantized values equal: "
             f"{[r['tapes_equal'] for r in ranks]}; (b) took "
             f"{[round(r['b_s'], 1) for r in ranks]} s")
@@ -2196,21 +2290,32 @@ SERVE14 = dict(layers=2, seed=14)
 # MoE routing replayed; mixtral's batch is the first of 16 data seeds from
 # 14 whose single-device routing drops a pair at capacity factor 1.25
 # hymba's 25 heads on 2 ranks: "model" does not divide them, the mixer
-# runs whole on each rank (the same single-device step judges both)
+# runs whole on each rank (the same single-device step judges both);
+# mixtral cut to 3 experts, which 2 ranks do not divide: each bank split
+# inside each expert, every rank computing every expert on its columns
 TRAIN14 = (("mixtral-8x22b", 1, (1, 2), 1), ("xlstm-350m", 4, (1, 2), 8),
-           ("hymba-1.5b", 4, (1, 2), 8), ("hymba-1.5b", 4, (1, 5), 8))
+           ("hymba-1.5b", 4, (1, 2), 8), ("hymba-1.5b", 4, (1, 5), 8),
+           ("mixtral-8x22b 3 experts", 1, (1, 2), 1))
 T14 = dict(seq=128, lr=3e-4, chunk=128, seed=14)
 PHASE14_RANK_S = 150
+
+
+def _config14(name, layers):
+    """TRAIN14's config of ``name`` at full width, ``layers`` deep (an
+    "<arch> <E> experts" name cuts its experts to E)."""
+    from repro_torch.configs import get_config
+    arch, *cut = name.split(" ")
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return dataclasses.replace(cfg, n_experts=int(cut[0])) if cut else cfg
 
 
 def _phase14_train_setup(dev, name, layers, batch, data_seed):
     """A full-width config ``layers`` deep, its training context, masters
     from seed 14 and the batch of ``data_seed``."""
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.models import transformer
     from repro_torch.models.layers import Ctx
-    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    cfg = _config14(name, layers)
     ctx = Ctx(mode="qat", attn="skip", attn_q_chunk=T14["seq"],
               attn_kv_chunk=T14["seq"])
     full = transformer.init_params(
@@ -2418,7 +2523,10 @@ def phase14(dev, requests, smi):
     blocks: loss within 1e-5 relative, every gradient leaf within
     TRAIN_GRAD_RTOL of its largest, every parameter after AdamW within
     TRAIN_PARAM_LR_BOUND lr of the single-device AdamW's; hymba runs on
-    (1, 2) (its mixer whole on each rank) and on (1, 5).  The single-device
+    (1, 2) (its mixer whole on each rank) and on (1, 5); mixtral also with
+    3 experts on (1, 2) (each bank split inside each expert: every rank
+    computes every expert on its columns, no rank holds a whole bank),
+    its batch the first of 16 data seeds that drops a pair, else seed 14.  The single-device
     runs go first and alone (mixtral's step alone holds ~35 GB); what the
     ranks are compared with goes through ``build/phase14``.  The phase
     within PHASE14_S.  Returns the failures found."""
@@ -2459,7 +2567,7 @@ def phase14(dev, requests, smi):
         if name in refs:   # one single-device step judges every mesh
             continue
         t0 = time.perf_counter()
-        moe = bool(get_config(name).n_experts)
+        moe = bool(_config14(name, layers).n_experts)
         data_seed = T14["seed"]
         if moe:   # the first batch whose routing drops a pair at 1.25
             for data_seed in range(T14["seed"], T14["seed"] + 16):
@@ -2471,10 +2579,14 @@ def phase14(dev, requests, smi):
                 if drops:
                     break
                 del full
-            if not drops:
+            if not drops and name == "mixtral-8x22b":
                 failures.append(f"(b) {name}: no batch of 16 data seeds "
                                 "drops a pair at capacity factor 1.25")
                 continue
+            if not drops:   # the split banks judged on a batch dropping none
+                data_seed = T14["seed"]
+                cfg, ctx, full, batch = _phase14_train_setup(
+                    dev, name, layers, rows, data_seed)
         else:
             cfg, ctx, full, batch = _phase14_train_setup(dev, name, layers,
                                                          rows, data_seed)

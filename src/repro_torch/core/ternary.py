@@ -70,8 +70,9 @@ def ternarize_ste(w: torch.Tensor, eps: float = 1e-5,
     JAX's ``jax.vmap(ternarize_ste)``.  Built in place on one temporary (a
     full-width expert bank is 3.2 GB).  ``part`` (a
     ``runtime.sharding.Part``): ``w`` is this rank's block of a split
-    weight, whose gamma is the whole weight's mean: the block's sum of |w|,
-    summed over the axes that split it, over the whole count."""
+    weight, whose gamma is the whole weight's mean (of each slice of
+    ``dims``: an expert split inside on its n_out): the block's sum of
+    |w|, summed over the axes that split it, over the whole count."""
     return ternary_ste_at(w, ste_gamma(w, eps, dims, part=part))
 
 
@@ -83,9 +84,13 @@ def ste_gamma(w: torch.Tensor, eps: float = 1e-5,
     with torch.no_grad():
         a = w.float().abs()
         if part is not None and part.splits(range(w.dim())):
-            total = part.reduce(a.sum(), torch.distributed.ReduceOp.SUM,
-                                range(w.dim()))
-            return torch.clamp_min(total / part.numel(w.shape), eps)
+            if dims is None:
+                total = part.reduce(a.sum(), torch.distributed.ReduceOp.SUM,
+                                    range(w.dim()))
+                return torch.clamp_min(total / part.numel(w.shape), eps)
+            total = part.reduce(a.sum(dim=dims, keepdim=True),
+                                torch.distributed.ReduceOp.SUM, dims)
+            return torch.clamp_min(total / part.numel(w.shape, dims), eps)
         return torch.clamp_min(
             a.mean() if dims is None else a.mean(dim=dims, keepdim=True),
             eps)

@@ -19,7 +19,7 @@ from torch import nn
 from repro_torch.core import bitlinear, ternary
 from repro_torch.core.bitlinear import Linear, PackedLinear, PredecodedLinear
 from repro_torch.kernels.tlmm import ops as tlmm_ops
-from repro_torch.runtime.sharding import Rows
+from repro_torch.runtime.sharding import Part, Rows
 
 # whole-prompt attention of Ctx.attn: the kernel and the two Fig. 6b baselines
 ATTNS = ("kernel", "skip", "naive")
@@ -417,14 +417,17 @@ def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
     chunk on the batch ranks before this one) is below ``cap``, and fills
     its expert's buffer at its row among the piece's pairs.  On a
     "model" axis only the rank's experts are computed and the output is
-    the rank's partial sum."""
+    the rank's partial sum; where the banks are split inside each expert
+    (``Constrain.split_banks``), every expert on the rank's columns and
+    the output is the rank's d_model columns."""
     n, d = x.shape
     c = ctx.constrain
     n_experts = r["logits"].shape[-1]
     flat_idx, row = r["flat_idx"], r["pos"]
     gpos = row if offset is None else row + offset[flat_idx]
     keep = gpos < cap
-    lo, hi = c.experts(n_experts) if c is not None else (0, n_experts)
+    split = c is not None and c.split_banks(p)
+    lo, hi = c.experts(n_experts, split) if c is not None else (0, n_experts)
     mine = keep & (flat_idx >= lo) & (flat_idx < hi)
     e_loc = flat_idx - lo
     n_loc = hi - lo
@@ -454,10 +457,12 @@ def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
     else:   # float masters: JAX's QAT (or unquantized) branch
         banks = {n: getattr(p, f"{n}_w") for n in MoE.BANKS}
         w_part = x_part = None
-        if c is not None:   # the rank's experts; which rows, for a replay
+        if c is not None:   # the rank's part of the banks; which rows or
+            # columns of the whole ones, for a replay and the gammas
             banks = {n: c.expert_bank(t, p.specs[f"{n}_w"])
                      for n, t in banks.items()}
-            w_part = Rows((slice(lo, hi),))
+            w_part = (Part(c.mesh, (None, None, "model")) if split
+                      else Rows((slice(lo, hi),)))
             filled = (src[:-1] != nk).reshape(n_loc, cap)
             experts = torch.arange(lo, hi, device=x.device)
             grow = torch.arange(cap, device=x.device)[None] + (
@@ -468,12 +473,14 @@ def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
         h_g = _expert_matmul(banks["gate"], buf, ctx, **kw).float()
         h_u = _expert_matmul(banks["up"], buf, ctx, **kw).float()
         h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
+        if split:   # this rank's f columns; its down columns read them all
+            h = c.mesh.gather(h, "model", 2, partial=True)
         out_buf = _expert_matmul(banks["down"], h, ctx, **kw)
     gathered = out_buf[torch.where(mine, e_loc, 0),
                        torch.where(mine, row, cap - 1)]
     gathered = torch.where(mine[:, None], gathered, 0)
     weighted = (gathered * r["gates"].reshape(-1)[:, None]
-                .to(gathered.dtype)).reshape(n, top_k, d)
+                .to(gathered.dtype)).reshape(n, top_k, -1)
     # JAX's scatter-add of a token's k slots, in slot order
     out = weighted[:, 0]
     for j in range(1, top_k):
@@ -498,7 +505,9 @@ def moe_apply(p: MoE, x: torch.Tensor, *, top_k: int,
     counts); dispatch stays local, since a token's expert output depends
     on its own row only.  On a "model" axis the router is gathered whole,
     each rank computes its experts (``Constrain.experts``) and returns its
-    partial sum, which the caller sums over "model"."""
+    partial sum, or, where the banks are split inside each expert, every
+    expert on its columns and returns its d_model columns; the caller puts
+    either back together (``Constrain.moe_out``)."""
     n = x.shape[0]
     c = ctx.constrain
     start, total = c.token_span(n) if c is not None else (0, n)

@@ -46,6 +46,7 @@ returns the cache dict it was given.
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
@@ -509,6 +510,8 @@ def _mixer_out(ctx: Ctx, y: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
                  chunk_mask=None, page_table=None):
+    if ctx.constrain is not None:   # FSDP: the block's leaves gathered here
+        p = ctx.constrain.fsdp(p)
     if cfg.block_kind == "xlstm_pair":
         return _xlstm_pair_apply(cfg, ctx, x, p, cache, phase)
     h = _mixer_in(ctx, layers.rmsnorm(p["ln1"], x, cfg.norm_eps))
@@ -539,9 +542,9 @@ def _block_apply(cfg, ctx, x, p, cache, positions, phase, cache_len=None,
         out = layers.moe_apply(p["moe"], h.reshape(b * t, d),
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, ctx=ctx)
-        out = out.reshape(b, t, d)
-        # each "model" rank's experts: partial sums
-        return x + (c.row_out(out) if tp else out)
+        out = out.reshape(b, t, -1)
+        # each "model" rank's experts (partial sums) or columns
+        return x + (c.moe_out(out, p["moe"]) if tp else out)
     if "mlp" in p:
         if tp and not c.ffn_split:
             # "model" does not divide d_ff: the FFN runs whole on every
@@ -642,6 +645,19 @@ def _lm_head(cfg, params, x, ctx):
     return ctx.c(logits, "logits")
 
 
+def _head_params(params: nn.ModuleDict, ctx: Ctx) -> nn.ModuleDict:
+    """``params`` with the FSDP leaves of every module outside the blocks
+    (the LM head) gathered over "data" (``Constrain.fsdp``), once for every
+    chunk of a loss."""
+    c = ctx.constrain
+    if c is None:
+        return params
+    out = copy.copy(params)
+    out._modules = {n: m if n == "layers" else c.fsdp(m)
+                    for n, m in params._modules.items()}
+    return out
+
+
 def xent_sum(logits: torch.Tensor, labels: torch.Tensor, ctx: Ctx
              ) -> torch.Tensor:
     """Sum over positions of logsumexp - gold logit (f32), over logits
@@ -674,7 +690,8 @@ def forward(cfg: ModelConfig, params: nn.ModuleDict, inputs: torch.Tensor,
             ctx: Ctx, remat: bool = True) -> torch.Tensor:
     """Training/eval forward: logits of every position (b, s, vocab)."""
     x = forward_features(cfg, params, inputs, ctx, remat)
-    return _lm_head(cfg, params, ctx.c(x, "features"), ctx)
+    return _lm_head(cfg, _head_params(params, ctx), ctx.c(x, "features"),
+                    ctx)
 
 
 def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -700,6 +717,7 @@ def lm_head_loss_chunked(cfg: ModelConfig, params: nn.ModuleDict,
     The chunks' sums add in order from 0, then divide by b * s, as JAX's
     scan does."""
     x = ctx.c(x, "features")   # JAX's residual constraint before chunking
+    params = _head_params(params, ctx)
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:

@@ -304,7 +304,9 @@ class _Gather(torch.autograd.Function):
         mesh, axes, dim, partial = ctx.args
         if partial:
             g = mesh.all_reduce(g.clone(), axes)
-        return mesh.local(g, axes, dim).contiguous(), None, None, None, None
+        # a copy of this rank's block: a view would keep the whole alive
+        return (mesh.local(g, axes, dim).clone(
+            memory_format=torch.contiguous_format), None, None, None, None)
 
 
 class _Scatter(torch.autograd.Function):

@@ -317,7 +317,11 @@ class Part:
     spec: tuple
 
     def local(self, whole: torch.Tensor) -> torch.Tensor:
-        return self.mesh.local_part(whole, self.spec)
+        """This rank's block of ``whole``; a dimension of size 1 (a
+        statistic kept with its reduced dims, an expert bank's gamma) is
+        whole on every rank."""
+        return self.mesh.local_part(whole, tuple(
+            None if n == 1 else a for a, n in zip(self.spec, whole.shape)))
 
     def splits(self, dims) -> tuple:
         """The mesh axes, in mesh order, that split any of ``dims``."""
@@ -330,10 +334,13 @@ class Part:
         axes = self.splits(dims)
         return self.mesh.all_reduce(t, axes, op) if axes else t
 
-    def numel(self, local_shape) -> int:
-        """Elements of the whole tensor."""
-        return math.prod(local_shape) * axis_size(
-            self.mesh, self.splits(range(len(self.spec))))
+    def numel(self, local_shape, dims=None) -> int:
+        """Elements of the whole tensor (along ``dims`` alone, if given)."""
+        if dims is None:
+            return math.prod(local_shape) * axis_size(
+                self.mesh, self.splits(range(len(self.spec))))
+        return math.prod(local_shape[d] for d in dims) * axis_size(
+            self.mesh, self.splits(dims))
 
 
 class Rows:
@@ -401,11 +408,15 @@ class Constrain:
       (``ffn_split`` false) the FFN is outside the tensor-parallel region:
       its weights gathered whole (``whole``), every rank computes it on its
       own residual (under sequence parallelism its part of the sequence);
-    * MoE: each rank computes the experts ``experts(E)`` gives it, its
-      share of the banks (split on E where "model" divides it, else
-      gathered whole and cut); the router is gathered whole (top-k needs
-      every logit); the partial outputs are summed over "model"
-      (``row_out``);
+    * MoE: the router is gathered whole (top-k needs every logit).  Where
+      "model" divides E each rank computes its block of experts
+      (``experts(E)``) and the partial outputs are summed over "model"
+      (``moe_out``: ``row_out``).  Where it does not, JAX's spec splits
+      each expert's n_out columns (``split_banks``): each rank computes
+      every expert on the columns it holds, the gate and up banks' f
+      columns, then, ``h`` gathered over "model", the down bank's d_model
+      columns, and the output's columns are gathered (``moe_out``): the
+      activations move, no rank holds a whole bank;
     * hymba's SSM and xLSTM's mLSTM and sLSTM: the scans run on the rank's
       heads (``heads``).  A linear whose JAX split cuts concatenated
       columns (hymba's ``in_proj`` [x | z] and ``bc_proj`` [B | C], xLSTM's
@@ -430,6 +441,13 @@ class Constrain:
 
     A leaf every rank holds whole but uses only its part of (``shared``,
     ``whole(partial=True)``) has its gradient summed over "model".
+
+    FSDP (a leaf's dimension split on "data") is gathered a module at a
+    time where the module runs (``fsdp``: each block inside its checkpoint
+    region, the LM head where the loss takes it), its gradient summed over
+    "data" and cut back to the rank's block in the backward, so a rank
+    holds its blocks and one block gathered at a time, as XLA gathers
+    JAX's FSDP weights where they are used.
 
     Under ``"2d"`` on a "model" axis of one rank, and under ``"dp"`` and
     ``"dpzero1"`` (weights whole on every rank), every hook is the
@@ -456,6 +474,8 @@ class Constrain:
         self.vocab_split = self.tp and cfg.vocab_size % m == 0
         self.ffn_split = self.tp and bool(cfg.d_ff) and cfg.d_ff % m == 0
         self.n_batch = axis_size(mesh, self.batch)
+        # an FSDP leaf's gradient is a partial sum over "data" (``fsdp``)
+        self.fsdp_partial = "data" in as_axes(self.batch)
         self._sp_now, self._seq = False, None
         # "model" does not divide the heads: the mixer runs whole
         self.whole_mixer = self.tp and cfg.n_heads % m != 0
@@ -622,24 +642,82 @@ class Constrain:
         output of a linear computed whole on every rank)."""
         return self.mesh.local(x, "model", dim % x.dim()) if self.tp else x
 
-    def experts(self, n_experts: int) -> tuple:
+    def split_banks(self, p) -> bool:
+        """Whether the float banks of MoE ``p`` are split inside each
+        expert on "model" (JAX's spec where "model" does not divide E: each
+        bank's n_out columns), so that each rank computes every expert on
+        its columns (``experts`` is then all of them)."""
+        if not self.tp or p.packed:
+            return False
+        specs = [_model_only(p.specs[f"{n}_w"]) for n in p.BANKS]
+        split = [s == (None, None, "model") for s in specs]
+        if any(split) and not all(split):
+            raise NotImplementedError(f"expert banks split on 'model' as "
+                                      f"{specs}: some banks whole")
+        return all(split)
+
+    def experts(self, n_experts: int, split: bool = False) -> tuple:
         """[lo, hi): the experts whose tokens this rank computes, a
         contiguous block a "model" rank (JAX's expert-parallel block where
-        "model" divides E)."""
-        if not self.tp:
+        "model" divides E); every expert where the banks are ``split``
+        inside each expert (``split_banks``)."""
+        if not self.tp or split:
             return 0, n_experts
         r, m = self.model_rank, self.model_size
         return r * n_experts // m, (r + 1) * n_experts // m
 
     def expert_bank(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """This rank's experts (``experts``) of an (E, n_in, n_out) bank
-        of ``spec``: its block where the bank is split on E over "model"
-        (JAX's expert-parallel spec), else the bank gathered whole and cut
-        (the spec splits each expert's n_out)."""
-        if not self.tp or _model_only(spec)[0] == "model":
+        """The part of an (E, n_in, n_out) bank of ``spec`` this rank
+        computes with: the bank as it lies where "model" splits it (on E:
+        this rank's experts; inside each expert: its n_out columns, see
+        ``split_banks``), else (a bank whole on every rank) its experts
+        (``experts``) cut from it, their gradient summed over "model"."""
+        if not self.tp or any(a == "model" for a in _model_only(spec)):
             return t
         lo, hi = self.experts(t.shape[0])
         return self.whole_tensor(t, spec, partial=True)[lo:hi]
+
+    def moe_out(self, y: torch.Tensor, p) -> torch.Tensor:
+        """An MoE's (b, t, ...) output, computed on the tokens every "model"
+        rank holds whole, back to the residual's layout: where the banks
+        are split inside each expert (``split_banks``) ``y`` is this rank's
+        d_model columns, gathered (the gradient cut back to them, every
+        rank's being the same whole one), under sequence parallelism then
+        cut to this rank's part of the sequence; else ``y`` is this rank's
+        experts' partial sum (``row_out``)."""
+        if not self.split_banks(p):
+            return self.row_out(y)
+        y = self.mesh.gather(y, "model", y.dim() - 1, partial=False)
+        return (self.mesh.scatter(y, "model", 1, reduce=False)
+                if self._sp_now else y)
+
+    # -- FSDP: a module's "data" blocks gathered where it runs --------------
+
+    def fsdp(self, p):
+        """Module ``p`` (a block, the LM head) with every FSDP leaf (a
+        dimension split on "data": ``shard_params(fsdp=True)``) gathered
+        whole over "data", its spec's "data" dropped: called where the
+        module runs (a block inside its checkpoint region, so that the
+        recompute gathers again and nothing gathered is kept for the
+        backward).  The backward sums each leaf's gradient over "data"
+        where the batch is split there (each rank saw its own rows) and
+        keeps this rank's block, so no whole gradient of the tree exists.
+        A module with no such leaf is ``p`` itself."""
+        specs = getattr(p, "specs", {})
+        mods = {n: self.fsdp(m) for n, m in p._modules.items()}
+        data = {n: s.index("data") for n, s in specs.items() if "data" in s}
+        if not data and all(mods[n] is m for n, m in p._modules.items()):
+            return p
+        out = copy.copy(p)
+        out._modules = mods
+        out._buffers = dict(p._buffers)
+        out.specs = dict(specs)
+        for n, dim in data.items():
+            out._buffers[n] = self.mesh.gather(p._buffers[n], "data", dim,
+                                               self.fsdp_partial)
+            out.specs[n] = tuple(None if a == "data" else a
+                                 for a in specs[n])
+        return out
 
     # -- MoE routing over the global batch (JAX's one program) --------------
 

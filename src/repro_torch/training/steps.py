@@ -152,8 +152,8 @@ def make_train_step_ddp(cfg: ModelConfig, ctx: Ctx, optimizer: Optimizer,
 
 def _flat_all_reduce(mesh, tensors: list, axes) -> list:
     """``tensors`` summed over ``axes`` in one all-reduce of their
-    concatenation."""
-    if not tensors:
+    concatenation (as they are on an axis of one rank)."""
+    if not tensors or mesh.axis_size(axes) == 1:
         return tensors
     flat = torch.cat([t.float().reshape(-1) for t in tensors])
     mesh.all_reduce(flat, axes)
@@ -186,13 +186,18 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
       the global rows [j * b / M, (j + 1) * b / M), and MoE counts
       capacity over a microbatch's tokens, so the rows counted together
       are those of JAX's microbatch.
-      FSDP leaves are gathered over "data" for the step; each gradient is
-      averaged over the batch's axes (an FSDP leaf's then cut to the
-      rank's block: a reduce-scatter), and under sequence parallelism the
-      gradients of a block's leaves that are whole over "model" (its
-      norms: each rank saw part of the sequence) are summed over "model".
-    * AdamW runs on the local blocks, its clip norm over every distinct
-      element once; under ZeRO-1 on the moments' blocks, each update
+      FSDP leaves are gathered over "data" a block at a time, inside the
+      block's checkpoint region (``Constrain.fsdp``; the LM head once for
+      the loss), and their gradients come back summed over "data" and cut
+      to the rank's block, microbatch by microbatch: a rank holds its
+      blocks of the tree and one block gathered.  Each gradient is
+      averaged over the batch's axes (an FSDP leaf's summed over those
+      other than "data"), and under sequence parallelism the gradients of
+      a block's leaves that are whole over "model" (its norms: each rank
+      saw part of the sequence) are summed over "model".
+    * AdamW runs on the local blocks a leaf at a time (each gradient
+      freed once applied), its clip norm over every distinct element
+      once; under ZeRO-1 on the moments' blocks, each update
       all-gathered.
     * Microbatches are summed as in ``make_train_step``.
     ``return_grads`` copies the reduced gradients (this rank's blocks)
@@ -207,14 +212,14 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
     names = tuple(mesh.mesh_dim_names)
     batch_axes = hooks.batch
     n_batch = sharding.axis_size(mesh, batch_axes)
+    # the batch axes an FSDP leaf's gradient is still to be summed over
+    fsdp_rest = tuple(a for a in collectives.as_axes(batch_axes)
+                      if a != "data")
 
     def split_axes(spec):
         axes = {a for s in spec for a in ((s,) if isinstance(s, str)
                                           else (s or ()))}
         return tuple(a for a in names if a in axes)
-
-    def fsdp_dims(spec):
-        return [(d, s) for d, s in enumerate(spec) if s == "data"]
 
     def sq_sum(grads):
         """Sum of squares over every distinct element: each leaf's local
@@ -245,18 +250,9 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
         mbs = [{k: mesh.local_part(v, (batch_axes,) + (None,) * (
             v.dim() - 1)) for k, v in mb.items()}
             for mb in _microbatches(batch, microbatches)]
-        fsdp = any(fsdp_dims(s) for s in specs.values())
-        run = params
-        if fsdp:   # the data blocks gathered for the step
-            with torch.no_grad():
-                def gather(n, t):
-                    for d, ax in fsdp_dims(specs[n]):
-                        t = mesh.all_gather(t, ax, d)
-                    return t
-                run = sharding.map_buffers(params, gather)
-        loss, grads = _accumulated(cfg, sctx, run, mbs, loss_chunk)
-        del run
-        grads = {n: g.float() for n, g in grads.items()}
+        loss, grads = _accumulated(cfg, sctx, params, mbs, loss_chunk)
+        for n in list(grads):   # one leaf at a time: no two copies of all
+            grads[n] = grads[n].float()
         if hooks.sp:   # norms under sequence parallelism: partial sums
             part = [n for n in grads if n.startswith("layers.")
                     and "model" not in split_axes(specs[n])
@@ -264,27 +260,39 @@ def make_train_step_sharded(cfg: ModelConfig, ctx: Ctx,
             for n, g in zip(part, _flat_all_reduce(
                     mesh, [grads[n] for n in part], "model")):
                 grads[n] = g
-        if n_batch > 1:
-            order = list(grads)
-            for n, g in zip(order, _flat_all_reduce(
-                    mesh, [grads[n] for n in order], batch_axes)):
-                grads[n] = g / n_batch
-        for n, g in grads.items():   # FSDP: this rank's block
-            for d, ax in fsdp_dims(specs[n]):
-                grads[n] = g = mesh.local(g, ax, d).contiguous()
+        if n_batch > 1:   # an FSDP leaf's came back summed over "data"
+            by_axes = {}
+            for n in grads:
+                by_axes.setdefault(fsdp_rest if "data" in specs[n]
+                                   else batch_axes, []).append(n)
+            for axes, order in by_axes.items():
+                for n, g in zip(order, _flat_all_reduce(
+                        mesh, [grads[n] for n in order], axes)):
+                    grads[n] = g / n_batch
         loss = loss.clone()
         mesh.all_reduce(loss, batch_axes)
         metrics = {"loss": loss / n_batch}
         if return_grads:
             metrics["grads"] = {n: g.clone() for n, g in grads.items()}
-        if layout == "dpzero1":
-            updates, opt_state = optimizer.update(grads, opt_state, params,
-                                                  zero1=zero1)
-        else:
-            updates, opt_state = optimizer.update(grads, opt_state, params,
-                                                  sq_sum=sq_sum)
-        params = apply_updates(params, updates)
-        return params, opt_state, metrics
+        # AdamW a leaf at a time, each gradient freed once applied, at the
+        # clip scale of every leaf (summed once): the values of one call
+        leaves = trainable(params)
+        total = []
+
+        def clip_sq(_):
+            if not total:
+                total.append(sq_sum(grads))
+            return total[0]
+
+        state = opt_state
+        for n in list(grads):
+            upd, state = optimizer.update({n: grads[n]}, opt_state,
+                                          {n: leaves[n]}, sq_sum=clip_sq,
+                                          zero1=zero1)
+            with torch.no_grad():
+                leaves[n].add_(upd[n])
+            del grads[n], upd
+        return params, state, metrics
 
     return train_step
 
