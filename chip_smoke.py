@@ -109,7 +109,13 @@ and depth (8 requests, 16 tokens each, two judged by the packed oracle),
 and ``repro_torch.launch.dryrun`` estimates one training cell on ``meta``
 tensors, then runs it on the card: its argument bytes, its peak within
 20 % of the allocator's and its FLOPs equal to ``FlopCounterMode``'s on
-the card's step.  All phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+the card's step.  Phase 16 runs JAX's partitioned packed serving program
+(packed weights, the batch and the cache's sequence split over a
+("data", "model") mesh) on two gloo ranks on the one card: bitnet-0.73b
+at full width, 4 layers, a prefill and 16 greedy decode steps on (1, 2)
+and (2, 1) against one device reading its cache as the ranks do, and the
+dry run's estimate of the (1, 2) prefill held to each rank's argument
+bytes and peak.  All phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -2908,6 +2914,350 @@ def phase15(dev, smi):
     return counts, failures
 
 
+PHASE16_S = 90
+# bitnet-0.73b at full width, 4 of its 24 layers (the cut is the run's
+# time), batch 4, prompts of 64-128 tokens (the paper's range), a cache
+# of 256 positions, f32 activations and cache, 16 decode steps
+SERVE16 = dict(layers=4, batch=4, prompt=(64, 128), max_seq=256, steps=16,
+               seed=16)
+MESHES16 = ((1, 2), (2, 1))
+PREFILL16_RTOL = 1e-4   # of the largest |logit|: the head's GEMM may pick
+DECODE16_TOL = 2e-3     # another algorithm for half the columns
+MARGIN16 = 1e-3         # a token may differ only below this top-2 margin
+PHASE16_RANK_S = 60
+
+
+def _phase16_inputs(dev):
+    """(config, packed weights from seed 16, right-padded prompts (4, 128)
+    int32, their lengths (4,) int32) on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    s = SERVE16
+    cfg = dataclasses.replace(get_config("bitnet-0.73b"),
+                              n_layers=s["layers"])
+    gen = torch.Generator(device=dev if dev != "meta" else "cpu")
+    packed = transformer.init_packed_params(cfg, gen.manual_seed(s["seed"]))
+    g = torch.Generator().manual_seed(s["seed"])
+    lengths = torch.randint(s["prompt"][0], s["prompt"][1] + 1,
+                            (s["batch"],), generator=g, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (s["batch"], s["prompt"][1]),
+                           generator=g, dtype=torch.int32)
+    return cfg, packed, prompt.to(dev), lengths.to(dev)
+
+
+def _phase16_cell(cfg, packed, prompt, lengths, mesh, dev):
+    """The partitioned prefill of (a) on ``mesh`` (a ``TrainMesh`` or, for
+    the dry run's estimate, a ``DryMesh`` on meta tensors): (its
+    arguments: this rank's packed weights, batch rows, their lengths and
+    cache block, the context)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    from repro_torch.runtime import sharding
+    s = SERVE16
+    b = s["batch"]
+    params = sharding.shard_params(mesh, packed, fsdp=False)
+    cache = sharding.local_cache(mesh, transformer.init_cache(
+        cfg, b, s["max_seq"], torch.float32, dev), b)
+    rows = sharding.batch_spec(mesh, b, 1)
+    inp = mesh.local_part(prompt, rows).clone()
+    lens = mesh.local_part(lengths, rows[:1]).clone()
+    ctx = Ctx(mode="packed", constrain=sharding.make_constrain(
+        mesh, cfg, b, max_seq=s["max_seq"]))
+    return params, inp, lens, cache, ctx
+
+
+def _phase16_estimate(rank):
+    """The dry run's estimate (``launch.dryrun``: ``Census`` on ``meta``
+    tensors) of (a)'s (1, 2) prefill on rank ``rank`` of a ``DryMesh``:
+    (argument bytes, bytes above them at the peak)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.runtime.collectives import DryMesh
+    with dryrun.MetaInit():
+        cfg, packed, prompt, lengths = _phase16_inputs("meta")
+    mesh = DryMesh((1, 2), rank=rank)
+    params, inp, lens, cache, ctx = _phase16_cell(cfg, packed, prompt,
+                                                  lengths, mesh, "meta")
+    args = (params, inp, cache, lens)
+    est = dryrun.estimate(dryrun.Cell(
+        lambda p, x, c, n: transformer.prefill_step(cfg, p, x, ctx, c, n),
+        args, mesh, dryrun._distinct_bytes(dryrun._flat(args))))
+    mem = est["memory"]
+    return mem["argument_bytes"], mem["peak_bytes_est"] - mem[
+        "argument_bytes"]
+
+
+def _phase16_rank(rank, world, port, workdir, device="cuda"):
+    """One of phase 16's two gloo ranks on the one card: (a) on each mesh
+    of MESHES16 against the single-device run in ``workdir/ref.pt``.
+    Writes its readings to ``workdir/rank{rank}.json``."""
+    entered = time.time()
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_prefill import ref as fp_ref
+    from repro_torch.kernels.tlmm import ref as tlmm_ref
+    from repro_torch.kernels.tlmm_lut import ref as lut_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.runtime.collectives import TrainMesh
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    dev = torch.device(device, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {"rank": rank, "entered": entered, "meshes": {}}
+    plain = {"calls": 0}   # every plain version a wrapper could take
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            plain["calls"] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for mod in (tlmm_ref, lut_ref, fp_ref, da_ref):
+        for name in dir(mod):
+            if name.endswith("_ref") and callable(getattr(mod, name)):
+                setattr(mod, name, counted(getattr(mod, name)))
+    try:
+        refs = torch.load(os.path.join(workdir, "ref.pt"),
+                          map_location=dev.type)
+        cfg, packed, prompt, lengths = _phase16_inputs(dev)
+        s = SERVE16
+        out["ready"] = time.time()
+        for shape in MESHES16:
+            # a cache split on its sequence is read by split-K partials
+            ref = refs["splitk" if shape[1] > 1 else "kernel"]
+            mesh = TrainMesh(shape)
+            params, inp, lens, cache, ctx = _phase16_cell(
+                cfg, packed, prompt, lengths, mesh, dev)
+            args = (params, inp, cache, lens)
+            arg_bytes = dryrun._distinct_bytes(dryrun._flat(args))
+            rows = ctx.constrain.batch
+            mine = (lambda t: mesh.local_part(t, (rows,) + (None,) * (
+                t.dim() - 1)))
+            kernels.reset_launch_counts()
+            plain["calls"] = 0
+            mesh.reset_collective_bytes()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = transformer.prefill_step(cfg, params, inp, ctx,
+                                                     cache, lens)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - held
+            want = mine(ref["prefill"])
+            r = {"arg_bytes": arg_bytes, "above": peak,
+                 "prefill_s": prefill_s,
+                 "prefill_rel": float((logits - want).abs().max()
+                                      / want.abs().max()),
+                 "prefill_coll": mesh.reset_collective_bytes(),
+                 "decode_err": [], "first_diff": None, "step_s": []}
+            for i in range(s["steps"]):
+                tok = mine(ref["tokens"][i])[:, None]
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    logits, _ = transformer.decode_step(
+                        cfg, params, tok, ctx, cache, lens + i)
+                torch.cuda.synchronize()
+                r["step_s"].append(time.perf_counter() - t0)
+                want = mine(ref["decode"][i])
+                r["decode_err"].append(float((logits - want).abs().max()))
+                nxt = mine(ref["tokens"][i + 1])
+                if r["first_diff"] is None and not torch.equal(
+                        logits.argmax(-1), nxt):
+                    top2 = want.topk(2, dim=-1).values
+                    r["first_diff"] = [i, float((top2[:, 0] - top2[:, 1])
+                                                .min())]
+            r["decode_coll"] = mesh.reset_collective_bytes()
+            r["launches"] = kernels.launch_counts()
+            r["plain_calls"] = plain["calls"]
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out["meshes"][str(shape)] = r
+            del params, cache, args
+            torch.cuda.empty_cache()
+        out["ok"] = True
+    finally:
+        out["done"] = time.time()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase16(dev, smi):
+    """Phase 16: JAX's partitioned packed serving program (``prefill_step``
+    and ``decode_step`` under ``Constrain(max_seq=)``: packed weights by
+    ``shard_params``, the cache split on its sequence over "model" by
+    ``cache_sharding``, the batch by ``batch_spec``) on two gloo ranks on
+    the one card.  (a) bitnet-0.73b at full width, SERVE16 (4 of 24
+    layers), on (1, 2) and on (2, 1), against the single-device port on
+    the card reading its cache as the mesh's ranks do ((2, 1) by the
+    decode kernel; (1, 2), whose shards each read their half of the
+    sequence as one split-K chunk, by split-K over 2 chunks,
+    ``Ctx(kv_splits=2)``; the gap between the two reads on one device is
+    printed): prefill logits within PREFILL16_RTOL of their largest; 16
+    decode steps, each rank fed the single device's greedy token, logits
+    within DECODE16_TOL, the rank's greedy token equal or else the first
+    differing step's single-device top-2 margin below MARGIN16; each rank's
+    launch counters show tlmm and flash_prefill launched and no plain
+    version called.  (b) the dry run's estimate of (a)'s (1, 2) prefill on
+    ``DryMesh((1, 2))``: its argument bytes equal each rank's bytes of
+    the same tensors, its bytes above them within PEAK13_RTOL of the
+    rank's ``max_memory_allocated`` above what it held before the
+    prefill.  Prints per rank the prefill's and a decode step's seconds,
+    the peak and the collective bytes by kind.  The phase within
+    PHASE16_S.  Returns (the ranks' launch counts summed, the failures)."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    failures = []
+    t_16 = time.perf_counter()
+    s = SERVE16
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase16")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    # -- the single-device runs on the card, greedy --------------------------
+    # (2, 1)'s ranks read their rows' cache with the decode kernel, as one
+    # device does; (1, 2)'s ranks each read their half of the sequence as
+    # one split-K chunk, so its single-device run reads by split-K over 2
+    # chunks (Ctx.kv_splits), the same partials merged in the same order
+    cfg, packed, prompt, lengths = _phase16_inputs(dev)
+    refs = {}
+    for name, kv_splits in (("kernel", 0), ("splitk", 2)):
+        ctx = Ctx(mode="packed", kv_splits=kv_splits)
+        cache = transformer.init_cache(cfg, s["batch"], s["max_seq"],
+                                       torch.float32, dev)
+        with torch.no_grad():
+            logits, _ = transformer.prefill_step(cfg, packed, prompt, ctx,
+                                                 cache, lengths)
+            ref = {"prefill": logits, "decode": [],
+                   "tokens": [logits.argmax(-1)]}
+            for i in range(s["steps"]):
+                logits, _ = transformer.decode_step(
+                    cfg, packed, ref["tokens"][-1][:, None].to(torch.int32),
+                    ctx, cache, lengths + i)
+                ref["decode"].append(logits)
+                ref["tokens"].append(logits.argmax(-1))
+        refs[name] = ref
+        del cache
+    same, gap = 0, 0.0   # the two reads' logits while their tokens agree
+    for i in range(s["steps"]):
+        if not torch.equal(refs["kernel"]["tokens"][i],
+                           refs["splitk"]["tokens"][i]):
+            break
+        same += 1
+        gap = max(gap, float((refs["kernel"]["decode"][i]
+                              - refs["splitk"]["decode"][i]).abs().max()))
+    log(f"  one device: the decode kernel's read against split-K over 2 "
+        f"chunks, logits within {gap:.3g} over the first {same} of "
+        f"{s['steps']} steps (their greedy inputs equal there; ungated: a "
+        f"read summed in another order moves int8 codes at full width)")
+    torch.save(refs, os.path.join(workdir, "ref.pt"))
+    del packed, refs, ref, logits
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_16
+    # -- (a) the two ranks --------------------------------------------------
+    t_r = time.perf_counter()
+    spawned = time.time()
+    procs = mp.spawn(_phase16_rank, args=(2, _free_port(), workdir),
+                     nprocs=2, join=False)
+    deadline = time.perf_counter() + PHASE16_RANK_S
+    try:
+        while not procs.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise TimeoutError("phase 16's ranks did not finish")
+    except Exception as e:   # a rank that fails fails the phase
+        failures.append(f"(a) ranks: {type(e).__name__}: {str(e)[-2000:]}")
+    finally:
+        for p_ in procs.processes:
+            if p_.is_alive():
+                p_.kill()
+            p_.join()
+    joined = time.time()
+    ranks = []
+    for r in range(2):
+        path = os.path.join(workdir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    shutil.rmtree(workdir, ignore_errors=True)
+    t_ranks = time.perf_counter() - t_r
+    counts = {}
+    if not all(r.get("ok") for r in ranks):
+        failures.append(f"(a): a rank did not finish: {ranks}")
+        return counts, failures
+    log(f"  the ranks: spawn to entry "
+        f"{[round(r['entered'] - spawned, 1) for r in ranks]} s, entry to "
+        f"ready {[round(r['ready'] - r['entered'], 1) for r in ranks]} s, "
+        f"ready to done {[round(r['done'] - r['ready'], 1) for r in ranks]}"
+        f" s, done to joined {[round(joined - r['done'], 1) for r in ranks]}"
+        f" s")
+    for shape in MESHES16:
+        rows = [r["meshes"][str(shape)] for r in ranks]
+        for r_, row in enumerate(rows):
+            step = sorted(row["step_s"])[len(row["step_s"]) // 2]
+            log(f"  (a) {shape} rank {r_}: prefill {row['prefill_s']:.4f} s "
+                f"(logits within {row['prefill_rel']:.3g} of the largest, "
+                f"gate {PREFILL16_RTOL}), a decode step {step:.4f} s "
+                f"(median of {s['steps']}; logits within "
+                f"{max(row['decode_err']):.3g}, gate {DECODE16_TOL}; first "
+                f"token differing {row['first_diff']}), peak "
+                f"{row['peak_gib']:.3f} GiB ({row['above']} B above the "
+                f"{row['arg_bytes']} B of its arguments at the prefill); "
+                f"collective bytes prefill "
+                f"{ {k: v for k, v in row['prefill_coll'].items() if v} }, "
+                f"decode ({s['steps']} steps) "
+                f"{ {k: v for k, v in row['decode_coll'].items() if v} }; "
+                f"launches {row['launches']}, plain versions called "
+                f"{row['plain_calls']}; {smi}")
+            for name, n in row["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+            if row["prefill_rel"] > PREFILL16_RTOL:
+                failures.append(f"(a) {shape} rank {r_} prefill "
+                                f"{row['prefill_rel']}")
+            if max(row["decode_err"]) > DECODE16_TOL:
+                failures.append(f"(a) {shape} rank {r_} decode "
+                                f"{row['decode_err']}")
+            if row["first_diff"] is not None and not (
+                    row["first_diff"][1] < MARGIN16):
+                failures.append(f"(a) {shape} rank {r_} token differs at "
+                                f"{row['first_diff']}")
+            if not (row["launches"]["tlmm"] > 0
+                    and row["launches"]["flash_prefill"] > 0
+                    and row["plain_calls"] == 0):
+                failures.append(f"(a) {shape} rank {r_} launches "
+                                f"{row['launches']}, plain "
+                                f"{row['plain_calls']}")
+    # -- (b) the dry run's estimate of the (1, 2) prefill --------------------
+    t_e = time.perf_counter()
+    for r_, rank in enumerate(ranks):
+        row = rank["meshes"][str(MESHES16[0])]
+        args, above = _phase16_estimate(r_)
+        rel = (above - row["above"]) / row["above"]
+        log(f"  (b) (1, 2) rank {r_}: the dry run's argument bytes {args} B "
+            f"against the card's {row['arg_bytes']} B; bytes above them at "
+            f"the peak {above} B against the card's {row['above']} B (rel "
+            f"{rel:+.4f}, gate {PEAK13_RTOL}); {smi}")
+        if args != row["arg_bytes"]:
+            failures.append(f"(b) rank {r_} argument bytes {args} != "
+                            f"{row['arg_bytes']}")
+        if abs(rel) > PEAK13_RTOL:
+            failures.append(f"(b) rank {r_} peak estimate off by {rel:+.4f}")
+    t_e = time.perf_counter() - t_e
+    took = time.perf_counter() - t_16
+    log(f"phase 16: {took:.1f} s (the single device {t_ref:.1f} s, the "
+        f"ranks {t_ranks:.1f} s, the estimate {t_e:.1f} s); launches "
+        f"{counts}")
+    if took > PHASE16_S:
+        failures.append(f"phase 16 took {took:.1f} s (gate {PHASE16_S} s)")
+    return counts, failures
+
+
 def main() -> int:
     try:
         return run()
@@ -4432,12 +4782,18 @@ def run() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    log(f"-- phase 16 at {time.perf_counter() - t_main:.1f} s")
+    p16_counts, p16_failures = phase16(dev, smi)
+    failures += p16_failures
+    if failures:
+        raise AssertionError("; ".join(failures))
+
     for row in rows:   # each path's launches, counted around that path alone
         row["launches"] = sum(c.get(row["name"], 0) for c in (
             eng_counts, paged_counts, kv8_counts, shared_counts,
             robust_counts, splitk_counts, ora_counts, ffn_counts, lut_counts,
             bf16_counts, ffn_wide_counts, p9_counts, p10_counts, p11_counts,
-            p12_counts, p14_counts, p15_counts))
+            p12_counts, p14_counts, p15_counts, p16_counts))
 
     took = time.perf_counter() - t_main
     log(f"-- all phases done at {took:.1f} s")

@@ -31,6 +31,7 @@ from torch import nn
 from repro_torch.core import ternary
 from repro_torch.kernels.tlmm import ops as tlmm_ops
 from repro_torch.kernels.tlmm_lut import ops as lut_ops
+from repro_torch.runtime.sharding import Part
 
 ROW_MULTIPLE = 64  # packed rows pad to this (mesh-shardable, as in JAX)
 # the packed matmul of apply_packed: decode-to-int8 (JAX impl "pallas") or
@@ -171,16 +172,73 @@ def apply_packed(p: PackedLinear, x: torch.Tensor, *, matmul: str = "tlmm",
     n_in = x.shape[-1]
     lead = x.shape[:-1]
     x_q, x_scale = ternary.absmax_quant(x.reshape(-1, n_in))
+    return _epilogue(p, _packed_matmul(x_q, p, n_in, matmul), x_scale,
+                     lead, out_dtype)
+
+
+def _packed_matmul(x_q: torch.Tensor, p: PackedLinear, n: int,
+                   matmul: str) -> torch.Tensor:
+    # the kernels take rows of unit stride: codes gathered over a mesh
+    # (``Constrain.whole``) or a block of a gathered input may be views
+    x_q, codes = x_q.contiguous(), p.codes.contiguous()
     if matmul == "tlmm":
-        acc = tlmm_ops.tlmm(x_q, p.codes, g=p.g, n=n_in)
-    elif matmul == "tlmm_lut":
-        acc = lut_ops.tlmm_lut(x_q, p.codes, g=p.g)
-    else:
-        raise ValueError(f"unknown matmul {matmul!r}, not one of {MATMULS}")
+        return tlmm_ops.tlmm(x_q, codes, g=p.g, n=n)
+    if matmul == "tlmm_lut":
+        return lut_ops.tlmm_lut(x_q, codes, g=p.g)
+    raise ValueError(f"unknown matmul {matmul!r}, not one of {MATMULS}")
+
+
+def _epilogue(p: PackedLinear, acc: torch.Tensor, x_scale: torch.Tensor,
+              lead: tuple, out_dtype: torch.dtype) -> torch.Tensor:
     y = acc.float() * x_scale * p.gamma
     if p.b is not None:
         y = y + p.b.float()
     return y.to(out_dtype).reshape(lead + (p.codes.shape[-1],))
+
+
+def packed_rows_acc(p: PackedLinear, x: torch.Tensor, mesh, axis: str,
+                    matmul: str = "tlmm") -> tuple:
+    """The int32 sums of a row-parallel packed linear, summed over
+    ``axis`` (see :func:`apply_packed_rows`): ((m, n_out) int32, equal to
+    the single device's accumulator, the (m, 1) f32 scales, x's leading
+    shape)."""
+    lead = x.shape[:-1]
+    x_q, x_scale = ternary.absmax_quant(x.reshape(-1, x.shape[-1]),
+                                        part=Part(mesh, (None, axis)))
+    x_q = mesh.all_gather(x_q, axis, 1)   # the whole int8 input
+    width = p.codes.shape[0] * p.g
+    lo = mesh.index(axis) * width
+    mine = x_q[:, lo:lo + width]
+    mine = torch.nn.functional.pad(mine, (0, width - mine.shape[1]))
+    acc = mesh.all_reduce(_packed_matmul(mine, p, width, matmul), axis)
+    return acc, x_scale, lead
+
+
+def apply_packed_rows(p: PackedLinear, x: torch.Tensor, mesh, *,
+                      axis: str = "model", matmul: str = "tlmm",
+                      out_dtype: torch.dtype = torch.bfloat16,
+                      seq_part: bool = False) -> torch.Tensor:
+    """A row-parallel packed linear (``o``, ``down`` under JAX's
+    ``param_spec``): ``p.codes`` is this rank's block of R packed rows of
+    the whole (R * m, n_out), ``x`` (..., n_in / m) its block of the input
+    features.  The rows are padded to ``ROW_MULTIPLE``, so this rank's rows
+    cover the inputs [i R g, (i + 1) R g) of the whole, not its own feature
+    block (a block may be all padding).  So each token's absmax is the
+    MAX over ``axis`` of its blocks' (exact), each rank quantizes its block
+    with it, the int8 blocks are gathered whole (the single device's
+    operand, bit for bit), this rank takes the inputs its rows cover (zero
+    past n_in), and the int32 partial sums are summed over ``axis``
+    (exact) before the epilogue: the single device's output on every rank,
+    or with ``seq_part`` (x (b, t, ...) under sequence parallelism) this
+    rank's block of its sequence.  The codes are never repacked."""
+    acc, x_scale, lead = packed_rows_acc(p, x, mesh, axis, matmul)
+    if seq_part:   # the epilogue on this rank's part of the sequence
+        n = acc.shape[-1]
+        acc = mesh.local(acc.reshape(lead + (n,)), axis, 1)
+        x_scale = mesh.local(x_scale.reshape(lead + (1,)), axis, 1)
+        lead = acc.shape[:-1]
+        acc, x_scale = acc.reshape(-1, n), x_scale.reshape(-1, 1)
+    return _epilogue(p, acc, x_scale, lead, out_dtype)
 
 
 # The pre-decoded GEMM stays exact while |acc| <= n * 127 < 2^24.

@@ -6,8 +6,9 @@ CUDA tensor launches the kernel, a CPU tensor takes the plain version.
 
 The split-K functions below (``splitk_partials``, ``splitk_combine``,
 ``validate_num_splits``, ``decode_attention_splitk``,
-``decode_attention_splitk_sharded``) are the counterparts of the JAX
-package's flash-decoding, which is plain ``jnp`` there, not a Pallas
+``decode_attention_splitk_sharded``, and ``shard_decode``, the read of a
+cache split on its sequence over a mesh axis) are the counterparts of the
+JAX package's flash-decoding, which is plain ``jnp`` there, not a Pallas
 kernel.  They are plain PyTorch here too, on either device, by design: no
 kernel of the port is behind them.  Their one contract is bitwise: the
 partials of chunks [i, i + n) equal those rows of one call over all K
@@ -108,7 +109,9 @@ def splitk_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_h = k.shape[1]
     g = h // kv_h
     scale = 1.0 / float(d) ** 0.5
-    qf = q.to(torch.float32).reshape(b, kv_h, g, d)
+    # contiguous operands: the same layout, so the same product, whatever
+    # view of the cache (or of a gathered query) a caller passes
+    qf = q.to(torch.float32).reshape(b, kv_h, g, d).contiguous()
     cl = torch.as_tensor(cache_len, device=q.device).long().reshape(-1)
     cl = cl.expand(b)[:, None]                                     # (b, 1)
     offs = torch.arange(chunk, device=q.device)
@@ -117,8 +120,10 @@ def splitk_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lo = c * chunk
         # fresh contiguous copies: the same program on the same layout for
         # every chunk, wherever the chunk sits in the sequence
-        kc = k[:, :, lo:lo + chunk].to(torch.float32, copy=True)
-        vc = v[:, :, lo:lo + chunk].to(torch.float32, copy=True)
+        kc = k[:, :, lo:lo + chunk].to(
+            torch.float32, copy=True, memory_format=torch.contiguous_format)
+        vc = v[:, :, lo:lo + chunk].to(
+            torch.float32, copy=True, memory_format=torch.contiguous_format)
         pos = (split0 + c) * chunk + offs                          # (chunk,)
         mask = pos[None, :] < cl                                   # (b, chunk)
         if window is not None:
@@ -235,6 +240,31 @@ def gather_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     sharding.all_gather_rows(out, packed, group)
     out = out.movedim(0, 2)
     return out[..., :1], out[..., 1:2], out[..., 2:2 + d]
+
+
+def shard_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cache_len, *, mesh, axis, window: int | None = None
+                 ) -> torch.Tensor:
+    """The decode read of a cache split on its sequence over ``axis`` of
+    a mesh (``runtime.collectives``; JAX's partitioned program, whose
+    read is XLA, not Pallas): q (b, h, 1, d), every head; k, v (b, kv_h,
+    S / n, d), this rank's shard, at global positions [i S / n,
+    (i + 1) S / n).  Each rank computes its shard's partials as one
+    split-K chunk (``split0`` = its index, so keys at or past
+    ``cache_len`` and outside the window are masked at their global
+    positions), the (m, l, acc) triples are all-gathered over ``axis`` in
+    index order (one collective, counted on a ``DryMesh``) and every rank
+    runs the same combine.  A shard with no live key (a prompt shorter
+    than S / n) gives m = NEG_INF, l = 0, acc = 0, which the combine
+    weights by exp(NEG_INF - max) = 0: no NaN while any shard is live."""
+    m, l, acc = splitk_partials(q, k, v, cache_len, n_splits=1,
+                                chunk=k.shape[2], split0=mesh.index(axis),
+                                window=window)
+    if mesh.axis_size(axis) > 1:
+        d = acc.shape[-1]
+        packed = mesh.all_gather(torch.cat([m, l, acc], dim=-1), axis, 2)
+        m, l, acc = packed[..., :1], packed[..., 1:2], packed[..., 2:2 + d]
+    return splitk_combine(m, l, acc, q.dtype)
 
 
 def splitk_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

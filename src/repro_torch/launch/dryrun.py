@@ -16,7 +16,10 @@ storage, no arithmetic):
   port's specs, parameters in bf16 as JAX's ``eval_shape`` there;
 * ``peak_bytes_est``: ``argument_bytes`` plus the most bytes live at once
   of the storages the step makes (a dispatch mode, ``Census``, follows
-  each new storage from the op that makes it to its release);
+  each new storage from the op that makes it to its release); a kernel's
+  plain version stands for the kernel (``Census.kernels``): its FLOPs
+  and bytes count op by op, but of its storages only its result, as the
+  kernel's temporaries are its registers and shared memory;
   ``output_bytes`` are the step's results, ``alias_bytes`` those that are
   arguments updated in place, ``temp_bytes`` the rest of that peak, so
   that argument + output + temp - alias is the peak, JAX's formula;
@@ -30,22 +33,27 @@ storage, no arithmetic):
 Limits: no allocator rounding, fragmentation, cached blocks or library
 workspaces (cuBLAS, NCCL), and no fusion: every op's output is a storage
 of its own and its bytes are read and written once.  ``chip_smoke.py``
-phase 15 (b) holds one cell's estimate to the card's allocator.
+phase 15 (b) holds a training cell's estimate to the card's allocator,
+phase 16 (b) a partitioned serving prefill's.
 
-Serving cells run the packed model as ``ServingEngine`` serves a mesh
-(its ``mesh=``): the packed weights whole on every rank, a rank's share of
-the batch rows (the slots, padded to a multiple of the batch ranks; the
-pod axis of 2 x 16 x 16 counts as more "data" ranks, though the engine
-takes a ("data", "model") mesh alone) and of a cache whole in its
-sequence, and no collective in the model.  JAX's partitioned program
-splits the weights and the cache's sequence over "model" instead
-(``sharding.cache_sharding``), which the port's engine does not, so a
-serving cell's bytes are the port's, not JAX's.  The kernels' plain
-versions take the meta tensors, so a cell counts their work (the prompt
-attention's plain version scores every key tile of every query row, where
-the kernel skips the dead ones).  A cell that
-meets an op with no meta rule fails loudly (``error`` and the traceback
-in its JSON).
+Serving cells of the attention-block archs without experts run JAX's
+partitioned program (``"layout": "partitioned"`` in the result): the
+packed weights by ``sharding.shard_params(fsdp=False)`` (q/k/v/gate/up
+split on their outputs over "model", o/down on their packed rows, the
+embedding on the vocabulary), the cache by ``sharding.cache_sharding``
+(the batch over "data", the sequence over "model"), the batch by
+``batch_spec``, and the model's collectives over "model"
+(``Constrain(max_seq=)``).  MoE and the recurrent kinds keep the engine's
+layout (``"layout": "engine"``), as ``ServingEngine`` serves a mesh (its
+``mesh=``): the packed weights whole on every rank, a rank's share of the
+batch rows (the slots, padded to a multiple of the batch ranks; the pod
+axis of 2 x 16 x 16 counts as more "data" ranks, though the engine takes
+a ("data", "model") mesh alone) and of a cache whole in its sequence, and
+no collective in the model.  The kernels' plain versions take the meta
+tensors, so a cell counts their work (the prompt attention's plain
+version scores every key tile of every query row, where the kernel skips
+the dead ones).  A cell that meets an op with no meta rule fails loudly
+(``error`` and the traceback in its JSON).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
@@ -57,7 +65,9 @@ Outputs JSON a cell under ``--out`` (default experiments/dryrun_torch).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import time
@@ -143,6 +153,12 @@ def _sig(a):
     raise _NoSig
 
 
+# the kernel packages whose plain versions ``Census.kernels`` counts as
+# their kernels
+KERNEL_PACKAGES = ("tlmm", "tlmm_lut", "flash_prefill", "decode_attention",
+                   "rmsnorm_quant", "swiglu_quant")
+
+
 class Census(TorchDispatchMode):
     """Follows one step's ops (see the module docstring): ``flops`` by
     ``FlopCounterMode``'s formulas (its ``flop_registry``, an op it has no
@@ -162,8 +178,42 @@ class Census(TorchDispatchMode):
         self.live, self.now, self.peak = {}, 0, 0
         self.accessed, self.flops = 0, 0
         self._memo, self._kinds = {}, {}
+        self._in_kernel = 0
+
+    @contextlib.contextmanager
+    def kernels(self):
+        """Every kernel's plain version (the ``*_ref`` functions of the
+        ``repro_torch.kernels`` packages, which the wrappers call by
+        module attribute on ``meta`` and CPU tensors) counted as its
+        kernel: the storages made inside are not followed, its result is."""
+        patched = []
+        for pkg in KERNEL_PACKAGES:
+            mod = importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
+            for name, fn in list(vars(mod).items()):
+                if name.endswith("_ref") and callable(fn):
+                    patched.append((mod, name, fn))
+                    setattr(mod, name, self._as_kernel(fn))
+        try:
+            yield self
+        finally:
+            for mod, name, fn in patched:
+                setattr(mod, name, fn)
+
+    def _as_kernel(self, fn):
+        def kernel(*args, **kwargs):
+            self._in_kernel += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self._in_kernel -= 1
+            if not self._in_kernel:
+                self._made(_flat(out))
+            return out
+        return kernel
 
     def _made(self, out):
+        if self._in_kernel:   # a kernel's registers and shared memory
+            return
         for t in out:
             st = _storage(t)
             key = st._cdata
@@ -266,6 +316,9 @@ class Cell:
     mesh: object
     local_bytes: int
     microbatches: int = 1
+    # a training cell's layout ("2d", "dp", "dpzero1"); a serving cell's,
+    # "partitioned" (JAX's) or "engine"
+    layout: str = "2d"
 
 
 def bf16_params(cfg, device="meta", seed: int = 0):
@@ -285,22 +338,38 @@ def bf16_params(cfg, device="meta", seed: int = 0):
     return params
 
 
-def make_ctx(cfg, mesh, global_batch, *, mode, opt=()):
+def partitioned(cfg) -> bool:
+    """Whether the port serves ``cfg`` in JAX's partitioned layout (the
+    attention-block archs without experts); MoE and the recurrent kinds
+    keep the engine's."""
+    return cfg.block_kind == "attn" and not cfg.n_experts
+
+
+def train_layout(opt) -> str:
+    """The training layout of ``opt``: ``dpzero1``, ``dp`` or ``2d``."""
+    return "dpzero1" if "dpzero1" in opt else "dp" if "dp" in opt else "2d"
+
+
+def make_ctx(cfg, mesh, global_batch, *, mode, opt=(), max_seq=None):
     """JAX's ``make_ctx``: bf16 activations, MoE token chunks of 32768,
-    ``kv8``/``int8fwd``/``rematdots`` from ``opt``, and the training
-    hook of the layout (``dp`` for ``dp``/``dpzero1``, else ``2d``).
+    ``kv8``/``int8fwd``/``rematdots`` from ``opt``, and the hook of the
+    layout (``dp`` for ``dp``/``dpzero1``, else ``2d``): a training
+    cell's, or, with ``max_seq``, a serving cell's in JAX's partitioned
+    layout (``partitioned``), whose cache holds ``max_seq`` positions.
     Training attention is the plain flash recomputation (JAX's XLA
     attention); the serving cells take the attention kernels' wrappers."""
     train = mode == "qat"
-    layout = ("dpzero1" if "dpzero1" in opt else
-              "dp" if "dp" in opt else "2d")
+    hook = None
+    if train:
+        hook = shd.make_constrain(mesh, cfg, global_batch, train_layout(opt))
+    elif max_seq is not None:
+        hook = shd.make_constrain(mesh, cfg, global_batch, max_seq=max_seq)
     return Ctx(mode=mode, attn="skip" if train else "kernel",
                act_dtype=torch.bfloat16,
                moe_token_chunk=32768 if cfg.n_experts else 0,
                qat_int8_fwd="int8fwd" in opt,
                remat_policy="dots" if "rematdots" in opt else "nothing",
-               constrain=(shd.make_constrain(mesh, cfg, global_batch, layout)
-                          if train else None))
+               constrain=hook)
 
 
 def microbatches_of(cfg, global_batch: int, n_batch: int) -> int:
@@ -371,17 +440,30 @@ def build_cell(arch: str, shape, mesh, opt=(), *, device="meta", cfg=None,
         b_bytes = sum(_nbytes(mesh.local_part(v, (hook.batch,) + (None,) * (
             v.dim() - 1))) for v in batch.values())
         local = _distinct_bytes(_flat(args[:-1])) + b_bytes
-        return Cell(fn, args, mesh, local, mb)
+        return Cell(fn, args, mesh, local, mb, layout=train_layout(opt))
 
-    # serving cells, as the engine serves a mesh: packed parameters whole
-    # on every rank, the rank's rows of the batch and of a cache whole in
-    # its sequence, no collective
     packed = transformer.pack_params(cfg, params)
-    rows = -(-gb // shd.axis_size(mesh, shd.batch_axes(mesh)))
-    cache = transformer.init_cache(cfg, rows, seq, torch.bfloat16,
-                                   device=device, kv_quant="kv8" in opt)
-    ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt)
     t = seq if shape.kind == "prefill" else 1
+    kvq = "kv8" in opt
+    if partitioned(cfg):
+        # JAX's partitioned program: the packed weights by shard_params,
+        # the cache by cache_sharding (its sequence split over "model"),
+        # the batch by batch_spec
+        layout = "partitioned"
+        packed = shd.shard_params(mesh, packed, fsdp=False)
+        cache = shd.local_cache(mesh, transformer.init_cache(
+            cfg, gb, seq, torch.bfloat16, device=device, kv_quant=kvq), gb)
+        ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt, max_seq=seq)
+        rows = gb // shd.axis_size(mesh, shd.batch_spec(mesh, gb, 0)[0])
+    else:
+        # as the engine serves a mesh: packed parameters whole on every
+        # rank, the rank's rows of the batch and of a cache whole in its
+        # sequence, no collective
+        layout = "engine"
+        rows = -(-gb // shd.axis_size(mesh, shd.batch_axes(mesh)))
+        cache = transformer.init_cache(cfg, rows, seq, torch.bfloat16,
+                                       device=device, kv_quant=kvq)
+        ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt)
     if cfg.frontend == "token":
         inp = torch.zeros((rows, t), dtype=torch.int32, device=device)
     else:
@@ -394,7 +476,8 @@ def build_cell(arch: str, shape, mesh, opt=(), *, device="meta", cfg=None,
         fn = steps.make_decode_fn(cfg, ctx)
         clen = torch.full((), seq - 1, dtype=torch.int32, device=device)
         args = (packed, inp, cache, clen)
-    return Cell(fn, args, mesh, _distinct_bytes(_flat(args)))
+    return Cell(fn, args, mesh, _distinct_bytes(_flat(args)),
+                layout=layout)
 
 
 def estimate(cell: Cell) -> dict:
@@ -404,7 +487,7 @@ def estimate(cell: Cell) -> dict:
     arg_tensors = _flat(cell.args)
     cell.mesh.reset_collective_bytes()
     t0 = time.time()
-    with Census(known=arg_tensors) as census:
+    with Census(known=arg_tensors) as census, census.kernels():
         out = cell.fn(*cell.args)
     trace_s = time.time() - t0
     coll = {k: v for k, v in cell.mesh.reset_collective_bytes().items()
@@ -419,6 +502,7 @@ def estimate(cell: Cell) -> dict:
     args = cell.local_bytes
     return {
         "trace_s": round(trace_s, 2),
+        "layout": cell.layout,
         "microbatches": cell.microbatches,
         "memory": {
             "argument_bytes": args,

@@ -155,14 +155,19 @@ def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx, *,
                  ternary_w: bool = True) -> torch.Tensor:
     if isinstance(p, PredecodedLinear):   # serving engine's hot path
         return bitlinear.apply_predecoded(p, x, out_dtype=x.dtype)
+    # on a mesh: how w and x are split (runtime/sharding.py)
+    parts = (ctx.constrain.linear_parts(p, x) if ctx.constrain is not None
+             and isinstance(p, (Linear, PackedLinear)) else None)
     if isinstance(p, PackedLinear):       # packed inference params
+        if parts is not None and parts.row:   # int32 sums over "model"
+            return bitlinear.apply_packed_rows(
+                p, x, ctx.constrain.mesh, matmul=ctx.matmul,
+                out_dtype=x.dtype, seq_part=ctx.constrain.sp_now)
+        # whole, or this rank's columns (and the bias's slice)
         return bitlinear.apply_packed(p, x, matmul=ctx.matmul,
                                       out_dtype=x.dtype)
     if not isinstance(p, Linear):
         raise TypeError(f"not a linear: {type(p).__name__}")
-    # on a training mesh: how w and x are split (runtime/sharding.py)
-    parts = (ctx.constrain.linear_parts(p, x) if ctx.constrain is not None
-             else None)
     if ctx.mode == "qat" and ternary_w:
         y = bitlinear.apply_qat(p, x, int8_fwd=ctx.qat_int8_fwd, parts=parts)
     else:                                 # dense: unquantized master

@@ -42,6 +42,14 @@ hd), "n": (L/2, b, H, hd), "m": (L/2, b, H)}, "slstm": {"c", "n", "h",
 cache is updated IN PLACE, state planes included (a prompt's state
 replaces the rows' state; a decode step advances it): every entry point
 returns the cache dict it was given.
+
+Under a ("data", "model") mesh with ``Ctx.constrain`` a serving hook
+(``runtime.sharding.make_constrain(max_seq=)``), ``prefill_step`` and
+``decode_step`` are JAX's partitioned program for the attention blocks:
+each rank holds its block of the packed weights (``shard_params``), of the
+batch and of the cache, whose sequence is split over "model"
+(``cache_sharding``, ``_attn_shard``), and returns the logits of its rows
+whole in the vocabulary.
 """
 
 from __future__ import annotations
@@ -310,6 +318,79 @@ def q_kv(x: torch.Tensor):
     return q, scale
 
 
+def _prompt_attention(ctx: Ctx, qt, kt, vt, window) -> torch.Tensor:
+    """Whole-prompt causal attention of (b, h, t, hd) operands: the flash
+    prefill kernel, or a Fig. 6b baseline (``Ctx.attn``)."""
+    if ctx.attn == "kernel":
+        if torch.is_grad_enabled() and qt.requires_grad:
+            raise NotImplementedError(
+                "the flash prefill kernel has no backward (nor has the "
+                "reference's Pallas one): train on Ctx(attn='skip')")
+        return fp_ops.flash_prefill(qt, kt, vt, window=window)
+    fn = (attention.attention_skip if ctx.attn == "skip"
+          else attention.attention_naive)   # plain PyTorch
+    return fn(qt, kt, vt, causal=True, window=window,
+              q_chunk=ctx.attn_q_chunk, kv_chunk=ctx.attn_kv_chunk)
+
+
+def _attn_shard(ctx: Ctx, qt, kt, vt, k_all, v_all, cache: dict, phase: str,
+                cache_len, page_table, window, heads: tuple) -> torch.Tensor:
+    """The attention of JAX's partitioned serving program on a cache
+    whole in its heads and split on its sequence over
+    ``ctx.constrain.kv_axis`` (``sharding.cache_sharding``): (b, h', t,
+    hd) out for this rank's query heads ``qt`` (``heads`` [lo, hi) of
+    them, or all where the mixer runs whole).  ``k_all``/``v_all`` (b, t,
+    kv_h, hd) hold every KV head, for the cache.
+
+    * prefill: this rank writes the prompt's positions that fall in its
+      shard, then the prompt attention runs on its heads (``kt``, ``vt``);
+    * decode: the rank whose shard holds ``cache_len`` (each row's,
+      clamped to the cache as a whole-cache write is) writes the new row;
+      the queries are gathered to every head over "model", each rank
+      reads its shard (``da_ops.shard_decode``: split-K partials merged
+      over ``kv_axis``) and keeps its heads.
+
+    An int8 cache stores each row's per-(token, head) values and scales
+    and is read dequantized through bf16, as ``_attn_apply``'s
+    single-device decode read."""
+    if phase not in ("full", "step") or page_table is not None:
+        raise NotImplementedError(
+            "a cache split on its sequence serves prefill_step and "
+            "decode_step on contiguous rows")
+    if ctx.kv_splits:
+        raise NotImplementedError("Ctx.kv_splits on a cache split on its "
+                                  "sequence (its read is split already)")
+    c = ctx.constrain
+    quant = "k_scale" in cache
+    planes = {"k": k_all, "v": v_all}
+    if quant:
+        (planes["k"], planes["k_scale"]), (planes["v"], planes["v_scale"]) = (
+            q_kv(k_all), q_kv(v_all))
+    b, t = k_all.shape[:2]
+    s_loc = cache["k"].shape[1]
+    lo, s_all = c.kv_shard(s_loc)
+    if phase == "full":
+        n = min(max(t - lo, 0), s_loc)   # prompt positions in this shard
+        for name, new in planes.items():
+            if n:
+                cache[name][:, :n] = new[:, lo:lo + n].to(cache[name].dtype)
+        return _prompt_attention(ctx, qt, kt, vt, window)
+    cl = torch.as_tensor(cache_len, device=qt.device).long().reshape(-1)
+    at = cl.expand(b).clamp(0, s_all - 1)
+    mine = (at >= lo) & (at < lo + s_loc)
+    for name, new in planes.items():
+        attention.write_rows(cache[name], new, at - lo, mine)
+    k_read, v_read = cache["k"], cache["v"]
+    if quant:
+        k_read = dequant_bf16(k_read, cache["k_scale"])
+        v_read = dequant_bf16(v_read, cache["v_scale"])
+    q_all = c.mesh.all_gather(qt, "model", 1) if c.tp else qt
+    o = da_ops.shard_decode(q_all, k_read.transpose(1, 2),
+                            v_read.transpose(1, 2), cl + 1, mesh=c.mesh,
+                            axis=c.kv_axis, window=window)
+    return o[:, heads[0]:heads[1]] if c.tp else o
+
+
 def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                 x: torch.Tensor, cache: dict | None, positions: torch.Tensor,
                 phase: str, cache_len=None, chunk_mask=None,
@@ -318,13 +399,19 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
     n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
     # tensor-parallel (runtime/sharding.py): this rank's heads; K and V
     # split inside a head are gathered and cut to the rank's query heads
-    tp = ctx.constrain is not None and ctx.constrain.tp
+    c = ctx.constrain
+    tp = c is not None and c.tp
     kv_whole = False
+    rank = 0
     if tp:
-        m, rank = ctx.constrain.model_size, ctx.constrain.model_rank
+        m, rank = c.model_size, c.model_rank
         n_heads //= m
         kv_whole = n_kv % m != 0
-        n_kv = n_heads if kv_whole else n_kv // m
+        n_kv = n_kv if kv_whole else n_kv // m
+    # JAX's partitioned serving program: the cache whole in its heads,
+    # split on its sequence (``Constrain.serving``)
+    shard = (cache is not None and c is not None and c.serving
+             and (tp or c.kv_shards > 1))
     if "qkv" in p:   # fused projection (pre-decoded serving hot path)
         q, k, v = layers.linear_apply(p["qkv"], x, ctx).split(
             [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
@@ -332,23 +419,32 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
         q = layers.linear_apply(p["q"], x, ctx)
         kl, vl = p["k"], p["v"]
         if kv_whole:
-            kl = ctx.constrain.whole(kl, partial=True)
-            vl = ctx.constrain.whole(vl, partial=True)
+            kl = c.whole(kl, partial=True)
+            vl = c.whole(vl, partial=True)
         k = layers.linear_apply(kl, x, ctx)
         v = layers.linear_apply(vl, x, ctx)
-    if kv_whole:   # every KV head, repeated to the rank's query heads
-        group = cfg.n_heads // cfg.n_kv_heads
-        lo = rank * n_heads
-        k, v = (z.reshape(b, t, cfg.n_kv_heads, cfg.hd).repeat_interleave(
-            group, 2)[:, :, lo:lo + n_heads] for z in (k, v))
     q = q.reshape(b, t, n_heads, cfg.hd)
     k = k.reshape(b, t, n_kv, cfg.hd)
     v = v.reshape(b, t, n_kv, cfg.hd)
     angles = layers.rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = layers.apply_rope(q, angles, cfg.rope_style)
     k = layers.apply_rope(k, angles, cfg.rope_style)
+    k_all, v_all = k, v   # every KV head where this rank has them
+    if shard and tp and not kv_whole:
+        k_all, v_all = c.kv_heads(k), c.kv_heads(v)
+    if kv_whole:   # every KV head, repeated to the rank's query heads
+        group = cfg.n_heads // cfg.n_kv_heads
+        lo = rank * n_heads
+        k, v = (z.repeat_interleave(group, 2)[:, :, lo:lo + n_heads]
+                for z in (k, v))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     window = cfg.swa_window
+    if shard:
+        o = _attn_shard(ctx, qt, kt, vt, k_all, v_all, cache, phase,
+                        cache_len, page_table, window,
+                        (rank * n_heads, (rank + 1) * n_heads))
+        o = o.transpose(1, 2).reshape(b, t, n_heads * cfg.hd)
+        return layers.linear_apply(p["o"], o, ctx)
     quant = cache is not None and "k_scale" in cache
     if quant:
         (kw, ks), (vw, vs) = q_kv(k), q_kv(v)   # what the cache stores
@@ -360,17 +456,7 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
             if quant:
                 attention.update_kv_cache(cache["k_scale"], cache["v_scale"],
                                           ks, vs, 0)
-        if ctx.attn == "kernel":
-            if torch.is_grad_enabled() and qt.requires_grad:
-                raise NotImplementedError(
-                    "the flash prefill kernel has no backward (nor has the "
-                    "reference's Pallas one): train on Ctx(attn='skip')")
-            o = fp_ops.flash_prefill(qt, kt, vt, window=window)
-        else:   # the Fig. 6b baselines, plain PyTorch
-            fn = (attention.attention_skip if ctx.attn == "skip"
-                  else attention.attention_naive)
-            o = fn(qt, kt, vt, causal=True, window=window,
-                   q_chunk=ctx.attn_q_chunk, kv_chunk=ctx.attn_kv_chunk)
+        o = _prompt_attention(ctx, qt, kt, vt, window)
     elif phase == "chunk":
         # admission wave: rows with chunk_mask write their chunk's KV at
         # offset cache_len[i] of their own row (contiguous) or through their
@@ -637,9 +723,14 @@ def _lm_head(cfg, params, x, ctx):
                               params["embed"].tok.to(x.dtype))
     else:
         head = params["lm_head"]
-        if ctx.constrain is not None and ctx.constrain.tp and not (
-                ctx.constrain.vocab_split):   # JAX splits its d_model
-            head = ctx.constrain.whole(head, partial=False)
+        c = ctx.constrain
+        if c is not None and c.tp and not c.vocab_split:
+            if c.serving and c.linear_parts(head, x).row:
+                # JAX splits its d_model: serving (no gradient) runs it
+                # row-parallel on this rank's features
+                x = c.heads(x)
+            else:
+                head = c.whole(head, partial=False)
         logits = layers.linear_apply(head, x, ctx,
                                      ternary_w=cfg.ternary_head)
     return ctx.c(logits, "logits")
@@ -746,10 +837,14 @@ def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
     positions = torch.arange(s, device=x.device)
     x = _run_layers(cfg, ctx, params, x, cache, positions, "full")
     if lengths is None:
-        last = x[:, -1:]
+        idx = torch.full((b,), s - 1, device=x.device)
     else:
         idx = torch.as_tensor(lengths, device=x.device).long() - 1
-        last = x[torch.arange(b, device=x.device), idx][:, None]
+    c = ctx.constrain
+    if c is not None and c.serving:   # the rows whole, wherever they lie
+        last = c.last_positions(x, idx)
+        return c.whole_logits(_lm_head(cfg, params, last, ctx))[:, 0], cache
+    last = x[torch.arange(b, device=x.device), idx][:, None]
     return _lm_head(cfg, params, last, ctx)[:, 0], cache
 
 
@@ -797,4 +892,7 @@ def decode_step(cfg: ModelConfig, params: nn.ModuleDict,
     positions = cl[..., None] + torch.arange(1, device=x.device)
     x = _run_layers(cfg, ctx, params, x, cache, positions, "step", cl,
                     page_table=page_table)
-    return _lm_head(cfg, params, x, ctx)[:, 0], cache
+    logits = _lm_head(cfg, params, x, ctx)
+    if ctx.constrain is not None and ctx.constrain.serving:
+        logits = ctx.constrain.whole_logits(logits)
+    return logits[:, 0], cache

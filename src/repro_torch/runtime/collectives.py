@@ -17,7 +17,10 @@ hand instead of placing ``DTensor``s, for three reasons:
 
 Only ``all_reduce`` and ``all_gather_into_tensor`` are used here (the
 pipeline adds point to point sends and a ``broadcast``), so one code path
-runs on gloo (CPU tests, two ranks on one card) and on NCCL.  The
+runs on gloo (CPU tests, two ranks on one card) and on NCCL.  Besides the
+float sums and gathers of training, the partitioned serving program sums
+int32 partial products (exact), takes a MAX of per-token absmaxes and
+gathers int8 activations and split-K partials, all by these two.  The
 primitive is chosen per backend when the mesh is built: on gloo a CUDA
 tensor is staged through host memory around each collective; on NCCL the
 collective runs on the tensor itself.

@@ -22,7 +22,9 @@ optimizer-state leaf a training mesh splits (``param_spec``,
 ``shard_params``, ``batch_spec``, ``shard_opt_state_zero1``), and the
 ``Ctx.constrain`` hook (``make_constrain``) that puts activations in
 those layouts with manual collectives (``runtime/collectives.py``); and
-JAX's cache specs (``cache_sharding``).  A
+JAX's cache specs (``cache_sharding``, a rank's block by ``local_cache``),
+which with ``make_constrain(max_seq=)`` serve JAX's partitioned
+``prefill_step``/``decode_step`` on packed weights (``Constrain``).  A
 training mesh is a ``collectives.TrainMesh`` (or, for specs alone, a
 ``collectives.MeshShape``); any object with ``mesh_dim_names`` and
 ``size(i)`` serves the spec functions.  Rules, as the JAX package's (a
@@ -303,6 +305,20 @@ def cache_sharding(mesh, cache: dict, global_batch: int) -> dict:
                 else one(n, v.shape)) for n, v in cache.items()}
 
 
+def local_cache(mesh, cache: dict, global_batch: int) -> dict:
+    """This rank's block of every plane of a whole cache under
+    ``cache_sharding`` (copies that own their memory): how a cache gets
+    onto a mesh for the partitioned ``prefill_step``/``decode_step``."""
+    specs = cache_sharding(mesh, cache, global_batch)
+
+    def cut(planes, spec):
+        return {n: (cut(v, spec[n]) if isinstance(v, dict)
+                    else mesh.local_part(v, spec[n]).clone())
+                for n, v in planes.items()}
+
+    return cut(cache, specs)
+
+
 # ---------------------------------------------------------------------------
 # The training half: Ctx.constrain
 # ---------------------------------------------------------------------------
@@ -455,9 +471,26 @@ class Constrain:
     (``batch``): a pinned replay reads it, and MoE routing counts capacity
     and positions over the global batch (``token_span``,
     ``route_offsets``), as JAX's jitted step over a sharded batch does.
+
+    With ``max_seq`` the hook serves JAX's partitioned ``prefill_step`` and
+    ``decode_step`` (``serving``; ``"2d"`` only) on packed weights laid
+    out by ``shard_params(fsdp=False)`` and a cache of ``max_seq``
+    positions laid out by ``cache_sharding`` (``local_cache``): K/V split
+    on the batch like the activations and on the sequence over
+    ``kv_axis`` ("model" where it divides ``max_seq``).  A column-parallel
+    packed linear runs on its columns; a row-parallel one (``o``,
+    ``down``) quantizes its input block at the whole row's absmax, gathers
+    the int8 blocks and sums the int32 partial sums of its rows over
+    "model" (``bitlinear.apply_packed_rows``); the attention writes the K/V
+    positions of this rank's sequence shard and a decode step reads the
+    shard by split-K partials merged over ``kv_axis``
+    (``transformer._attn_apply``); the entry points take the last
+    positions across a sequence split (``last_positions``) and return the
+    logits whole on every rank (``whole_logits``).
     """
 
-    def __init__(self, mesh, cfg, global_batch: int, layout: str = "2d"):
+    def __init__(self, mesh, cfg, global_batch: int, layout: str = "2d",
+                 max_seq: Optional[int] = None):
         if layout not in ("2d", "dp", "dpzero1"):
             raise ValueError(f"layout {layout!r}")
         self.mesh, self.cfg, self.layout = mesh, cfg, layout
@@ -479,6 +512,17 @@ class Constrain:
         self._sp_now, self._seq = False, None
         # "model" does not divide the heads: the mixer runs whole
         self.whole_mixer = self.tp and cfg.n_heads % m != 0
+        # serving: the axis splitting the cache's sequence, and its ranks
+        self.serving = max_seq is not None
+        self.kv_axis, self.kv_shards = None, 1
+        if self.serving:
+            if layout != "2d":
+                raise NotImplementedError(f"serving on layout {layout!r}")
+            probe = torch.empty((1, global_batch, max_seq, 1, 1),
+                                device="meta")
+            self.kv_axis = cache_sharding(mesh, {"k": probe},
+                                          global_batch)["k"][2]
+            self.kv_shards = axis_size(mesh, self.kv_axis)
 
     @property
     def sp_now(self) -> bool:
@@ -578,7 +622,8 @@ class Constrain:
         return Part(self.mesh, spec)
 
     def linear_parts(self, p, x: torch.Tensor) -> LinearParts:
-        spec = _model_only(p.specs["w"]) if self.tp else (None, None)
+        w = "codes" if "codes" in p._buffers else "w"   # packed or master
+        spec = _model_only(p.specs[w]) if self.tp else (None, None)
         row = spec[0] == "model"
         if row and spec[1] is not None:
             raise NotImplementedError(f"a weight split on both dims {spec}")
@@ -586,6 +631,44 @@ class Constrain:
             raise NotImplementedError("a row-parallel linear with a bias")
         return LinearParts(Part(self.mesh, spec),
                            self.activation_part(x, row), row)
+
+    # -- serving: the partitioned prefill_step and decode_step ---------------
+
+    def kv_heads(self, k: torch.Tensor) -> torch.Tensor:
+        """(b, t, kv_h / m, hd), this rank's KV heads -> every KV head,
+        gathered over "model": what the cache, whole in its heads,
+        stores."""
+        return self.mesh.all_gather(k, "model", 2)
+
+    def kv_shard(self, local_len: int) -> tuple:
+        """(first global position, global length) of this rank's shard of
+        a cache whose local sequence is ``local_len`` long."""
+        return (self.mesh.index(self.kv_axis) * local_len,
+                local_len * self.kv_shards)
+
+    def last_positions(self, x: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+        """(b, 1, d): position idx[i] of row i of the residual ``x``; under
+        sequence parallelism each rank takes the rows it holds (zero
+        elsewhere) and the partial rows are summed over "model" (one rank
+        adds a row, the others add zeros: exact)."""
+        rows = torch.arange(x.shape[0], device=x.device)
+        if not self._sp_now:
+            return x[rows, idx][:, None]
+        self._sp_now = False   # the rows are whole: the head runs unsplit
+        n = x.shape[1]
+        local = idx - self.model_rank * n
+        inside = (local >= 0) & (local < n)
+        picked = torch.where(inside[:, None], x[rows, local.clamp(0, n - 1)],
+                             0)
+        return self.mesh.all_reduce(picked, "model")[:, None]
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits split on the vocabulary gathered whole over "model", so
+        that a serving entry point returns them whole on every rank."""
+        if not self.vocab_split:
+            return logits
+        return self.mesh.all_gather(logits, "model", logits.dim() - 1)
 
     def whole_tensor(self, t: torch.Tensor, spec: tuple, partial: bool
                      ) -> torch.Tensor:
@@ -782,10 +865,11 @@ class Constrain:
         return (lse - gold).sum()
 
 
-def make_constrain(mesh, cfg, global_batch: int,
-                   layout: str = "2d") -> Constrain:
-    """The ``Ctx.constrain`` hook of a training mesh (``Constrain``)."""
-    return Constrain(mesh, cfg, global_batch, layout)
+def make_constrain(mesh, cfg, global_batch: int, layout: str = "2d",
+                   max_seq: Optional[int] = None) -> Constrain:
+    """The ``Ctx.constrain`` hook of a mesh (``Constrain``): a training
+    mesh, or with ``max_seq`` the partitioned serving program's."""
+    return Constrain(mesh, cfg, global_batch, layout, max_seq)
 
 
 class Zero1:

@@ -8,11 +8,14 @@ against the JAX package on the CPU.
   ``FlopCounterMode`` on the same step run on the CPU, for every cell
   kind and layout;
 * ``DryMesh``'s bytes by collective kind equal what a real ``TrainMesh``
-  of two gloo ranks counts on rank 0 for the same reduced training cells;
-* ``argument_bytes`` of bitnet-0.73b ``train_4k`` and xlstm-350m
-  ``decode_32k`` on 16 x 16 equal the sum of JAX's
-  ``NamedSharding.shard_shape`` bytes over the same arguments (the
-  serving cell's packed weights replicated: the engine's layout);
+  of two gloo ranks counts on rank 0 for the same reduced training cells
+  and for reduced bitnet's prefill and decode on (1, 2) (JAX's
+  partitioned serving layout);
+* ``argument_bytes`` of bitnet-0.73b ``train_4k``, xlstm-350m
+  ``decode_32k`` (the engine's layout: packed weights replicated),
+  bitnet-0.73b ``prefill_32k`` and qwen2-72b ``decode_32k`` (JAX's
+  partitioned layout) on 16 x 16 equal the sum of JAX's
+  ``NamedSharding.shard_shape`` bytes over the same arguments;
 * those two cells and mixtral-8x22b ``prefill_32k`` on 2 x 16 x 16 come
   back ``ok`` with JAX's keys, at full width, depth cut to 2 layers (the
   full-depth cells are the sweep's, ``PERF.md``), and a 500k decode of a
@@ -155,14 +158,18 @@ def test_meta_flops_equal_flop_counter_on_the_cpu(name, arch, kind, mesh,
     assert est["cost"]["bytes_accessed"] > 0
 
 
-# the 2-rank training cells (a serving cell moves nothing: the engine's
-# layout) and the batch-split layouts on (2, 1)
+# the 2-rank training cells, the batch-split layouts on (2, 1), and
+# bitnet's serving cells on (1, 2): an attention-block arch serves in
+# JAX's partitioned layout, whose model communicates over "model" (an MoE
+# or recurrent serving cell keeps the engine's layout and moves nothing)
 COUNT_CELLS = [c for c in CELLS
                if math.prod(c[3]) == 2 and c[2] == "train"] + [
     ("bitnet train dpzero1 (2, 1)", "bitnet-0.73b", "train", (2, 1),
      ("dpzero1",)),
     ("bitnet train dp compress (2, 1)", "bitnet-0.73b", "train", (2, 1),
      ("dp", "compress")),
+    ("bitnet prefill (1, 2)", "bitnet-0.73b", "prefill", (1, 2), ()),
+    ("bitnet decode (1, 2)", "bitnet-0.73b", "decode", (1, 2), ()),
 ]
 
 COUNT_BODY = '''
@@ -258,7 +265,32 @@ def test_argument_bytes_equal_jax_shard_shapes():
             + _shard_bytes(inp, j_shd.ns(jmesh, *j_shd.batch_spec(
                 jmesh, gb, 1))) + 4)
     got = dryrun.build_cell("xlstm-350m", "decode_32k", DryMesh((16, 16)))
-    assert got.local_bytes == want
+    assert got.local_bytes == want and got.layout == "engine"
+    # bitnet-0.73b prefill_32k and qwen2-72b decode_32k: JAX's partitioned
+    # layout, packed weights by shard_params, cache by cache_sharding,
+    # inputs by batch_spec (and the decode's 4-byte length)
+    for arch, shape_name in (("bitnet-0.73b", "prefill_32k"),
+                             ("qwen2-72b", "decode_32k")):
+        cfg = j_get_config(arch)
+        shape = J_SHAPES[shape_name]
+        gb = shape.global_batch
+        params = jax.eval_shape(lambda: j_transformer.init_params(
+            cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
+        packed = jax.eval_shape(
+            lambda p: j_transformer.pack_params(cfg, p), params)
+        cache = jax.eval_shape(lambda: j_transformer.init_cache(
+            cfg, gb, shape.seq_len, jnp.bfloat16))
+        t = shape.seq_len if shape.kind == "prefill" else 1
+        inp = jax.ShapeDtypeStruct((gb, t), jnp.int32)
+        want = (_shard_bytes(packed, j_shd.shard_params(jmesh, packed,
+                                                        fsdp=False))
+                + _shard_bytes(cache, j_shd.cache_sharding(jmesh, cache, gb))
+                + _shard_bytes(inp, j_shd.ns(jmesh, *j_shd.batch_spec(
+                    jmesh, gb, 1)))
+                + (4 if shape.kind == "decode" else 0))
+        got = dryrun.build_cell(arch, shape_name, DryMesh((16, 16)))
+        assert got.local_bytes == want and got.layout == "partitioned", (
+            arch, got.local_bytes, want)
 
 
 def test_production_cells_come_back_ok(tmp_path, monkeypatch):

@@ -1713,3 +1713,89 @@ def test_expert_parallel_moe_step_on_two_ranks_on_the_card(cuda, tmp_path,
     assert r["bank_block"][0] == (2 if layout == "2d" else 4), r
     assert abs(r["loss"] - r["loss_ref"]) <= 1e-5 * abs(r["loss_ref"]), r
     assert r["worst"] <= TRAIN_GRAD_RTOL, r
+
+
+SERVE_MESH_BODY = '''
+import json
+from repro_torch import kernels
+from repro_torch.models.layers import Ctx
+from repro_torch.runtime import sharding
+from repro_torch.runtime.collectives import TrainMesh
+
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+arch, kw, kv8, matmul = json.loads(%(case)r)
+cfg = get_config(arch).reduced(**kw)
+full = transformer.init_packed_params(
+    cfg, torch.Generator(device=dev).manual_seed(30))
+g = torch.Generator(device=dev).manual_seed(31)
+for m in full.modules():   # random biases, so that their slices show
+    if getattr(m, "b", None) is not None and m.b.dim() == 1:
+        m.b = torch.randn(m.b.shape, generator=g, device=dev) * 0.1
+B, T, S = 4, 12, 64
+if cfg.frontend == "token":
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                           device=dev, dtype=torch.int32)
+else:
+    prompt = torch.randn((B, T, cfg.d_model), generator=g, device=dev)
+mesh = TrainMesh((1, 2))
+params = sharding.shard_params(mesh, full, fsdp=False)
+cache = sharding.local_cache(mesh, transformer.init_cache(
+    cfg, B, S, torch.float32, dev, kv_quant=kv8), B)
+whole = transformer.init_cache(cfg, B, S, torch.float32, dev, kv_quant=kv8)
+ctx = Ctx(mode="packed", matmul=matmul, constrain=sharding.make_constrain(
+    mesh, cfg, B, max_seq=S))
+ref_ctx = Ctx(mode="packed", matmul=matmul, kv_splits=2)
+kernels.reset_launch_counts()
+with torch.no_grad():
+    want, _ = transformer.prefill_step(cfg, full, prompt, ref_ctx, whole)
+    got, _ = transformer.prefill_step(cfg, params, prompt, ctx, cache)
+    out = {"prefill": float((got - want).abs().max() / want.abs().max()),
+           "decode": []}
+    tok = want.argmax(-1)
+    for i in range(4):
+        inp = (tok[:, None].to(torch.int32) if cfg.frontend == "token"
+               else torch.randn((B, 1, cfg.d_model), generator=g,
+                                device=dev))
+        want, _ = transformer.decode_step(cfg, full, inp, ref_ctx, whole,
+                                          T + i)
+        got, _ = transformer.decode_step(cfg, params, inp, ctx, cache, T + i)
+        out["decode"].append(float((got - want).abs().max()))
+        tok = want.argmax(-1)
+out["launches"] = kernels.launch_counts()
+if RANK == 0:
+    print("SERVE " + json.dumps(out), flush=True)
+finish("SERVE_MESH_OK")
+'''
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    ("bitnet-0.73b", dict(n_heads=3, d_model=96), False, "tlmm"),
+    ("qwen2-72b", dict(n_heads=8, n_kv_heads=1, d_model=256), False, "tlmm"),
+    ("musicgen-medium", dict(n_heads=4, d_model=128), False, "tlmm"),
+    ("bitnet-0.73b", dict(n_heads=4, d_model=128), True, "tlmm"),
+    ("bitnet-0.73b", dict(n_heads=4, d_model=128), False, "tlmm_lut")],
+    ids=["bitnet 3 heads", "qwen2 kv 1", "musicgen", "bitnet kv8",
+         "bitnet tlmm_lut"])
+def test_partitioned_serving_on_two_ranks_on_the_card(cuda, tmp_path, case):
+    """JAX's partitioned packed serving program (``make_constrain(max_seq=)``)
+    on a (1, 2) mesh of two gloo ranks on the one card, reduced configs with
+    head dim 32: the mixer whole on each rank (3 heads), K/V split inside a
+    head (8 heads on 1 KV head, random QKV biases), the embed frontend, an
+    int8 cache and ``tlmm_lut``, against the single-device port on the card
+    reading its cache by split-K over the 2 shards' chunks: prefill logits
+    within 1e-4 of their largest, 4 decode steps within 2e-3, the packed
+    matmul's kernel launched."""
+    import json
+    from torch_mesh_helpers import launch
+    arch, kw, kv8, matmul = case
+    kw = dict(n_layers=2, d_ff=256, vocab_size=128, **kw)
+    out = launch(tmp_path, SERVE_MESH_BODY % dict(case=json.dumps(
+        [arch, kw, kv8, matmul])), 2, "SERVE_MESH_OK", timeout=300)
+    r = json.loads(next(x for x in out.splitlines()
+                        if x.startswith("SERVE "))[len("SERVE "):])
+    print(f"partitioned serving {case} on the card: {r}")
+    assert r["prefill"] <= 1e-4, r
+    assert max(r["decode"]) <= 2e-3, r
+    assert r["launches"][matmul] > 0 and r["launches"]["flash_prefill"] > 0, r
