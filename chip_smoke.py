@@ -115,7 +115,15 @@ the card's step.  Phase 16 runs JAX's partitioned packed serving program
 at full width, 4 layers, a prefill and 16 greedy decode steps on (1, 2)
 and (2, 1) against one device reading its cache as the ranks do, and the
 dry run's estimate of the (1, 2) prefill held to each rank's argument
-bytes and peak.  All phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
+bytes and peak; then the same program at full width for mixtral-8x22b
+(2 layers, (1, 2) and (2, 1)), xlstm-350m (4 layers, (1, 2)) and
+hymba-1.5b (4 layers, (1, 5), five ranks), each run free (held to the same
+gates up to its first int8 code or route that differs from one device's)
+and replaying one device's int8 values and routing (every code the rank
+computes held to the recorded one: moved only one step at a rounding tie;
+the run held to the same gates).  Phase 14 also replays one device's int8
+values and routing on its drop-free (2, 1) mesh engine's lanes, its
+tokens held to one device's.  All phases must end within 1000 s.  Phase 6 also runs the fused FFN at qwen2-72b's width,
 and phase 3 holds rmsnorm_quant and swiglu_quant on rows past their
 one-block layouts (the looping kernels) to their plain versions.  Phase 3
 also holds each attention wrapper's bf16 query to its f32 launch, times
@@ -134,10 +142,12 @@ when there is no CUDA device or any phase fails.  Never imports JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -2347,12 +2357,16 @@ def _moe_drops(fn):
         layers.moe_route = orig
 
 
-def _phase14_serve(dev, cfg, packed, prompts, news, mesh=None):
-    """The 8 requests on a device-resident mixtral engine (bf16 cache,
-    phase 4's shape) after a one-request warm-up: (tokens, stats, peak)."""
+def _phase14_serve(dev, cfg, packed, prompts, news, mesh=None,
+                   pins=None):
+    """The 8 requests on a mixtral engine (phase 4's shape) after a
+    one-request warm-up: (tokens, stats, peak).  Device-resident, or,
+    given ``pins`` (the engine -> a context entered around the 8
+    requests), host-driven under it."""
     from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(cfg, packed, max_seq=256, batch_slots=4,
-                        prefill_chunk=32, decode_block=8, mesh=mesh)
+                        prefill_chunk=32, decode_block=8, mesh=mesh,
+                        device_sched=pins is None)
 
     def reqs():
         return [Request(prompt=np.asarray(p), max_new_tokens=n)
@@ -2360,7 +2374,9 @@ def _phase14_serve(dev, cfg, packed, prompts, news, mesh=None):
     eng.run(reqs()[:1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = eng.run(reqs())
+    run = reqs()
+    with contextlib.nullcontext() if pins is None else pins(eng):
+        out = eng.run(run)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     s = {k: eng.stats[k] for k in ("tokens_per_s", "decode_tok_s",
@@ -2369,6 +2385,50 @@ def _phase14_serve(dev, cfg, packed, prompts, news, mesh=None):
     s["graph_captures"] = eng.lifetime["graph_captures"]
     del eng
     return [r.output.tolist() for r in out], s, peak
+
+
+def _lane_pins(eng, tape, moved):
+    """The pins of a (2, 1) mesh engine's rank replaying one device's
+    ``tape`` (``_phase16_pins``, each code and route held to its own) on
+    its lanes: a token-major value's rows are its lanes' (slot-major: a
+    prefill wave's chunks, a decode tick's tokens), an expert buffer's
+    rows its tokens' pairs, each at its position in this rank's buffer
+    (the engine routes a data shard's rows alone) taken from its position
+    in one device's, found from the recorded experts of that routing."""
+    from repro_torch.models import layers
+    slots, lo, n = eng.slots, eng._lo, eng.slots_per_device
+    whole = iter(tape["routes"])
+    cur = {}
+
+    def lanes(t):
+        t = t.reshape((slots, -1) + t.shape[1:])[lo:lo + n]
+        return t.reshape((-1,) + t.shape[2:])
+
+    def rows(t):
+        if t.dim() != 3:
+            return lanes(t)
+        idx = cur["idx"]
+        per = idx.shape[0] // slots   # a lane's tokens
+        one = layers.route_positions(idx.reshape(-1), cur["experts"])
+        span = slice(lo * per * idx.shape[1], (lo + n) * per * idx.shape[1])
+        mine = idx.reshape(-1)[span]
+        pos = layers.route_positions(mine, cur["experts"])
+        keep = (pos < cur["cap"]) & (one[span] < t.shape[1])
+        out = t.new_zeros((t.shape[0], cur["cap"]) + t.shape[2:])
+        out[mine[keep], pos[keep]] = t[mine[keep], one[span][keep]]
+        return out
+
+    stack = _phase16_pins(tape, True, rows, moved)
+    route = layers.moe_route
+
+    def routed(p, x, **kw):
+        cur["idx"] = next(whole)
+        r = route(p, x, **kw)
+        cur.update(experts=p.n_experts, cap=int(r["capacity"]))
+        return r
+    layers.moe_route = routed
+    stack.callback(setattr, layers, "moe_route", route)
+    return stack
 
 
 def _phase14_rank(rank, world, port, workdir, device="cuda"):
@@ -2412,6 +2472,18 @@ def _phase14_rank(rank, world, port, workdir, device="cuda"):
                     packed, plan["prompts"], plan["news"], mesh)
                 out["a"][label] = dict(tokens=toks, stats=s,
                                        peak_gib=peak / 2**30)
+            # the drop-free engine host-driven, replaying one device's int8
+            # values and routing on this rank's lanes
+            t_p = time.perf_counter()
+            tape = torch.load(os.path.join(workdir, "replay.pt"), mmap=True)
+            moved = {"int8": [], "routes": []}
+            toks, _, _ = _phase14_serve(
+                dev, dataclasses.replace(mcfg, capacity_factor=float(
+                    mcfg.n_experts)), packed, plan["prompts"], plan["news"],
+                mesh, pins=lambda eng: _lane_pins(eng, tape, moved))
+            out["replay"] = dict(tokens=toks, moved=_moved_line(moved),
+                                 s=time.perf_counter() - t_p)
+            del tape
             del packed
             torch.cuda.empty_cache()
             out["a_s"] = time.perf_counter() - t0
@@ -2523,7 +2595,10 @@ def phase14(dev, requests, smi):
     at its first differing position (phase 9's rule, at most 2); at
     capacity factor 1.25 each rank counts its shard's rows (JAX's
     ``shard_map`` engine), so the differing tokens are printed, as phase 9
-    prints its modes'.  (b) one QAT step of each of TRAIN14 on its mesh
+    prints its modes'; the drop-free engines again host-driven, each rank
+    replaying one device's int8 values and routing on its lanes
+    (``_lane_pins``, every code and route held to its own), its tokens
+    equal to one device's.  (b) one QAT step of each of TRAIN14 on its mesh
     (``2d``) against the single-device step on the card, whose quantized
     activations, weight gammas and MoE routing each rank replays on its
     blocks: loss within 1e-5 relative, every gradient leaf within
@@ -2564,6 +2639,19 @@ def phase14(dev, requests, smi):
             dev, dataclasses.replace(mcfg, capacity_factor=cf), mpacked,
             plan["prompts"], plan["news"])
         single[label] = dict(tokens=toks, stats=s, peak_gib=peak / 2**30)
+    # the drop-free engine host-driven, its int8 values and routing
+    # recorded for the mesh's ranks to replay
+    t_p = time.perf_counter()
+    tape = {"int8": [], "routes": []}
+    replayed, _, _ = _phase14_serve(
+        dev, dataclasses.replace(mcfg, capacity_factor=float(
+            mcfg.n_experts)), mpacked, plan["prompts"], plan["news"],
+        pins=lambda eng: _phase16_pins(tape, False))
+    torch.save(tape, os.path.join(workdir, "replay.pt"))
+    tape_mib = sum(t.numel() * t.element_size() for q in tape["int8"]
+                   for t in q) / 2**20
+    del tape
+    t_p = time.perf_counter() - t_p
     del mpacked
     torch.cuda.empty_cache()
     t_a1 = time.perf_counter() - t_14
@@ -2687,19 +2775,27 @@ def phase14(dev, requests, smi):
             if near_tie > 2:
                 failures.append(f"(a) {near_tie} requests passed only at "
                                 "router near-ties")
-            # what moves the tokens: the dense f32 router's product for a
-            # rank's rows alone against the same rows among all the slots'
-            xr = torch.randn((4, mcfg.d_model), device=dev,
-                             generator=torch.Generator(device=dev
-                                                       ).manual_seed(141))
-            wr = mpacked["layers"][0]["moe"].router.w
-            alone, among = xr[:2] @ wr, (xr @ wr)[:2]
-            log(f"  (a) the router's f32 logits of 2 rows alone against the "
-                f"same rows among 4: max |diff| "
-                f"{(alone - among).abs().max().item():.3g}, bit for bit "
-                f"{torch.equal(alone, among)}")
             del mpacked
             torch.cuda.empty_cache()
+    # -- (a) the drop-free replay: one device's int8 values and routing on
+    # each rank's lanes, every code and route held to the rank's own -------
+    if ranks2 and all("replay" in r for r in ranks2):
+        for r_, rk in enumerate(ranks2):
+            rp = rk["replay"]
+            differ = [i for i, (x, y) in enumerate(zip(replayed,
+                                                       rp["tokens"]))
+                      if x != y]
+            log(f"  (a) drop-free, host-driven, (2, 1) mesh rank {r_} "
+                f"replaying one device's int8 values and routing on its "
+                f"lanes (tape {tape_mib:.1f} MiB; {t_p:.1f} s on one device,"
+                f" {rp['s']:.1f} s on the rank): requests whose tokens "
+                f"differ from one device's {differ} (gate: none); "
+                f"{rp['moved']}")
+            if differ or len(rp["tokens"]) != len(replayed):
+                failures.append(f"(a) replayed mesh rank {r_}: requests "
+                                f"{differ} differ from one device's")
+    else:
+        failures.append("(a) no replayed drop-free mesh reading")
     # -- (b) judged ---------------------------------------------------------
     for ranks in (ranks2, ranks5):
         for name, layers, shape, rows in TRAIN14:
@@ -2925,16 +3021,31 @@ PREFILL16_RTOL = 1e-4   # of the largest |logit|: the head's GEMM may pick
 DECODE16_TOL = 2e-3     # another algorithm for half the columns
 MARGIN16 = 1e-3         # a token may differ only below this top-2 margin
 PHASE16_RANK_S = 60
+# (c): the MoE and recurrent archs at full width, (arch, layers, meshes,
+# cache positions), SERVE16's batch, seed and steps: mixtral's expert
+# banks split on E (4 experts a rank on (1, 2), with sequence parallelism
+# in its prefill) or whole on (2, 1); xLSTM's and hymba's scans on a
+# rank's heads, their states whole in their heads; hymba's 25 heads and 5
+# KV heads over 5 ranks, its 320-position cache split 5 ways.  The
+# recurrent kinds take equal prompts of 128 tokens (JAX's prefill_step
+# takes no lengths)
+CASES16C = (("mixtral-8x22b", 2, ((1, 2), (2, 1)), 256),
+            ("xlstm-350m", 4, ((1, 2),), 256),
+            ("hymba-1.5b", 4, ((1, 5),), 320))
+PHASE16C_S = 120
+PHASE16C_RANK_S = 150
+MOVED16_MAX = 64   # int8 codes a replayed call may move, each at a tie
 
 
-def _phase16_inputs(dev):
-    """(config, packed weights from seed 16, right-padded prompts (4, 128)
-    int32, their lengths (4,) int32) on ``dev``."""
+def _phase16_inputs(dev, arch="bitnet-0.73b", layers=None):
+    """(config, packed weights from seed 16, prompts (4, 128) int32, their
+    lengths (4,) int32: 64-128 tokens right-padded, or None for a
+    recurrent kind, whose prompts are all 128 long) on ``dev``."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     s = SERVE16
-    cfg = dataclasses.replace(get_config("bitnet-0.73b"),
-                              n_layers=s["layers"])
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=layers or s["layers"])
     gen = torch.Generator(device=dev if dev != "meta" else "cpu")
     packed = transformer.init_packed_params(cfg, gen.manual_seed(s["seed"]))
     g = torch.Generator().manual_seed(s["seed"])
@@ -2942,28 +3053,180 @@ def _phase16_inputs(dev):
                             (s["batch"],), generator=g, dtype=torch.int32)
     prompt = torch.randint(0, cfg.vocab_size, (s["batch"], s["prompt"][1]),
                            generator=g, dtype=torch.int32)
+    if cfg.block_kind != "attn":
+        return cfg, packed, prompt.to(dev), None
     return cfg, packed, prompt.to(dev), lengths.to(dev)
 
 
-def _phase16_cell(cfg, packed, prompt, lengths, mesh, dev):
-    """The partitioned prefill of (a) on ``mesh`` (a ``TrainMesh`` or, for
-    the dry run's estimate, a ``DryMesh`` on meta tensors): (its
-    arguments: this rank's packed weights, batch rows, their lengths and
-    cache block, the context)."""
+def _phase16_cell(cfg, packed, prompt, lengths, mesh, dev,
+                  max_seq=SERVE16["max_seq"]):
+    """The partitioned prefill of (a) or (c) on ``mesh`` (a ``TrainMesh``
+    or, for the dry run's estimate, a ``DryMesh`` on meta tensors): (its
+    arguments: this rank's packed weights, batch rows, their lengths (or
+    None) and cache block, the context)."""
     from repro_torch.models import transformer
     from repro_torch.models.layers import Ctx
     from repro_torch.runtime import sharding
-    s = SERVE16
-    b = s["batch"]
+    b = SERVE16["batch"]
     params = sharding.shard_params(mesh, packed, fsdp=False)
     cache = sharding.local_cache(mesh, transformer.init_cache(
-        cfg, b, s["max_seq"], torch.float32, dev), b)
+        cfg, b, max_seq, torch.float32, dev), b)
     rows = sharding.batch_spec(mesh, b, 1)
     inp = mesh.local_part(prompt, rows).clone()
-    lens = mesh.local_part(lengths, rows[:1]).clone()
+    lens = (None if lengths is None
+            else mesh.local_part(lengths, rows[:1]).clone())
     ctx = Ctx(mode="packed", constrain=sharding.make_constrain(
-        mesh, cfg, b, max_seq=s["max_seq"]))
+        mesh, cfg, b, max_seq=max_seq))
     return params, inp, lens, cache, ctx
+
+
+def _phase16_read(shape, cfg) -> int:
+    """The ``kv_splits`` of the single-device run a mesh of ``shape`` is
+    held to: a cache split on its sequence over "model" (each rank reads
+    its shard as one split-K chunk) by split-K over as many chunks, else
+    the decode kernel (0)."""
+    return shape[1] if shape[1] > 1 and cfg.block_kind != "xlstm_pair" else 0
+
+
+def _phase16_pins(tape, replay, rows=None, moved=None, diverged=None):
+    """The pins of (c): every int8 quantization of the packed path and,
+    for an MoE, every routing, recorded into ``tape`` ({"int8", "routes"})
+    in call order or replayed from it (``testing.pinned_int8``,
+    ``pinned_routing``).  A replay holds the rank's own int8 values,
+    scales and experts to the recorded ones (a moved code one step at a
+    rounding tie, at most MOVED16_MAX a call; a route moved only below
+    the top-k margin ``testing.TIE``), listing what moved in ``moved``
+    ({"int8", "routes"}), and raises otherwise; with ``diverged`` it only
+    compares and notes the first call that differs."""
+    from repro_torch.testing import pinned_int8, pinned_routing
+    moved = moved or {"int8": None, "routes": None}
+    stack = contextlib.ExitStack()
+    stack.enter_context(pinned_int8(tape["int8"], replay, rows,
+                                    moved["int8"], max_moved=MOVED16_MAX,
+                                    diverged=diverged))
+    stack.enter_context(pinned_routing(tape["routes"], replay, rows,
+                                       moved["routes"], diverged=diverged))
+    return stack
+
+
+def _moved_line(moved) -> str:
+    """What a replay moved (``_phase16_pins``' ``moved``), for the log."""
+    from repro_torch.testing import TIE
+    codes = moved["int8"]
+    per_call = collections.Counter(m[0] for m in codes)
+    tie = max((abs(m[3] - math.floor(m[3]) - 0.5) for m in codes),
+              default=0.0)
+    return (f"int8 codes the replay moved (call, row, column, this rank's "
+            f"|x| / scale, its code, the recorded one), each one step at a "
+            f"rounding tie: {len(codes)} in {len(per_call)} calls (at most "
+            f"{max(per_call.values(), default=0)} a call, gate "
+            f"{MOVED16_MAX}; the farthest {tie:.3g} from a half), the first "
+            f"{codes[:6]}; tokens routed otherwise (call, token, top-k "
+            f"margin, gate {TIE}): {moved['routes'][:8]}")
+
+
+def _phase16_reference(cfg, packed, prompt, lengths, max_seq, kv_splits,
+                       dev, tape=None) -> dict:
+    """The single-device port on the card, greedy: {"prefill": logits,
+    "decode": [16 steps' logits], "tokens": [17 greedy tokens]}, reading
+    its cache by the decode kernel or by split-K over ``kv_splits``
+    chunks; given ``tape``, its int8 values and routings recorded there
+    (``_phase16_pins``)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Ctx
+    s = SERVE16
+    ctx = Ctx(mode="packed", kv_splits=kv_splits)
+    cache = transformer.init_cache(cfg, s["batch"], max_seq, torch.float32,
+                                   dev)
+    t = prompt.shape[1]
+    with torch.no_grad(), (contextlib.nullcontext() if tape is None
+                           else _phase16_pins(tape, False)):
+        logits, _ = transformer.prefill_step(cfg, packed, prompt, ctx, cache,
+                                             lengths)
+        ref = {"prefill": logits, "decode": [],
+               "tokens": [logits.argmax(-1)]}
+        for i in range(s["steps"]):
+            logits, _ = transformer.decode_step(
+                cfg, packed, ref["tokens"][-1][:, None].to(torch.int32),
+                ctx, cache, (t if lengths is None else lengths) + i)
+            ref["decode"].append(logits)
+            ref["tokens"].append(logits.argmax(-1))
+    return ref
+
+
+def _phase16_mesh_run(cfg, packed, prompt, lengths, shape, max_seq, ref,
+                      dev, plain, tape=None, pin=True) -> dict:
+    """This rank's partitioned prefill and 16 decode steps on a mesh of
+    ``shape``, each step fed the single device's greedy token, against
+    the single-device run ``ref``: the readings of one mesh (times,
+    errors, the first differing token and its margin, peak, collective
+    bytes, launches, plain versions called).  Given the single device's
+    ``tape`` (``_phase16_pins``), this rank replays its int8 values and
+    routings, each held to its own, and the readings list the codes and
+    routes the replay moved ("moved"); without ``pin`` it runs free and
+    only compares its own with the tape: "clean" is the number of its
+    runs (the prefill, then each decode step) before the first call
+    whose int8 values or routing differ from one device's."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.runtime.collectives import TrainMesh
+    s = SERVE16
+    mesh = TrainMesh(shape)
+    params, inp, lens, cache, ctx = _phase16_cell(
+        cfg, packed, prompt, lengths, mesh, dev, max_seq)
+    args = (params, inp, cache) + (() if lens is None else (lens,))
+    arg_bytes = dryrun._distinct_bytes(dryrun._flat(args))
+    rows = ctx.constrain.batch
+    mine = (lambda t: mesh.local_part(t, (rows,) + (None,) * (t.dim() - 1)))
+    moved, diverged = {"int8": [], "routes": []}, []
+    at = prompt.shape[1] if lens is None else lens
+    with (contextlib.nullcontext() if tape is None else _phase16_pins(
+            tape, True, mine if ctx.constrain.n_batch > 1 else None,
+            moved, None if pin else diverged)):
+        kernels.reset_launch_counts()
+        plain["calls"] = 0
+        mesh.reset_collective_bytes()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = transformer.prefill_step(cfg, params, inp, ctx,
+                                                 cache, lens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        want = mine(ref["prefill"])
+        r = {"arg_bytes": arg_bytes, "above": peak, "prefill_s": prefill_s,
+             "prefill_rel": float((logits - want).abs().max()
+                                  / want.abs().max()),
+             "prefill_coll": mesh.reset_collective_bytes(),
+             "decode_err": [], "first_diff": None, "step_s": [],
+             "clean": int(not diverged)}
+        for i in range(s["steps"]):
+            tok = mine(ref["tokens"][i])[:, None]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = transformer.decode_step(cfg, params, tok, ctx,
+                                                    cache, at + i)
+            torch.cuda.synchronize()
+            r["step_s"].append(time.perf_counter() - t0)
+            want = mine(ref["decode"][i])
+            r["decode_err"].append(float((logits - want).abs().max()))
+            nxt = mine(ref["tokens"][i + 1])
+            if r["first_diff"] is None and not torch.equal(
+                    logits.argmax(-1), nxt):
+                top2 = want.topk(2, dim=-1).values
+                r["first_diff"] = [i, float((top2[:, 0] - top2[:, 1])
+                                            .min())]
+            r["clean"] += int(not diverged and r["clean"] == i + 1)
+        r["decode_coll"] = mesh.reset_collective_bytes()
+        r["launches"] = kernels.launch_counts()
+        r["plain_calls"] = plain["calls"]
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["moved"], r["diverged"] = moved, diverged
+    return r
 
 
 def _phase16_estimate(rank):
@@ -2988,27 +3251,24 @@ def _phase16_estimate(rank):
 
 
 def _phase16_rank(rank, world, port, workdir, device="cuda"):
-    """One of phase 16's two gloo ranks on the one card: (a) on each mesh
-    of MESHES16 against the single-device run in ``workdir/ref.pt``.
-    Writes its readings to ``workdir/rank{rank}.json``."""
+    """One of phase 16's gloo ranks on the one card, against the
+    single-device runs in ``workdir/ref.pt``: a world of 2 runs (a) on each
+    mesh of MESHES16, then (c)'s meshes of 2 ranks; a world of 5, (c)'s
+    (1, 5).  Writes its readings to ``workdir/rank{world}_{rank}.json``."""
     entered = time.time()
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
-    from repro_torch import kernels
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_prefill import ref as fp_ref
     from repro_torch.kernels.tlmm import ref as tlmm_ref
     from repro_torch.kernels.tlmm_lut import ref as lut_ref
-    from repro_torch.launch import dryrun
-    from repro_torch.models import transformer
-    from repro_torch.runtime.collectives import TrainMesh
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     dev = torch.device(device, 0)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    out = {"rank": rank, "entered": entered, "meshes": {}}
+    out = {"rank": rank, "entered": entered, "meshes": {}, "c": {}}
     plain = {"calls": 0}   # every plain version a wrapper could take
 
     def counted(fn):
@@ -3024,98 +3284,164 @@ def _phase16_rank(rank, world, port, workdir, device="cuda"):
     try:
         refs = torch.load(os.path.join(workdir, "ref.pt"),
                           map_location=dev.type)
-        cfg, packed, prompt, lengths = _phase16_inputs(dev)
-        s = SERVE16
         out["ready"] = time.time()
-        for shape in MESHES16:
-            # a cache split on its sequence is read by split-K partials
-            ref = refs["splitk" if shape[1] > 1 else "kernel"]
-            mesh = TrainMesh(shape)
-            params, inp, lens, cache, ctx = _phase16_cell(
-                cfg, packed, prompt, lengths, mesh, dev)
-            args = (params, inp, cache, lens)
-            arg_bytes = dryrun._distinct_bytes(dryrun._flat(args))
-            rows = ctx.constrain.batch
-            mine = (lambda t: mesh.local_part(t, (rows,) + (None,) * (
-                t.dim() - 1)))
-            kernels.reset_launch_counts()
-            plain["calls"] = 0
-            mesh.reset_collective_bytes()
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                logits, _ = transformer.prefill_step(cfg, params, inp, ctx,
-                                                     cache, lens)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() - held
-            want = mine(ref["prefill"])
-            r = {"arg_bytes": arg_bytes, "above": peak,
-                 "prefill_s": prefill_s,
-                 "prefill_rel": float((logits - want).abs().max()
-                                      / want.abs().max()),
-                 "prefill_coll": mesh.reset_collective_bytes(),
-                 "decode_err": [], "first_diff": None, "step_s": []}
-            for i in range(s["steps"]):
-                tok = mine(ref["tokens"][i])[:, None]
-                t0 = time.perf_counter()
-                with torch.no_grad():
-                    logits, _ = transformer.decode_step(
-                        cfg, params, tok, ctx, cache, lens + i)
-                torch.cuda.synchronize()
-                r["step_s"].append(time.perf_counter() - t0)
-                want = mine(ref["decode"][i])
-                r["decode_err"].append(float((logits - want).abs().max()))
-                nxt = mine(ref["tokens"][i + 1])
-                if r["first_diff"] is None and not torch.equal(
-                        logits.argmax(-1), nxt):
-                    top2 = want.topk(2, dim=-1).values
-                    r["first_diff"] = [i, float((top2[:, 0] - top2[:, 1])
-                                                .min())]
-            r["decode_coll"] = mesh.reset_collective_bytes()
-            r["launches"] = kernels.launch_counts()
-            r["plain_calls"] = plain["calls"]
-            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            out["meshes"][str(shape)] = r
-            del params, cache, args
+        if world == 2:   # -- (a) ---------------------------------------------
+            cfg, packed, prompt, lengths = _phase16_inputs(dev)
+            for shape in MESHES16:
+                # a cache split on its sequence is read by split-K partials
+                ref = refs["bitnet"]["splitk" if shape[1] > 1 else "kernel"]
+                out["meshes"][str(shape)] = _phase16_mesh_run(
+                    cfg, packed, prompt, lengths, shape, SERVE16["max_seq"],
+                    ref, dev, plain)
+                torch.cuda.empty_cache()
+            del packed
             torch.cuda.empty_cache()
+        t_c = time.time()
+        for arch, layers, meshes, max_seq in CASES16C:   # -- (c) ----------
+            shapes = [m for m in meshes if math.prod(m) == world]
+            if not shapes:
+                continue
+            cfg, packed, prompt, lengths = _phase16_inputs(dev, arch, layers)
+            for shape in shapes:
+                k = _phase16_read(shape, cfg)
+                tape = torch.load(os.path.join(workdir,
+                                               f"tape {arch} {k}.pt"))
+                run = functools.partial(_phase16_mesh_run, cfg, packed,
+                                        prompt, lengths, shape, max_seq,
+                                        refs[arch][k], dev, plain)
+                out["c"][f"{arch} {shape}"] = {
+                    "free": run(tape=tape, pin=False),
+                    "pinned": run(tape=tape)}
+                del tape
+                torch.cuda.empty_cache()
+            del packed
+            torch.cuda.empty_cache()
+        out["c_s"] = time.time() - t_c
         out["ok"] = True
     finally:
         out["done"] = time.time()
-        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        with open(os.path.join(workdir, f"rank{world}_{rank}.json"),
+                  "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
+
+
+def _spawn16(world, workdir, deadline_s):
+    """Phase 16's ranks in a world of ``world``: (their readings, the
+    failure of a rank that did not finish or None, the spawn's time on the
+    wall: (spawned, joined))."""
+    import torch.multiprocessing as mp
+    spawned = time.time()
+    procs = mp.spawn(_phase16_rank, args=(world, _free_port(), workdir),
+                     nprocs=world, join=False)
+    deadline = time.perf_counter() + deadline_s
+    failure = None
+    try:
+        while not procs.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"phase 16's {world} ranks did not finish")
+    except Exception as e:   # a rank that fails fails the phase
+        failure = f"{world} ranks: {type(e).__name__}: {str(e)[-2000:]}"
+    finally:
+        for p_ in procs.processes:
+            if p_.is_alive():
+                p_.kill()
+            p_.join()
+    joined = time.time()
+    ranks = []
+    for r in range(world):
+        path = os.path.join(workdir, f"rank{world}_{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    if failure is None and not all(r.get("ok") for r in ranks):
+        failure = f"{world} ranks: a rank did not finish: {ranks}"
+    return ranks, failure, (spawned, joined)
+
+
+def _phase16_judge(label, row, smi, counts, failures, flash=True,
+                   free=False):
+    """Print one rank's readings of one mesh and hold them to (a)'s gates,
+    its launches added to ``counts``.  A ``free`` run of (c) is held to
+    them only over its "clean" runs: the prefill and the decode steps
+    before the first call whose int8 values or routing differ from one
+    device's (at full width a code moved at a rounding tie moves the
+    logits by far more than the gates)."""
+    s = SERVE16
+    step = sorted(row["step_s"])[len(row["step_s"]) // 2]
+    if row["moved"]["int8"] or row["moved"]["routes"]:
+        log(f"  {label}: {_moved_line(row['moved'])}")
+    n = row["clean"] if free else s["steps"] + 1
+    if free:
+        log(f"  {label}: the first call differing from one device's "
+            f"{row['diverged'][:1]}; gated over the first {n} of "
+            f"{s['steps'] + 1} runs (the prefill, then each decode step)")
+    dec = row["decode_err"][:max(n - 1, 0)]
+    log(f"  {label}: prefill {row['prefill_s']:.4f} s "
+        f"(logits within {row['prefill_rel']:.3g} of the largest, gate "
+        f"{PREFILL16_RTOL}), a decode step {step:.4f} s (median of "
+        f"{s['steps']}; logits within {max(row['decode_err']):.3g} "
+        f"({max(dec, default=0.0):.3g} over the gated steps), gate "
+        f"{DECODE16_TOL}; first token differing {row['first_diff']}), peak "
+        f"{row['peak_gib']:.3f} GiB ({row['above']} B above the "
+        f"{row['arg_bytes']} B of its arguments at the prefill); collective "
+        f"bytes prefill "
+        f"{ {k: v for k, v in row['prefill_coll'].items() if v} }, decode "
+        f"({s['steps']} steps) "
+        f"{ {k: v for k, v in row['decode_coll'].items() if v} }; launches "
+        f"{row['launches']}, plain versions called {row['plain_calls']}; "
+        f"{smi}")
+    if n >= 1 and row["prefill_rel"] > PREFILL16_RTOL:
+        failures.append(f"{label} prefill {row['prefill_rel']}")
+    if dec and max(dec) > DECODE16_TOL:
+        failures.append(f"{label} decode {dec}")
+    if row["first_diff"] is not None and row["first_diff"][0] < n - 1 and \
+            not row["first_diff"][1] < MARGIN16:
+        failures.append(f"{label} token differs at {row['first_diff']}")
+    if free:
+        return
+    for name, k in row["launches"].items():
+        counts[name] = counts.get(name, 0) + k
+    if not (row["launches"]["tlmm"] > 0 and row["plain_calls"] == 0
+            and (row["launches"]["flash_prefill"] > 0 or not flash)):
+        failures.append(f"{label} launches {row['launches']}, plain "
+                        f"{row['plain_calls']}")
 
 
 def phase16(dev, smi):
     """Phase 16: JAX's partitioned packed serving program (``prefill_step``
     and ``decode_step`` under ``Constrain(max_seq=)``: packed weights by
     ``shard_params``, the cache split on its sequence over "model" by
-    ``cache_sharding``, the batch by ``batch_spec``) on two gloo ranks on
-    the one card.  (a) bitnet-0.73b at full width, SERVE16 (4 of 24
-    layers), on (1, 2) and on (2, 1), against the single-device port on
-    the card reading its cache as the mesh's ranks do ((2, 1) by the
-    decode kernel; (1, 2), whose shards each read their half of the
-    sequence as one split-K chunk, by split-K over 2 chunks,
-    ``Ctx(kv_splits=2)``; the gap between the two reads on one device is
-    printed): prefill logits within PREFILL16_RTOL of their largest; 16
-    decode steps, each rank fed the single device's greedy token, logits
-    within DECODE16_TOL, the rank's greedy token equal or else the first
-    differing step's single-device top-2 margin below MARGIN16; each rank's
-    launch counters show tlmm and flash_prefill launched and no plain
-    version called.  (b) the dry run's estimate of (a)'s (1, 2) prefill on
-    ``DryMesh((1, 2))``: its argument bytes equal each rank's bytes of
-    the same tensors, its bytes above them within PEAK13_RTOL of the
-    rank's ``max_memory_allocated`` above what it held before the
-    prefill.  Prints per rank the prefill's and a decode step's seconds,
-    the peak and the collective bytes by kind.  The phase within
-    PHASE16_S.  Returns (the ranks' launch counts summed, the failures)."""
+    ``cache_sharding``, the batch by ``batch_spec``) on gloo ranks on the
+    one card.  (a) bitnet-0.73b at full width, SERVE16 (4 of 24 layers),
+    on (1, 2) and on (2, 1), against the single-device port on the card
+    reading its cache as the mesh's ranks do ((2, 1) by the decode kernel;
+    (1, 2), whose shards each read their half of the sequence as one
+    split-K chunk, by split-K over 2 chunks, ``Ctx(kv_splits=2)``; the gap
+    between the two reads on one device is printed): prefill logits within
+    PREFILL16_RTOL of their largest; 16 decode steps, each rank fed the
+    single device's greedy token, logits within DECODE16_TOL, the rank's
+    greedy token equal or else the first differing step's single-device
+    top-2 margin below MARGIN16; each rank's launch counters show tlmm and
+    flash_prefill launched and no plain version called.  (b) the dry run's
+    estimate of (a)'s (1, 2) prefill on ``DryMesh((1, 2))``: its argument
+    bytes equal each rank's bytes of the same tensors, its bytes above
+    them within PEAK13_RTOL of the rank's ``max_memory_allocated`` above
+    what it held before the prefill.  (c) CASES16C at full width, each
+    against the single-device port reading as its ranks do: mixtral-8x22b
+    2 layers on (1, 2) (expert-parallel, sequence parallelism in the
+    prefill) and (2, 1), xlstm-350m 4 layers on (1, 2), hymba-1.5b 4 layers
+    on (1, 5) (a 5-rank world; flash_prefill launched but for xLSTM).  Each
+    runs free (printed: a few ULPs from another GEMM or head count move
+    int8 codes at rounding ties, and at full width a moved code moves the
+    logits by far more than (a)'s gates) and then replaying the single
+    device's int8 values and MoE routing on its blocks
+    (``testing.pinned_int8``, ``pinned_routing``), held to (a)'s gates; the
+    codes the replay moved are printed.  Prints per rank the prefill's and
+    a decode step's
+    seconds, the peak and the collective bytes by kind.  (a) and (b)
+    within PHASE16_S; (c) (its references, its part of the 2-rank world,
+    the 5-rank world) within PHASE16C_S.  Returns (the ranks' launch counts
+    summed, the failures)."""
     import shutil
-    import torch.multiprocessing as mp
-    from repro_torch.models import transformer
-    from repro_torch.models.layers import Ctx
     failures = []
     t_16 = time.perf_counter()
     s = SERVE16
@@ -3129,110 +3455,63 @@ def phase16(dev, smi):
     # one split-K chunk, so its single-device run reads by split-K over 2
     # chunks (Ctx.kv_splits), the same partials merged in the same order
     cfg, packed, prompt, lengths = _phase16_inputs(dev)
-    refs = {}
-    for name, kv_splits in (("kernel", 0), ("splitk", 2)):
-        ctx = Ctx(mode="packed", kv_splits=kv_splits)
-        cache = transformer.init_cache(cfg, s["batch"], s["max_seq"],
-                                       torch.float32, dev)
-        with torch.no_grad():
-            logits, _ = transformer.prefill_step(cfg, packed, prompt, ctx,
-                                                 cache, lengths)
-            ref = {"prefill": logits, "decode": [],
-                   "tokens": [logits.argmax(-1)]}
-            for i in range(s["steps"]):
-                logits, _ = transformer.decode_step(
-                    cfg, packed, ref["tokens"][-1][:, None].to(torch.int32),
-                    ctx, cache, lengths + i)
-                ref["decode"].append(logits)
-                ref["tokens"].append(logits.argmax(-1))
-        refs[name] = ref
-        del cache
+    refs = {"bitnet": {name: _phase16_reference(
+        cfg, packed, prompt, lengths, s["max_seq"], kv_splits, dev)
+        for name, kv_splits in (("kernel", 0), ("splitk", 2))}}
+    one = refs["bitnet"]
     same, gap = 0, 0.0   # the two reads' logits while their tokens agree
     for i in range(s["steps"]):
-        if not torch.equal(refs["kernel"]["tokens"][i],
-                           refs["splitk"]["tokens"][i]):
+        if not torch.equal(one["kernel"]["tokens"][i],
+                           one["splitk"]["tokens"][i]):
             break
         same += 1
-        gap = max(gap, float((refs["kernel"]["decode"][i]
-                              - refs["splitk"]["decode"][i]).abs().max()))
+        gap = max(gap, float((one["kernel"]["decode"][i]
+                              - one["splitk"]["decode"][i]).abs().max()))
     log(f"  one device: the decode kernel's read against split-K over 2 "
         f"chunks, logits within {gap:.3g} over the first {same} of "
         f"{s['steps']} steps (their greedy inputs equal there; ungated: a "
         f"read summed in another order moves int8 codes at full width)")
-    torch.save(refs, os.path.join(workdir, "ref.pt"))
-    del packed, refs, ref, logits
+    del packed
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t_16
-    # -- (a) the two ranks --------------------------------------------------
+    t_c = time.perf_counter()   # (c)'s references, each arch's reads,
+    for arch, layers, meshes, max_seq in CASES16C:   # and their pins
+        cfg, packed, prompt, lengths = _phase16_inputs(dev, arch, layers)
+        refs[arch] = {}
+        for k in sorted({_phase16_read(m, cfg) for m in meshes}):
+            tape = {"int8": [], "routes": []}
+            refs[arch][k] = _phase16_reference(cfg, packed, prompt, lengths,
+                                               max_seq, k, dev, tape)
+            torch.save(tape, os.path.join(workdir, f"tape {arch} {k}.pt"))
+        del packed, tape
+        torch.cuda.empty_cache()
+    t_c_ref = time.perf_counter() - t_c
+    torch.save(refs, os.path.join(workdir, "ref.pt"))
+    del refs, one
+    torch.cuda.empty_cache()
+    # -- (a), then (c)'s meshes of 2, on two ranks; (c)'s (1, 5) on five ------
     t_r = time.perf_counter()
-    spawned = time.time()
-    procs = mp.spawn(_phase16_rank, args=(2, _free_port(), workdir),
-                     nprocs=2, join=False)
-    deadline = time.perf_counter() + PHASE16_RANK_S
-    try:
-        while not procs.join(timeout=1):
-            if time.perf_counter() > deadline:
-                raise TimeoutError("phase 16's ranks did not finish")
-    except Exception as e:   # a rank that fails fails the phase
-        failures.append(f"(a) ranks: {type(e).__name__}: {str(e)[-2000:]}")
-    finally:
-        for p_ in procs.processes:
-            if p_.is_alive():
-                p_.kill()
-            p_.join()
-    joined = time.time()
-    ranks = []
-    for r in range(2):
-        path = os.path.join(workdir, f"rank{r}.json")
-        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
-    shutil.rmtree(workdir, ignore_errors=True)
+    ranks, fail2, (spawned, joined) = _spawn16(2, workdir, PHASE16_RANK_S
+                                               + PHASE16C_RANK_S)
     t_ranks = time.perf_counter() - t_r
+    t_5 = time.perf_counter()
+    ranks5, fail5, _ = _spawn16(5, workdir, PHASE16C_RANK_S)
+    t_5 = time.perf_counter() - t_5
+    failures += [f"(a)/(c) {f}" for f in (fail2, fail5) if f]
+    shutil.rmtree(workdir, ignore_errors=True)
     counts = {}
-    if not all(r.get("ok") for r in ranks):
-        failures.append(f"(a): a rank did not finish: {ranks}")
+    if fail2:
         return counts, failures
-    log(f"  the ranks: spawn to entry "
+    log(f"  the 2 ranks: spawn to entry "
         f"{[round(r['entered'] - spawned, 1) for r in ranks]} s, entry to "
         f"ready {[round(r['ready'] - r['entered'], 1) for r in ranks]} s, "
         f"ready to done {[round(r['done'] - r['ready'], 1) for r in ranks]}"
-        f" s, done to joined {[round(joined - r['done'], 1) for r in ranks]}"
-        f" s")
+        f" s ((c) {[round(r['c_s'], 1) for r in ranks]} s), done to joined "
+        f"{[round(joined - r['done'], 1) for r in ranks]} s")
     for shape in MESHES16:
-        rows = [r["meshes"][str(shape)] for r in ranks]
-        for r_, row in enumerate(rows):
-            step = sorted(row["step_s"])[len(row["step_s"]) // 2]
-            log(f"  (a) {shape} rank {r_}: prefill {row['prefill_s']:.4f} s "
-                f"(logits within {row['prefill_rel']:.3g} of the largest, "
-                f"gate {PREFILL16_RTOL}), a decode step {step:.4f} s "
-                f"(median of {s['steps']}; logits within "
-                f"{max(row['decode_err']):.3g}, gate {DECODE16_TOL}; first "
-                f"token differing {row['first_diff']}), peak "
-                f"{row['peak_gib']:.3f} GiB ({row['above']} B above the "
-                f"{row['arg_bytes']} B of its arguments at the prefill); "
-                f"collective bytes prefill "
-                f"{ {k: v for k, v in row['prefill_coll'].items() if v} }, "
-                f"decode ({s['steps']} steps) "
-                f"{ {k: v for k, v in row['decode_coll'].items() if v} }; "
-                f"launches {row['launches']}, plain versions called "
-                f"{row['plain_calls']}; {smi}")
-            for name, n in row["launches"].items():
-                counts[name] = counts.get(name, 0) + n
-            if row["prefill_rel"] > PREFILL16_RTOL:
-                failures.append(f"(a) {shape} rank {r_} prefill "
-                                f"{row['prefill_rel']}")
-            if max(row["decode_err"]) > DECODE16_TOL:
-                failures.append(f"(a) {shape} rank {r_} decode "
-                                f"{row['decode_err']}")
-            if row["first_diff"] is not None and not (
-                    row["first_diff"][1] < MARGIN16):
-                failures.append(f"(a) {shape} rank {r_} token differs at "
-                                f"{row['first_diff']}")
-            if not (row["launches"]["tlmm"] > 0
-                    and row["launches"]["flash_prefill"] > 0
-                    and row["plain_calls"] == 0):
-                failures.append(f"(a) {shape} rank {r_} launches "
-                                f"{row['launches']}, plain "
-                                f"{row['plain_calls']}")
+        for r_, rank in enumerate(ranks):
+            _phase16_judge(f"(a) {shape} rank {r_}",
+                           rank["meshes"][str(shape)], smi, counts, failures)
     # -- (b) the dry run's estimate of the (1, 2) prefill --------------------
     t_e = time.perf_counter()
     for r_, rank in enumerate(ranks):
@@ -3249,12 +3528,39 @@ def phase16(dev, smi):
         if abs(rel) > PEAK13_RTOL:
             failures.append(f"(b) rank {r_} peak estimate off by {rel:+.4f}")
     t_e = time.perf_counter() - t_e
+    # -- (c) judged -----------------------------------------------------------
+    for arch, layers, meshes, max_seq in CASES16C:
+        for shape in meshes:
+            group = ranks if math.prod(shape) == 2 else ranks5
+            for r_, rank in enumerate(group):
+                row = rank.get("c", {}).get(f"{arch} {shape}")
+                label = f"(c) {arch} {layers} layers {shape} rank {r_}"
+                if row is None:
+                    failures.append(f"{label}: no reading")
+                    continue
+                # free-running: gated up to its first moved int8 code or
+                # route (a few ULPs move codes at rounding ties, and a
+                # moved code moves the logits by a quantization step at
+                # full width); the replay, each code held to its own, whole
+                _phase16_judge(f"{label} free-running", row["free"], smi,
+                               counts, failures, free=True)
+                _phase16_judge(f"{label} replaying one device's int8 values"
+                               f" and routing", row["pinned"], smi, counts,
+                               failures, flash=arch != "xlstm-350m")
+    t_c = t_c_ref + max(r["c_s"] for r in ranks) + t_5
     took = time.perf_counter() - t_16
-    log(f"phase 16: {took:.1f} s (the single device {t_ref:.1f} s, the "
-        f"ranks {t_ranks:.1f} s, the estimate {t_e:.1f} s); launches "
-        f"{counts}")
-    if took > PHASE16_S:
-        failures.append(f"phase 16 took {took:.1f} s (gate {PHASE16_S} s)")
+    log(f"phase 16: {took:.1f} s ((a) and (b) {took - t_c:.1f} s: the single"
+        f" device {t_ref:.1f} s, the 2 ranks {t_ranks:.1f} s less (c)'s "
+        f"part, the estimate {t_e:.1f} s; (c) {t_c:.1f} s: its single-device"
+        f" references {t_c_ref:.1f} s, its part of the 2 ranks "
+        f"{max(r['c_s'] for r in ranks):.1f} s, the 5 ranks {t_5:.1f} s); "
+        f"launches {counts}")
+    if took - t_c > PHASE16_S:
+        failures.append(f"phase 16 (a) and (b) took {took - t_c:.1f} s "
+                        f"(gate {PHASE16_S} s)")
+    if t_c > PHASE16C_S:
+        failures.append(f"phase 16 (c) took {t_c:.1f} s (gate "
+                        f"{PHASE16C_S} s)")
     return counts, failures
 
 

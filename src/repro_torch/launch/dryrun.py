@@ -36,20 +36,15 @@ of its own and its bytes are read and written once.  ``chip_smoke.py``
 phase 15 (b) holds a training cell's estimate to the card's allocator,
 phase 16 (b) a partitioned serving prefill's.
 
-Serving cells of the attention-block archs without experts run JAX's
-partitioned program (``"layout": "partitioned"`` in the result): the
+Serving cells run JAX's partitioned program (``"layout": "partitioned"``
+in the result), for every arch as JAX's dry run serves every arch: the
 packed weights by ``sharding.shard_params(fsdp=False)`` (q/k/v/gate/up
 split on their outputs over "model", o/down on their packed rows, the
-embedding on the vocabulary), the cache by ``sharding.cache_sharding``
-(the batch over "data", the sequence over "model"), the batch by
-``batch_spec``, and the model's collectives over "model"
-(``Constrain(max_seq=)``).  MoE and the recurrent kinds keep the engine's
-layout (``"layout": "engine"``), as ``ServingEngine`` serves a mesh (its
-``mesh=``): the packed weights whole on every rank, a rank's share of the
-batch rows (the slots, padded to a multiple of the batch ranks; the pod
-axis of 2 x 16 x 16 counts as more "data" ranks, though the engine takes
-a ("data", "model") mesh alone) and of a cache whole in its sequence, and
-no collective in the model.  The kernels' plain versions take the meta
+embedding on the vocabulary, expert banks on E or inside each expert),
+the cache by ``sharding.cache_sharding`` (the batch over "data", the
+sequence over "model"; a recurrent state on its batch alone), the batch
+by ``batch_spec``, and the model's collectives over "model"
+(``Constrain(max_seq=)``).  The kernels' plain versions take the meta
 tensors, so a cell counts their work (the prompt attention's plain
 version scores every key tile of every query row, where the kernel skips
 the dead ones).  A cell that meets an op with no meta rule fails loudly
@@ -317,7 +312,7 @@ class Cell:
     local_bytes: int
     microbatches: int = 1
     # a training cell's layout ("2d", "dp", "dpzero1"); a serving cell's,
-    # "partitioned" (JAX's) or "engine"
+    # "partitioned" (JAX's)
     layout: str = "2d"
 
 
@@ -338,13 +333,6 @@ def bf16_params(cfg, device="meta", seed: int = 0):
     return params
 
 
-def partitioned(cfg) -> bool:
-    """Whether the port serves ``cfg`` in JAX's partitioned layout (the
-    attention-block archs without experts); MoE and the recurrent kinds
-    keep the engine's."""
-    return cfg.block_kind == "attn" and not cfg.n_experts
-
-
 def train_layout(opt) -> str:
     """The training layout of ``opt``: ``dpzero1``, ``dp`` or ``2d``."""
     return "dpzero1" if "dpzero1" in opt else "dp" if "dp" in opt else "2d"
@@ -355,7 +343,7 @@ def make_ctx(cfg, mesh, global_batch, *, mode, opt=(), max_seq=None):
     ``kv8``/``int8fwd``/``rematdots`` from ``opt``, and the hook of the
     layout (``dp`` for ``dp``/``dpzero1``, else ``2d``): a training
     cell's, or, with ``max_seq``, a serving cell's in JAX's partitioned
-    layout (``partitioned``), whose cache holds ``max_seq`` positions.
+    layout, whose cache holds ``max_seq`` positions.
     Training attention is the plain flash recomputation (JAX's XLA
     attention); the serving cells take the attention kernels' wrappers."""
     train = mode == "qat"
@@ -445,25 +433,14 @@ def build_cell(arch: str, shape, mesh, opt=(), *, device="meta", cfg=None,
     packed = transformer.pack_params(cfg, params)
     t = seq if shape.kind == "prefill" else 1
     kvq = "kv8" in opt
-    if partitioned(cfg):
-        # JAX's partitioned program: the packed weights by shard_params,
-        # the cache by cache_sharding (its sequence split over "model"),
-        # the batch by batch_spec
-        layout = "partitioned"
-        packed = shd.shard_params(mesh, packed, fsdp=False)
-        cache = shd.local_cache(mesh, transformer.init_cache(
-            cfg, gb, seq, torch.bfloat16, device=device, kv_quant=kvq), gb)
-        ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt, max_seq=seq)
-        rows = gb // shd.axis_size(mesh, shd.batch_spec(mesh, gb, 0)[0])
-    else:
-        # as the engine serves a mesh: packed parameters whole on every
-        # rank, the rank's rows of the batch and of a cache whole in its
-        # sequence, no collective
-        layout = "engine"
-        rows = -(-gb // shd.axis_size(mesh, shd.batch_axes(mesh)))
-        cache = transformer.init_cache(cfg, rows, seq, torch.bfloat16,
-                                       device=device, kv_quant=kvq)
-        ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt)
+    # JAX's partitioned program: the packed weights by shard_params, the
+    # cache by cache_sharding (its sequence split over "model"), the batch
+    # by batch_spec
+    packed = shd.shard_params(mesh, packed, fsdp=False)
+    cache = shd.local_cache(mesh, transformer.init_cache(
+        cfg, gb, seq, torch.bfloat16, device=device, kv_quant=kvq), gb)
+    ctx = make_ctx(cfg, mesh, gb, mode="packed", opt=opt, max_seq=seq)
+    rows = gb // shd.axis_size(mesh, shd.batch_spec(mesh, gb, 0)[0])
     if cfg.frontend == "token":
         inp = torch.zeros((rows, t), dtype=torch.int32, device=device)
     else:
@@ -477,7 +454,7 @@ def build_cell(arch: str, shape, mesh, opt=(), *, device="meta", cfg=None,
         clen = torch.full((), seq - 1, dtype=torch.int32, device=device)
         args = (packed, inp, cache, clen)
     return Cell(fn, args, mesh, _distinct_bytes(_flat(args)),
-                layout=layout)
+                layout="partitioned")
 
 
 def estimate(cell: Cell) -> dict:

@@ -178,6 +178,22 @@ def linear_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx, *,
     return y
 
 
+def down_apply(p: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``linear_apply`` of a down projection (attention's ``o``, the SSM's
+    ``out_proj``, xLSTM's ``out``, a split FFN's ``down``) whose input is,
+    under tensor parallelism, this rank's block of its features: it runs
+    row-parallel.  JAX splits a packed one's padded rows, which "model"
+    may not divide at a small width (5 ranks and 64 rows; JAX then splits
+    its output columns and XLA gathers the input), a layout not served."""
+    c = ctx.constrain
+    if c is not None and c.tp and not c.linear_parts(p, x).row:
+        raise NotImplementedError(
+            f"a down projection on this rank's features whose weight JAX "
+            f"splits on its output ({p.specs}): its packed rows are not "
+            f"divided by the {c.model_size} 'model' ranks")
+    return linear_apply(p, x, ctx)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
@@ -250,7 +266,9 @@ def mlp_apply(p: nn.ModuleDict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         g = linear_apply(p["gate"], x, ctx)
         u = linear_apply(p["up"], x, ctx)
     h = torch.nn.functional.silu(g.float()) * u.float()
-    return linear_apply(p["down"], h.to(x.dtype), ctx)
+    split = ctx.constrain is not None and ctx.constrain.ffn_split
+    return (down_apply if split else linear_apply)(p["down"], h.to(x.dtype),
+                                                   ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +388,18 @@ def _expert_matmul(w: torch.Tensor, x: torch.Tensor, ctx: Ctx, *,
 
 
 def _expert_matmul_packed(codes: torch.Tensor, gamma: torch.Tensor,
-                          n_in: int, g: int, x: torch.Tensor) -> torch.Tensor:
+                          n_in: int, g: int, x: torch.Tensor,
+                          x_part=None) -> torch.Tensor:
     """codes (E, rows, n_out), gamma (E,), x (E, C, n_in) float -> (E, C,
     n_out) f32: per-row int8 quant, then one packed ternary matmul an
     expert (``tlmm``: the kernel on the card, its plain version on the
-    CPU; the bank is never unpacked), then acc * x_scale * gamma."""
-    xq, xs = ternary.absmax_quant(x)
-    acc = torch.stack([tlmm_ops.tlmm(xq[e], codes[e], g=g, n=n_in)
+    CPU; the bank is never unpacked), then acc * x_scale * gamma.  On a
+    mesh ``x_part`` (``sharding.Rows``) says which rows of the whole
+    buffer x holds, for a replay."""
+    xq, xs = ternary.absmax_quant(x, part=x_part)
+    # the kernel takes rows of unit stride: x may be a gathered view
+    acc = torch.stack([tlmm_ops.tlmm(xq[e].contiguous(), codes[e], g=g,
+                                     n=n_in)
                        for e in range(codes.shape[0])])
     return acc.float() * xs * gamma[:, None, None]
 
@@ -406,6 +429,22 @@ def moe_route(p: MoE, x: torch.Tensor, *, top_k: int,
             "capacity": capacity}
 
 
+def state_heads(ctx: Ctx, st: dict, dims: dict | None = None) -> dict:
+    """A recurrent state held whole in its heads -> this rank's heads of
+    it, where a "model" axis splits the heads (``Constrain.state_heads``:
+    each plane cut on its head-major dimension, ``dims`` or 1), else as it
+    is."""
+    c = ctx.constrain
+    return c.state_heads(st, dims) if c is not None else st
+
+
+def whole_state(ctx: Ctx, st: dict, dims: dict | None = None) -> dict:
+    """The rank's heads of a scan's new state -> the state whole in its
+    heads (``Constrain.whole_state``), else as it is."""
+    c = ctx.constrain
+    return c.whole_state(st, dims) if c is not None else st
+
+
 def route_positions(flat_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Each (token, slot) pair's position in its expert's buffer: the
     exclusive cumulative count of its expert in token-major order."""
@@ -424,7 +463,10 @@ def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
     "model" axis only the rank's experts are computed and the output is
     the rank's partial sum; where the banks are split inside each expert
     (``Constrain.split_banks``), every expert on the rank's columns and
-    the output is the rank's d_model columns."""
+    the output is the rank's d_model columns: the gate and up banks give
+    its f columns of ``h``, which is gathered whole over "model" before
+    the down bank reads it (a packed bank quantizes it at the whole row's
+    absmax, as one device does)."""
     n, d = x.shape
     c = ctx.constrain
     n_experts = r["logits"].shape[-1]
@@ -449,31 +491,40 @@ def _moe_dispatch(p: MoE, x: torch.Tensor, r: dict, offset, cap: int, *,
     rows = torch.cat([x[:, None].expand(n, top_k, d).reshape(n * top_k, d),
                       x.new_zeros((1, d))])
     buf = rows[src[:-1]].reshape(n_loc, cap, d)
-    if p.packed:
-        if c is not None and c.tp:
-            raise NotImplementedError("packed expert banks on a training "
-                                      "mesh's 'model' axis")
-        g = p.g
-        h_g = _expert_matmul_packed(p.gate_codes, p.gate_gamma, d, g, buf)
-        h_u = _expert_matmul_packed(p.up_codes, p.up_gamma, d, g, buf)
+    x_part = None
+    if c is not None:   # which rows of the whole buffers these are, for a
+        # replay (a row's statistics stay its own)
+        filled = (src[:-1] != nk).reshape(n_loc, cap)
+        experts = torch.arange(lo, hi, device=x.device)
+        grow = torch.arange(cap, device=x.device)[None] + (
+            0 if offset is None else offset[lo:hi, None])
+        x_part = Rows((experts[:, None].expand(n_loc, cap),
+                       torch.where(filled, grow, 0)), filled)
+    if p.packed:   # this rank's experts, or every expert on its columns
+        bank = {}
+        for name in MoE.BANKS:
+            codes = getattr(p, f"{name}_codes")
+            gamma = getattr(p, f"{name}_gamma")
+            if c is not None and c.tp:
+                codes = c.expert_bank(codes, p.specs[f"{name}_codes"], split)
+                gamma = c.expert_bank(gamma, p.specs[f"{name}_gamma"], split)
+            bank[name] = (codes, gamma)
+        h_g = _expert_matmul_packed(*bank["gate"], d, p.g, buf, x_part)
+        h_u = _expert_matmul_packed(*bank["up"], d, p.g, buf, x_part)
         h = (torch.nn.functional.silu(h_g) * h_u).to(x.dtype)
-        out_buf = _expert_matmul_packed(p.down_codes, p.down_gamma,
-                                        h.shape[-1], g, h).to(x.dtype)
+        if split:   # this rank's f columns; its down columns read them all
+            h = c.mesh.gather(h, "model", 2, partial=True)
+        out_buf = _expert_matmul_packed(*bank["down"], h.shape[-1], p.g,
+                                        h, x_part).to(x.dtype)
     else:   # float masters: JAX's QAT (or unquantized) branch
         banks = {n: getattr(p, f"{n}_w") for n in MoE.BANKS}
-        w_part = x_part = None
+        w_part = None
         if c is not None:   # the rank's part of the banks; which rows or
             # columns of the whole ones, for a replay and the gammas
             banks = {n: c.expert_bank(t, p.specs[f"{n}_w"])
                      for n, t in banks.items()}
             w_part = (Part(c.mesh, (None, None, "model")) if split
                       else Rows((slice(lo, hi),)))
-            filled = (src[:-1] != nk).reshape(n_loc, cap)
-            experts = torch.arange(lo, hi, device=x.device)
-            grow = torch.arange(cap, device=x.device)[None] + (
-                0 if offset is None else offset[lo:hi, None])
-            x_part = Rows((experts[:, None].expand(n_loc, cap),
-                           torch.where(filled, grow, 0)), filled)
         kw = dict(w_part=w_part, x_part=x_part)
         h_g = _expert_matmul(banks["gate"], buf, ctx, **kw).float()
         h_u = _expert_matmul(banks["up"], buf, ctx, **kw).float()

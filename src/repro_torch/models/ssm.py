@@ -24,7 +24,10 @@ every head) gathered whole and computed on every rank, x and z cut to the
 rank's heads; ``dt_proj`` split on whole heads, column-parallel;
 ``out_proj`` split on its input (the rank's heads), row-parallel; the
 conv weights, ``A_log``, ``D`` and ``dt_bias`` whole, cut to the rank's
-heads.
+heads.  The serving program keeps the state whole in its heads on every
+"model" rank (JAX's cache plane, split on its batch only): a step reads
+the rank's heads of it and the new state is gathered whole again
+(``layers.state_heads``/``whole_state`` on ``STATE_DIMS``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ from repro_torch.models.layers import Ctx, Params
 F = torch.nn.functional
 LINEARS = ("in_proj", "bc_proj", "dt_proj", "out_proj")
 DENSE = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+# each state plane's head-major dimension: h (b, H, N, hd), the conv ring
+# (b, cw - 1, H * hd) in head-major blocks of hd channels
+STATE_DIMS = {"h": 1, "conv": 2}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -170,10 +176,11 @@ def ssm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
     y = y + dense["D"][None, None, :, None] * xc.reshape(b, s, n_heads,
                                                          head_dim)
     y = y.reshape(b, s, d_inner) * F.silu(z.float())
-    out = layers.linear_apply(p["out_proj"], y.to(x.dtype), ctx)
+    out = layers.down_apply(p["out_proj"], y.to(x.dtype), ctx)
     if return_state:
         # the last cw - 1 rows of the zero-padded conv input
-        return out, {"h": h, "conv": xp[:, s:]}
+        return out, layers.whole_state(ctx, {"h": h, "conv": xp[:, s:]},
+                                       STATE_DIMS)
     return out
 
 
@@ -190,21 +197,29 @@ def ssm_step(p: Params, x: torch.Tensor, st: dict, ctx: Ctx, *,
              n_heads: int, head_dim: int, state: int):
     """One decode step. x: (b, 1, d_model) -> ((b, 1, d_model), new state).
     The ring (in its own dtype) and the input are joined in their promoted
-    type, and the new ring is cast back, as in JAX."""
+    type, and the new ring is cast back, as in JAX.  On a "model" axis the
+    step runs on the rank's heads, as ``ssm_forward``: it reads their part
+    of ``st`` (whole in its heads) and returns the new state whole."""
     b = x.shape[0]
+    if _tp(ctx):
+        n_heads //= ctx.constrain.model_size
     d_inner = n_heads * head_dim
     xin, z, B, C, dt, log_a = _gates(p, x, ctx, n_heads)
+    dense = _dense(p, ctx)
+    st = layers.state_heads(ctx, st, STATE_DIMS)
     ring = st["conv"]
     dt_cat = torch.promote_types(ring.dtype, xin.dtype)
     xcat = torch.cat([ring.to(dt_cat), xin.to(dt_cat)], dim=1)  # (b, cw, di)
-    xc = (xcat * p["conv_w"][None]).sum(dim=1, keepdim=True) + p["conv_b"]
+    xc = ((xcat * dense["conv_w"][None]).sum(dim=1, keepdim=True)
+          + dense["conv_b"])
     xc = F.silu(xc.float())                                     # (b, 1, di)
     xh = xc.reshape(b, n_heads, head_dim) * dt[:, 0, :, None]
     a = torch.exp(log_a[:, 0, :])                               # (b, H)
     h_new = (st["h"] * a[:, :, None, None]
              + torch.einsum("bn,bhd->bhnd", B[:, 0], xh))
     y = torch.einsum("bn,bhnd->bhd", C[:, 0], h_new)
-    y = y + p["D"][None, :, None] * xc.reshape(b, n_heads, head_dim)
+    y = y + dense["D"][None, :, None] * xc.reshape(b, n_heads, head_dim)
     y = y.reshape(b, 1, d_inner) * F.silu(z.float())
-    out = layers.linear_apply(p["out_proj"], y.to(x.dtype), ctx)
-    return out, {"h": h_new, "conv": xcat[:, 1:].to(ring.dtype)}
+    out = layers.down_apply(p["out_proj"], y.to(x.dtype), ctx)
+    return out, layers.whole_state(
+        ctx, {"h": h_new, "conv": xcat[:, 1:].to(ring.dtype)}, STATE_DIMS)

@@ -444,7 +444,7 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
                         cache_len, page_table, window,
                         (rank * n_heads, (rank + 1) * n_heads))
         o = o.transpose(1, 2).reshape(b, t, n_heads * cfg.hd)
-        return layers.linear_apply(p["o"], o, ctx)
+        return layers.down_apply(p["o"], o, ctx)
     quant = cache is not None and "k_scale" in cache
     if quant:
         (kw, ks), (vw, vs) = q_kv(k), q_kv(v)   # what the cache stores
@@ -538,13 +538,15 @@ def _attn_apply(cfg: ModelConfig, ctx: Ctx, p: nn.ModuleDict,
             o = read(qt, k_read.transpose(1, 2), v_read.transpose(1, 2),
                      cache_len + 1, **read_kw)
     o = o.transpose(1, 2).reshape(b, t, n_heads * cfg.hd)
-    return layers.linear_apply(p["o"], o, ctx)
+    return layers.down_apply(p["o"], o, ctx)
 
 
 def _write_state(planes: dict, state: dict) -> None:
     """Copy a sub-layer's new recurrent state into its cache planes in
     place (casting to the plane's dtype), as the KV is written: the
-    captured decode block replays on the same planes."""
+    captured decode block replays on the same planes.  On a "model" axis
+    the scans hand back the state whole in its heads, as every rank's
+    plane holds it (``Constrain.whole_state``)."""
     for name, plane in planes.items():
         plane.copy_(state[name])
 
@@ -831,7 +833,15 @@ def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
     """Prompt (b, s) -> (last-token logits (b, vocab), cache).  With
     ``lengths`` ((b,) int) row i's logits are taken at position
     lengths[i] - 1 of a right-padded batch.  An embed model takes
-    (b, s, d_model) embeddings."""
+    (b, s, d_model) embeddings.  JAX's partitioned program
+    (``Constrain.serving``) prefills a recurrent kind on equal-length
+    prompts, as JAX's ``prefill_step`` takes no lengths: the state after a
+    right-padded prompt is not the prompt's state."""
+    c = ctx.constrain
+    if (c is not None and c.serving and lengths is not None
+            and cfg.block_kind != "attn"):
+        raise ValueError(f"{cfg.block_kind}: the partitioned prefill takes "
+                         "equal-length prompts (no lengths)")
     x = _embed_in(cfg, params, inputs, ctx)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
@@ -840,7 +850,6 @@ def prefill_step(cfg: ModelConfig, params: nn.ModuleDict,
         idx = torch.full((b,), s - 1, device=x.device)
     else:
         idx = torch.as_tensor(lengths, device=x.device).long() - 1
-    c = ctx.constrain
     if c is not None and c.serving:   # the rows whole, wherever they lie
         last = c.last_positions(x, idx)
         return c.whole_logits(_lm_head(cfg, params, last, ctx))[:, 0], cache

@@ -20,7 +20,12 @@ v] and [i | f]) gathered whole and computed on every rank, each part cut
 to the rank's heads; ``ogate`` split on whole heads, column-parallel;
 ``out`` split on its input (the rank's heads), row-parallel.  sLSTM's
 ``wx`` ([z | i | f | o]) gathered whole, each gate cut to the rank's
-heads; ``r`` whole, cut to the rank's heads; ``out`` row-parallel.
+heads; ``r`` whole, cut to the rank's heads; ``out`` row-parallel.  The
+serving program keeps each state whole in its heads on every "model" rank
+(JAX's cache planes, split on their batch only): a step reads the rank's
+heads of it and the new state is gathered whole again
+(``layers.state_heads``/``whole_state``; every plane is head-major on
+dim 1).
 """
 
 from __future__ import annotations
@@ -135,9 +140,9 @@ def mlstm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
         n = n * decay[..., None] + torch.einsum("bjhd,bjh->bhd", kk, w_c)
         m = m_new
     h = torch.cat(hs, dim=1).reshape(b, s, d_inner) * o
-    out = layers.linear_apply(p["out"], h.to(x.dtype), ctx)
+    out = layers.down_apply(p["out"], h.to(x.dtype), ctx)
     if return_state:
-        return out, {"C": C, "n": n, "m": m}
+        return out, layers.whole_state(ctx, {"C": C, "n": n, "m": m})
     return out
 
 
@@ -151,9 +156,14 @@ def mlstm_init_state(b: int, n_heads: int, head_dim: int,
 
 def mlstm_step(p: Params, x: torch.Tensor, st: dict, ctx: Ctx, *,
                n_heads: int, head_dim: int):
-    """One decode step. x: (b, 1, d) -> ((b, 1, d), new state)."""
+    """One decode step. x: (b, 1, d) -> ((b, 1, d), new state).  On a
+    "model" axis the step runs on the rank's heads, as ``mlstm_forward``:
+    it reads their part of ``st`` (whole in its heads) and returns the new
+    state whole."""
     b = x.shape[0]
+    n_heads = _local_heads(ctx, n_heads)
     d_inner = n_heads * head_dim
+    st = layers.state_heads(ctx, st)
     q, k, v, ig, log_f, o = _mlstm_proj(p, x, ctx, n_heads, head_dim)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                  # (b, H, hd)
     ii, lf = ig[:, 0], log_f[:, 0]                       # (b, H)
@@ -167,8 +177,9 @@ def mlstm_step(p: Params, x: torch.Tensor, st: dict, ctx: Ctx, *,
     den = torch.einsum("bhd,bhd->bh", q, n_new)
     h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     h = h.reshape(b, 1, d_inner) * o
-    out = layers.linear_apply(p["out"], h.to(x.dtype), ctx)
-    return out, {"C": C_new, "n": n_new, "m": m_new}
+    out = layers.down_apply(p["out"], h.to(x.dtype), ctx)
+    return out, layers.whole_state(ctx, {"C": C_new, "n": n_new,
+                                         "m": m_new})
 
 
 # ---------------------------------------------------------------------------
@@ -227,34 +238,44 @@ def slstm_forward(p: Params, x: torch.Tensor, ctx: Ctx, *, n_heads: int,
     """Sequential sLSTM. x: (b, s, d) -> (b, s, d); with ``return_state``
     also {"c", "n", "h", "m"} after the sequence (f32)."""
     b, s, _ = x.shape
-    c = _tp(ctx)
     n_heads = _local_heads(ctx, n_heads)
     d_inner = n_heads * head_dim
-    wx_l, cell_p = p["wx"], p
-    if c:   # wx computed whole, each gate cut to the rank's heads
-        wx_l, cell_p = c.whole(wx_l, True), Params(r=c.shared(p["r"], 1))
-    wx = layers.linear_apply(wx_l, x, ctx)               # (b, s, 4*d_inner)
-    if c:
-        wx = c.heads(wx.reshape(b, s, 4, -1)).reshape(b, s, 4 * d_inner)
+    wx, cell_p = _slstm_wx(p, x, ctx)                    # (b, s, 4*d_inner)
     st = slstm_init_state(b, n_heads, head_dim, device=x.device)
     hs = []
     for t in range(s):
         st = _slstm_cell(cell_p, wx[:, t], st)
         hs.append(st["h"])
     h = torch.stack(hs, dim=1).reshape(b, s, d_inner)
-    out = layers.linear_apply(p["out"], h.to(x.dtype), ctx)
+    out = layers.down_apply(p["out"], h.to(x.dtype), ctx)
     if return_state:
-        return out, st
+        return out, layers.whole_state(ctx, st)
     return out
+
+
+def _slstm_wx(p: Params, x: torch.Tensor, ctx: Ctx) -> tuple:
+    """(the four gates' inputs (b, s, 4 * d_inner) of the rank's heads,
+    the cell's parameters): on a "model" axis ``wx`` computed whole and
+    each gate cut to the rank's heads, ``r`` cut to them."""
+    c = _tp(ctx)
+    if not c:
+        return layers.linear_apply(p["wx"], x, ctx), p
+    b, s, _ = x.shape
+    wx = layers.linear_apply(c.whole(p["wx"], True), x, ctx)
+    return (c.heads(wx.reshape(b, s, 4, -1)).reshape(b, s, -1),
+            Params(r=c.shared(p["r"], 1)))
 
 
 def slstm_step(p: Params, x: torch.Tensor, st: dict, ctx: Ctx, *,
                n_heads: int, head_dim: int):
-    """One decode step. x: (b, 1, d) -> ((b, 1, d), new state)."""
+    """One decode step. x: (b, 1, d) -> ((b, 1, d), new state).  On a
+    "model" axis the step runs on the rank's heads, as ``slstm_forward``:
+    it reads their part of ``st`` (whole in its heads) and returns the new
+    state whole."""
     b = x.shape[0]
-    d_inner = n_heads * head_dim
-    wx = layers.linear_apply(p["wx"], x, ctx)[:, 0]      # (b, 4*d_inner)
-    st_new = _slstm_cell(p, wx, st)
-    out = layers.linear_apply(
+    d_inner = _local_heads(ctx, n_heads) * head_dim
+    wx, cell_p = _slstm_wx(p, x, ctx)
+    st_new = _slstm_cell(cell_p, wx[:, 0], layers.state_heads(ctx, st))
+    out = layers.down_apply(
         p["out"], st_new["h"].reshape(b, 1, d_inner).to(x.dtype), ctx)
-    return out, st_new
+    return out, layers.whole_state(ctx, st_new)

@@ -486,7 +486,14 @@ class Constrain:
     shard by split-K partials merged over ``kv_axis``
     (``transformer._attn_apply``); the entry points take the last
     positions across a sequence split (``last_positions``) and return the
-    logits whole on every rank (``whole_logits``).
+    logits whole on every rank (``whole_logits``).  Packed expert banks
+    run as the float ones: a rank's experts (its block of codes and
+    gammas), or every expert on its columns with ``h`` gathered whole
+    before the down bank quantizes it; capacity counts the global batch.
+    A recurrent state stays whole in its heads on every "model" rank (its
+    plane split on the batch alone): a scan on the rank's heads reads its
+    heads of it (``state_heads``) and writes back the new state gathered
+    whole (``whole_state``).
     """
 
     def __init__(self, mesh, cfg, global_batch: int, layout: str = "2d",
@@ -726,13 +733,15 @@ class Constrain:
         return self.mesh.local(x, "model", dim % x.dim()) if self.tp else x
 
     def split_banks(self, p) -> bool:
-        """Whether the float banks of MoE ``p`` are split inside each
-        expert on "model" (JAX's spec where "model" does not divide E: each
-        bank's n_out columns), so that each rank computes every expert on
-        its columns (``experts`` is then all of them)."""
-        if not self.tp or p.packed:
+        """Whether the banks of MoE ``p`` (float masters or packed codes)
+        are split inside each expert on "model" (JAX's spec where "model"
+        does not divide E: each bank's n_out columns), so that each rank
+        computes every expert on its columns (``experts`` is then all of
+        them)."""
+        if not self.tp:
             return False
-        specs = [_model_only(p.specs[f"{n}_w"]) for n in p.BANKS]
+        leaf = "codes" if p.packed else "w"
+        specs = [_model_only(p.specs[f"{n}_{leaf}"]) for n in p.BANKS]
         split = [s == (None, None, "model") for s in specs]
         if any(split) and not all(split):
             raise NotImplementedError(f"expert banks split on 'model' as "
@@ -749,15 +758,18 @@ class Constrain:
         r, m = self.model_rank, self.model_size
         return r * n_experts // m, (r + 1) * n_experts // m
 
-    def expert_bank(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """The part of an (E, n_in, n_out) bank of ``spec`` this rank
-        computes with: the bank as it lies where "model" splits it (on E:
+    def expert_bank(self, t: torch.Tensor, spec: tuple,
+                    split: bool = False) -> torch.Tensor:
+        """The part of an (E, ...) bank leaf of ``spec`` (float masters or
+        packed codes (E, n_in, n_out), packed gammas (E,)) this rank
+        computes with: the leaf as it lies where "model" splits it (on E:
         this rank's experts; inside each expert: its n_out columns, see
-        ``split_banks``), else (a bank whole on every rank) its experts
-        (``experts``) cut from it, their gradient summed over "model"."""
+        ``split_banks``), else (a leaf whole on every rank) its experts
+        (``experts``, every one where the banks are ``split``) cut from it,
+        their gradient summed over "model"."""
         if not self.tp or any(a == "model" for a in _model_only(spec)):
             return t
-        lo, hi = self.experts(t.shape[0])
+        lo, hi = self.experts(t.shape[0], split)
         return self.whole_tensor(t, spec, partial=True)[lo:hi]
 
     def moe_out(self, y: torch.Tensor, p) -> torch.Tensor:
@@ -773,6 +785,28 @@ class Constrain:
         y = self.mesh.gather(y, "model", y.dim() - 1, partial=False)
         return (self.mesh.scatter(y, "model", 1, reduce=False)
                 if self._sp_now else y)
+
+    # -- serving: recurrent states whole in their heads ---------------------
+
+    def state_heads(self, st: dict, dims: Optional[dict] = None) -> dict:
+        """This rank's heads of a recurrent state held whole in its heads
+        (JAX's plane: ``cache_sharding`` splits only its batch), for a scan
+        that runs on the rank's heads: each plane ``n`` cut on its
+        head-major dimension ``dims[n]`` (1 where ``dims`` names none)."""
+        if not self.tp:
+            return st
+        return {n: self.mesh.local(t, "model", (dims or {}).get(n, 1)
+                                   % t.dim()) for n, t in st.items()}
+
+    def whole_state(self, st: dict, dims: Optional[dict] = None) -> dict:
+        """A scan's new state on this rank's heads gathered whole over
+        "model" on each plane's head-major dimension (an exact
+        concatenation in rank order): what the plane stores on every
+        "model" rank."""
+        if not self.tp:
+            return st
+        return {n: self.mesh.all_gather(t, "model", (dims or {}).get(n, 1)
+                                        % t.dim()) for n, t in st.items()}
 
     # -- FSDP: a module's "data" blocks gathered where it runs --------------
 

@@ -19,12 +19,13 @@ backward instead.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
 from repro_torch.core import bitlinear, ternary
 from repro_torch.models import layers, xlstm
-from repro_torch.runtime.sharding import Part
+from repro_torch.runtime.sharding import Part, Rows
 
 
 def _replayed(tape: list):
@@ -116,8 +117,141 @@ def pinned_quantizers(tape: list, replay: bool, *, gammas: bool = False):
         check_used()
 
 
+TIE = 1e-3          # a moved code's |x| / scale lies this near a half
+SCALE_RTOL = 1e-4   # a replaying run's own scales against the recorded ones
+
+
+def _scale_err(s: torch.Tensor, rs: torch.Tensor) -> float:
+    """This run's scales off the recorded ones, of their largest, over the
+    rows the recorded value holds (a buffer row no token of this rank
+    fills is recorded as zero: ``Rows``' mask)."""
+    live = rs != 0
+    if not live.any():
+        return 0.0
+    return float((s.float() - rs.float()).abs()[live].max()
+                 / rs.float().abs().max())
+
+
+def _moved_codes(x, q, s, rq) -> list:
+    """The codes of ``q`` (this run's int8 values of ``x`` at scales
+    ``s``) that differ from ``rq``: [(row, column, |x| / scale, the code,
+    the recorded code)], rows and columns of the values as (-1, last)."""
+    n = q.shape[-1]
+    diff = (q != rq).reshape(-1, n).nonzero().tolist()
+    if not diff:
+        return []
+    xf, sf = x.reshape(-1, n).float(), s.reshape(-1, 1).float()
+    qf, rqf = q.reshape(-1, n), rq.reshape(-1, n)
+    return [(r, c, float(xf[r, c].abs() / sf[r, 0]), int(qf[r, c]),
+             int(rqf[r, c])) for r, c in diff]
+
+
+def _at_tie(a: float, code: int, rec: int) -> bool:
+    """A code one step from the recorded one, from a value within TIE of
+    a rounding tie (a few ULPs move it across)."""
+    return abs(code - rec) == 1 and abs(a - math.floor(a) - 0.5) <= TIE
+
+
 @contextlib.contextmanager
-def pinned_routing(tape: list, replay: bool):
+def pinned_int8(tape: list, replay: bool, rows=None, moved=None, *,
+                max_moved=None, diverged=None):
+    """The packed path's pin (``prefill_step``/``decode_step`` on packed
+    or pre-decoded weights, the serving engine's): record each
+    activation's int8 quantization (``ternary.absmax_quant_values``, which
+    ``absmax_quant`` calls: a packed or pre-decoded linear's input, a
+    row-parallel one's block of it, an expert bank's buffer) as (int8
+    values, scales), in call order, into ``tape`` on the CPU; with
+    ``replay``, give the recorded ones back in that order instead, in the
+    values' own dtype.  A rank of a serving mesh
+    replaying a tape recorded on one device takes its block of each: an
+    expert buffer's rows by the call's ``part`` (``sharding.Rows``), a
+    row-parallel input's features by its ``part``, and, for a call with
+    no ``part`` or a token-major one, its rows by ``rows`` (a function
+    cutting a recorded value to this rank's, for a batch split over
+    ranks).
+
+    A replay holds this run's own quantization to the recorded one, so
+    that what it overwrites is checked: the scales within SCALE_RTOL of
+    the recorded ones (of the call's largest), and every code that
+    differs one step from the recorded one at |x| / scale within TIE of a
+    half (a value a few ULPs from a rounding tie), at most ``max_moved``
+    of them a call; else it raises.  A wrong state, cache or gather
+    before a quantization moves codes by more, away from ties.  Each
+    moved code is appended to ``moved`` as (call, row, column, this run's
+    |x| / scale, its code, the recorded code).
+
+    With ``diverged`` (a list) a replay only compares: the run keeps its
+    own values, and the first call whose values are not the recorded ones
+    (a moved code, a scale past SCALE_RTOL, another shape) is appended to
+    ``diverged`` as ("int8", call); no later call is compared."""
+    orig = ternary.absmax_quant_values
+    take, check_used = _replayed(tape)
+    calls = [0]
+
+    def recorded(x, part):
+        rq, rs = take()
+        if isinstance(part, Rows):
+            rq, rs = part.local(rq), part.local(rs)
+        else:
+            if rows is not None and (x.dim() == 2 or part is None):
+                rq, rs = rows(rq), rows(rs)
+            if part is not None:
+                rq, rs = part.local(rq), part.local(rs)
+        return rq.to(x.device), rs.to(x.device)
+
+    def pinned(x, *args, part=None, **kw):
+        q, s = orig(x, *args, part=part, **kw)
+        if not replay:
+            tape.append((q.to(torch.int8).cpu(), s.cpu()))
+            return q, s
+        call = calls[0]
+        calls[0] += 1
+        if diverged is not None:
+            if diverged:
+                return q, s
+            try:
+                rq, rs = recorded(x, part)
+                same = (rq.shape == q.shape and rs.shape == s.shape
+                        and torch.equal(q, rq.to(q.dtype))
+                        and _scale_err(s, rs) <= SCALE_RTOL)
+            except (IndexError, RuntimeError):   # another routing's rows
+                same = False
+            if not same:
+                diverged.append(("int8", call))
+            return q, s
+        rq, rs = recorded(x, part)
+        rq = rq.to(q.dtype)
+        if rq.shape != q.shape or rs.shape != s.shape:
+            raise AssertionError(
+                f"pinned int8 call {call}: this run's {tuple(q.shape)} "
+                f"against the recorded {tuple(rq.shape)}")
+        err = _scale_err(s, rs)
+        if err > SCALE_RTOL:
+            raise AssertionError(f"pinned int8 call {call}: scales off by "
+                                 f"{err:.3g} of the largest")
+        codes = _moved_codes(x, q, s, rq)
+        far = [m for m in codes if not _at_tie(*m[2:])]
+        if far or (max_moved is not None and len(codes) > max_moved):
+            raise AssertionError(
+                f"pinned int8 call {call}: {len(codes)} codes moved (at "
+                f"most {max_moved}), {len(far)} not one step from a "
+                f"rounding tie: {(far or codes)[:8]}")
+        if moved is not None:
+            moved.extend((call,) + m for m in codes)
+        return rq, rs
+
+    ternary.absmax_quant_values = pinned
+    try:
+        yield tape
+    finally:
+        ternary.absmax_quant_values = orig
+    if replay and not diverged:
+        check_used()
+
+
+@contextlib.contextmanager
+def pinned_routing(tape: list, replay: bool, rows=None, moved=None, *,
+                   diverged=None):
     """Record each MoE layer's top-k experts (``layers.moe_route``'s
     ``idx``) into ``tape`` in call order; with ``replay``, route by the
     recorded experts instead of this run's top-k.  The gates stay the
@@ -125,19 +259,57 @@ def pinned_routing(tape: list, replay: bool):
     gradient), and the positions and keep mask follow from the experts by
     ``layers.route_positions``, as ``moe_route`` takes them.  A rank of a
     training mesh replaying a tape recorded on one device takes its
-    tokens' rows of each routing (``Constrain.token_rows``)."""
+    tokens' rows of each routing (``Constrain.token_rows``; without a
+    ``Constrain``, ``rows``).  Given ``moved`` (a list), a replay also
+    holds this run's own experts to the recorded ones: each token routed
+    otherwise is appended as (call, token, this run's top-k margin), and
+    one whose margin is TIE or more raises.  With ``diverged`` it only
+    compares, as ``pinned_int8`` does: the first call routing a token
+    otherwise is appended as ("routes", call)."""
     orig = layers.moe_route
     take, check_used = _replayed(tape)
+    calls = [0]
 
     def route(p, x, *, top_k, capacity_factor, ctx=None):
         r = orig(p, x, top_k=top_k, capacity_factor=capacity_factor)
         if not replay:
             tape.append(r["idx"].cpu())
             return r
+        call = calls[0]
+        calls[0] += 1
+        if diverged is not None and diverged:
+            return r
         idx = take()
         if ctx is not None and ctx.constrain is not None:
             idx = ctx.constrain.token_rows(idx, x.shape[0])
+        elif rows is not None:
+            idx = rows(idx)
         idx = idx.to(x.device)
+        if moved is not None or diverged is not None:
+            other = idx.shape != r["idx"].shape or not torch.equal(
+                idx.sort(-1).values, r["idx"].sort(-1).values)
+            if diverged is not None:
+                if other:
+                    diverged.append(("routes", call))
+                return r
+            if idx.shape != r["idx"].shape:
+                raise AssertionError(
+                    f"pinned routing call {call}: this run's "
+                    f"{tuple(r['idx'].shape)} against the recorded "
+                    f"{tuple(idx.shape)}")
+            flips = (idx.sort(-1).values != r["idx"].sort(-1).values
+                     ).any(-1).nonzero().flatten().tolist()
+            if flips:   # so top_k is below the expert count
+                top = r["logits"].topk(top_k + 1, -1).values
+                margin = (top[:, -2] - top[:, -1]).tolist()
+            for t in flips:
+                if margin[t] >= TIE:
+                    raise AssertionError(
+                        f"pinned routing call {call}: token {t} routed to "
+                        f"{r['idx'][t].tolist()}, recorded "
+                        f"{idx[t].tolist()}, at a top-{top_k} margin "
+                        f"{margin[t]:.3g}")
+                moved.append((call, t, margin[t]))
         flat = idx.reshape(-1)
         pos = layers.route_positions(flat, p.n_experts)
         return dict(r, gates=torch.softmax(r["logits"].gather(-1, idx), -1),
@@ -149,7 +321,7 @@ def pinned_routing(tape: list, replay: bool):
         yield tape
     finally:
         layers.moe_route = orig
-    if replay:
+    if replay and not diverged:
         check_used()
 
 

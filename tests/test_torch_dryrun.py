@@ -11,11 +11,11 @@ against the JAX package on the CPU.
   of two gloo ranks counts on rank 0 for the same reduced training cells
   and for reduced bitnet's prefill and decode on (1, 2) (JAX's
   partitioned serving layout);
-* ``argument_bytes`` of bitnet-0.73b ``train_4k``, xlstm-350m
-  ``decode_32k`` (the engine's layout: packed weights replicated),
-  bitnet-0.73b ``prefill_32k`` and qwen2-72b ``decode_32k`` (JAX's
-  partitioned layout) on 16 x 16 equal the sum of JAX's
-  ``NamedSharding.shard_shape`` bytes over the same arguments;
+* ``argument_bytes`` of bitnet-0.73b ``train_4k``, and of the serving
+  cells bitnet-0.73b ``prefill_32k``, qwen2-72b, xlstm-350m and
+  mixtral-8x22b ``decode_32k`` (JAX's partitioned layout, every arch's)
+  on 16 x 16 equal the sum of JAX's ``NamedSharding.shard_shape`` bytes
+  over the same arguments;
 * those two cells and mixtral-8x22b ``prefill_32k`` on 2 x 16 x 16 come
   back ``ok`` with JAX's keys, at full width, depth cut to 2 layers (the
   full-depth cells are the sweep's, ``PERF.md``), and a 500k decode of a
@@ -42,7 +42,7 @@ from repro.models import transformer as j_transformer
 from repro.optim.adamw import adamw as j_adamw
 from repro.runtime import sharding as j_shd
 
-from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.configs import ARCHS, ShapeConfig, get_config
 from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.launch import dryrun
 from repro_torch.models import transformer
@@ -159,9 +159,10 @@ def test_meta_flops_equal_flop_counter_on_the_cpu(name, arch, kind, mesh,
 
 
 # the 2-rank training cells, the batch-split layouts on (2, 1), and
-# bitnet's serving cells on (1, 2): an attention-block arch serves in
-# JAX's partitioned layout, whose model communicates over "model" (an MoE
-# or recurrent serving cell keeps the engine's layout and moves nothing)
+# serving cells on (1, 2): every arch serves in JAX's partitioned layout,
+# whose model communicates over "model" (bitnet's row-parallel linears and
+# sequence-split cache; mixtral's expert-parallel banks; xLSTM's states
+# gathered whole in their heads)
 COUNT_CELLS = [c for c in CELLS
                if math.prod(c[3]) == 2 and c[2] == "train"] + [
     ("bitnet train dpzero1 (2, 1)", "bitnet-0.73b", "train", (2, 1),
@@ -170,6 +171,8 @@ COUNT_CELLS = [c for c in CELLS
      ("dp", "compress")),
     ("bitnet prefill (1, 2)", "bitnet-0.73b", "prefill", (1, 2), ()),
     ("bitnet decode (1, 2)", "bitnet-0.73b", "decode", (1, 2), ()),
+    ("mixtral prefill (1, 2)", "mixtral-8x22b", "prefill", (1, 2), ()),
+    ("xlstm decode (1, 2)", "xlstm-350m", "decode", (1, 2), ()),
 ]
 
 COUNT_BODY = '''
@@ -246,31 +249,14 @@ def test_argument_bytes_equal_jax_shard_shapes():
             + _shard_bytes(opt.v, p_sh) + 4 + _shard_bytes(batch, b_sh))
     got = dryrun.build_cell("bitnet-0.73b", "train_4k", DryMesh((16, 16)))
     assert got.local_bytes == want
-    # xlstm-350m decode_32k: packed parameters, one token, cache, length
-    cfg = j_get_config("xlstm-350m")
-    shape = J_SHAPES["decode_32k"]
-    gb = shape.global_batch
-    params = jax.eval_shape(lambda: j_transformer.init_params(
-        cfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
-    packed = jax.eval_shape(lambda p: j_transformer.pack_params(cfg, p),
-                            params)
-    cache = jax.eval_shape(lambda: j_transformer.init_cache(
-        cfg, gb, shape.seq_len, jnp.bfloat16))
-    inp = jax.ShapeDtypeStruct((gb, 1), jnp.int32)
-    # the engine's layout: packed weights whole on every rank; xLSTM's
-    # states split on the batch alone, as JAX's cache spec splits them
-    want = (_shard_bytes(packed, jax.tree_util.tree_map(
-        lambda _: j_shd.ns(jmesh), packed))
-            + _shard_bytes(cache, j_shd.cache_sharding(jmesh, cache, gb))
-            + _shard_bytes(inp, j_shd.ns(jmesh, *j_shd.batch_spec(
-                jmesh, gb, 1))) + 4)
-    got = dryrun.build_cell("xlstm-350m", "decode_32k", DryMesh((16, 16)))
-    assert got.local_bytes == want and got.layout == "engine"
-    # bitnet-0.73b prefill_32k and qwen2-72b decode_32k: JAX's partitioned
-    # layout, packed weights by shard_params, cache by cache_sharding,
-    # inputs by batch_spec (and the decode's 4-byte length)
+    # bitnet-0.73b prefill_32k, and qwen2-72b, xlstm-350m and
+    # mixtral-8x22b decode_32k: JAX's partitioned layout, packed weights by
+    # shard_params, cache by cache_sharding, inputs by batch_spec (and the
+    # decode's 4-byte length)
     for arch, shape_name in (("bitnet-0.73b", "prefill_32k"),
-                             ("qwen2-72b", "decode_32k")):
+                             ("qwen2-72b", "decode_32k"),
+                             ("xlstm-350m", "decode_32k"),
+                             ("mixtral-8x22b", "decode_32k")):
         cfg = j_get_config(arch)
         shape = J_SHAPES[shape_name]
         gb = shape.global_batch
@@ -308,9 +294,10 @@ def test_production_cells_come_back_ok(tmp_path, monkeypatch):
             assert set(r[k]) == want and all(
                 np.isfinite(v) and v >= 0 for v in r[k].values()), (k, r)
         assert r["cost"]["flops"] > 0
-        # a training cell communicates; a serving cell, as the engine
-        # serves a mesh, does not
-        assert (r["collectives"]["total"] > 0) == (shape == "train_4k"), r
+        # a training cell communicates, and so does a serving cell in
+        # JAX's partitioned layout (xLSTM's states gathered whole in their
+        # heads, mixtral's expert-parallel sums)
+        assert r["collectives"]["total"] > 0, r
         mesh = "2x16x16" if multi_pod else "16x16"
         saved = json.load(open(tmp_path / f"{arch}_{shape}_{mesh}.json"))
         assert saved["ok"] and saved["memory"] == r["memory"]

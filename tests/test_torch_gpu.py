@@ -1775,15 +1775,22 @@ finish("SERVE_MESH_OK")
     ("qwen2-72b", dict(n_heads=8, n_kv_heads=1, d_model=256), False, "tlmm"),
     ("musicgen-medium", dict(n_heads=4, d_model=128), False, "tlmm"),
     ("bitnet-0.73b", dict(n_heads=4, d_model=128), True, "tlmm"),
-    ("bitnet-0.73b", dict(n_heads=4, d_model=128), False, "tlmm_lut")],
+    ("bitnet-0.73b", dict(n_heads=4, d_model=128), False, "tlmm_lut"),
+    ("mixtral-8x22b", dict(n_heads=4, d_model=128, n_experts=3), False,
+     "tlmm"),
+    ("hymba-1.5b", dict(n_heads=4, n_kv_heads=2, d_model=128), False,
+     "tlmm")],
     ids=["bitnet 3 heads", "qwen2 kv 1", "musicgen", "bitnet kv8",
-         "bitnet tlmm_lut"])
+         "bitnet tlmm_lut", "mixtral split banks", "hymba heads split"])
 def test_partitioned_serving_on_two_ranks_on_the_card(cuda, tmp_path, case):
     """JAX's partitioned packed serving program (``make_constrain(max_seq=)``)
     on a (1, 2) mesh of two gloo ranks on the one card, reduced configs with
     head dim 32: the mixer whole on each rank (3 heads), K/V split inside a
     head (8 heads on 1 KV head, random QKV biases), the embed frontend, an
-    int8 cache and ``tlmm_lut``, against the single-device port on the card
+    int8 cache, ``tlmm_lut``, mixtral's 3 experts (each bank split inside
+    each expert: every expert's ``tlmm`` on a rank's columns) and hymba's
+    heads split (the SSM's scan and state on a rank's heads, its state
+    whole in its heads), against the single-device port on the card
     reading its cache by split-K over the 2 shards' chunks: prefill logits
     within 1e-4 of their largest, 4 decode steps within 2e-3, the packed
     matmul's kernel launched."""

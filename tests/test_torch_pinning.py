@@ -12,8 +12,10 @@ from repro_torch.core import ternary
 from repro_torch.core.bitlinear import Linear
 from repro_torch.models import layers, xlstm
 from repro_torch.models.layers import Ctx, MoE, Params
-from repro_torch.testing import (leaf_grad_errors, pinned_quantizers,
-                                 pinned_routing, slstm_first_position_kinks,
+from repro_torch.runtime.sharding import Rows
+from repro_torch.testing import (leaf_grad_errors, pinned_int8,
+                                 pinned_quantizers, pinned_routing,
+                                 slstm_first_position_kinks,
                                  slstm_kinks_excluded, slstm_kinks_pinned)
 
 QAT = Ctx(mode="qat")
@@ -22,6 +24,68 @@ QAT = Ctx(mode="qat")
 def _randn(*shape, seed):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(
         shape).astype(np.float32))
+
+
+def test_pinned_int8_replays_recorded_codes_and_lists_the_moved_ones():
+    """The packed path's pin: a replay gives back the recorded int8 values
+    and scales and lists each code this run's own quantization moved
+    (call, row, column, its |x| / scale, its code, the recorded code); it
+    fails on a moved code away from a rounding tie, on scales off the
+    recorded ones, on more moved codes than it allows, and where it runs
+    short.  A comparing replay keeps this run's values and names the
+    first call that differs."""
+    x = _randn(3, 16, seed=4)
+    x[1, 0] = 10.0                       # the row's absmax: scale 10 / 127
+    step = float(ternary.absmax_quant(x)[1][1, 0])
+    x[1, 5] = (3.5 - 1e-5) * step        # just below a rounding tie
+    tape, moved = [], []
+    with pinned_int8(tape, replay=False):
+        q_a, s_a = ternary.absmax_quant(x)
+    assert [t[0].shape for t in tape] == [(3, 16)]
+    y = x.clone()
+    y[1, 5] = (3.5 + 1e-5) * step        # across it: one code up
+    with pinned_int8(tape, replay=True, moved=moved):
+        q_b, s_b = ternary.absmax_quant(y)
+    assert torch.equal(q_b, q_a) and torch.equal(s_b, s_a)
+    assert [m[:3] for m in moved] == [(0, 1, 5)], moved
+    assert abs(moved[0][3] - 3.5) < 1e-3, moved
+    assert moved[0][4] == int(q_a[1, 5]) + 1 == moved[0][5] + 1, moved
+    with pytest.raises(AssertionError, match="at most 0"):
+        with pinned_int8(tape, replay=True, max_moved=0):
+            ternary.absmax_quant(y)
+    far = x.clone()
+    far[1, 6] += 10.0 / 127              # one code up, far from a tie
+    with pytest.raises(AssertionError, match="not one step from"):
+        with pinned_int8(tape, replay=True):
+            ternary.absmax_quant(far)
+    with pytest.raises(AssertionError, match="scales off"):
+        with pinned_int8(tape, replay=True):
+            ternary.absmax_quant(x * 1.01)
+    with pytest.raises(AssertionError, match="ran out"):
+        with pinned_int8(tape, replay=True):
+            ternary.absmax_quant(y)
+            ternary.absmax_quant(y)
+    tape2 = []
+    with pinned_int8(tape2, replay=False):
+        ternary.absmax_quant(x)
+        ternary.absmax_quant(x)
+        ternary.absmax_quant(x)
+    diverged = []
+    with pinned_int8(tape2, replay=True, diverged=diverged):
+        assert torch.equal(ternary.absmax_quant(x)[0], q_a)
+        q_y, _ = ternary.absmax_quant(y)   # its own: one code up
+        assert int(q_y[1, 5]) == int(q_a[1, 5]) + 1
+        ternary.absmax_quant(x)
+    assert diverged == [("int8", 1)], diverged
+    # an expert buffer no token of this rank fills: recorded rows masked
+    # to zero, this run's zero rows at the floor scale, nothing moved
+    tape3 = []
+    with pinned_int8(tape3, replay=False):
+        ternary.absmax_quant(x[:2])
+    empty = Rows((torch.arange(2),), torch.zeros(2, dtype=torch.bool))
+    with pinned_int8(tape3, replay=True, moved=moved):
+        q_e, s_e = ternary.absmax_quant(torch.zeros(2, 16), part=empty)
+    assert not q_e.any() and not s_e.any() and len(moved) == 1
 
 
 def test_pinned_quantizers_replay_the_recorded_values():
@@ -112,6 +176,33 @@ def test_pinned_routing_replays_the_recorded_experts():
         out = layers.moe_apply(moe_g, x_b, ctx=QAT, **kw)
     (g,) = torch.autograd.grad(out.square().sum(), router)
     assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def test_pinned_routing_holds_a_replay_to_its_own_experts():
+    """Given ``moved``, a replay checks this run's own top-k against the
+    recorded experts: the same routing lists nothing, another one away
+    from a near-tie fails; a comparing replay keeps this run's routing and
+    names the first call routing otherwise."""
+    moe = _moe()
+    x_a = _randn(12, 16, seed=5)
+    kw = dict(top_k=2, capacity_factor=1.0)
+    tape, moved = [], []
+    with pinned_routing(tape, replay=False):
+        layers.moe_route(moe, x_a, **kw)
+        layers.moe_route(moe, x_a, **kw)
+    with pinned_routing(tape, replay=True, moved=moved):
+        layers.moe_route(moe, x_a, **kw)
+        layers.moe_route(moe, x_a, **kw)
+    assert moved == []
+    with pytest.raises(AssertionError, match="margin"):
+        with pinned_routing(tape, replay=True, moved=moved):
+            layers.moe_route(moe, -x_a, **kw)
+    diverged = []
+    with pinned_routing(tape, replay=True, diverged=diverged):
+        layers.moe_route(moe, x_a, **kw)
+        own = layers.moe_route(moe, -x_a, **kw)
+    assert diverged == [("routes", 1)], diverged
+    assert torch.equal(own["idx"], layers.moe_route(moe, -x_a, **kw)["idx"])
 
 
 def test_slstm_kinks_are_found_and_cut_from_the_backward():
